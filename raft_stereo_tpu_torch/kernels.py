@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -47,14 +48,14 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
-# Launch counts, one plain integer per kernel: a wrapper adds one where it
-# launches its kernel on CUDA tensors, and nowhere else.
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+# Launch counts, one plain integer per kernel ("corr_lookup", "motion") and
+# per GRU level for the ConvGRU kernel ("conv_gru:gru08", ...): a wrapper
+# adds one where it launches its kernel on CUDA tensors, and nowhere else.
+launches: Counter = Counter()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.clear()
 
 
 def nvcc_path() -> str:

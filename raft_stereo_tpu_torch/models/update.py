@@ -125,7 +125,8 @@ class BasicMultiUpdateBlock(nn.Module):
         grus = self.grus[:self.n_gru_layers]
         return FusedInputs(
             czrq=[stream.prepare_gru_context(g, c, dtype) for g, c in zip(grus, inp)],
-            gru=[stream.gru_weights(g, dtype) for g in grus],
+            gru=[stream.gru_weights(g, dtype, name)
+                 for g, name in zip(grus, ("gru08", "gru16", "gru32"))],
             head=stream.head_weights(self.flow_head, dtype),
             motion=stream.motion_weights(self.encoder, dtype))
 

@@ -64,6 +64,7 @@ class GruWeights(NamedTuple):
     w_gate: torch.Tensor  # (9, ch + cx, pad64(3ch)): [wz | wr | wq] over [h; x]
     w_q: torch.Tensor     # (9, ch, pad64(ch)): wq over h (applied to r*h)
     ch: int
+    level: str            # the GRU's name, keys its launch count
 
 
 class HeadWeights(NamedTuple):
@@ -86,14 +87,15 @@ class MotionWeights(NamedTuple):
     cf: int
 
 
-def gru_weights(gru, dtype: torch.dtype) -> GruWeights:
+def gru_weights(gru, dtype: torch.dtype, level: str = "gru") -> GruWeights:
     """Kernel-layout weights of a ConvGRU module (convz/convr/convq over
-    ``[h; x]``)."""
+    ``[h; x]``). The kernel's launches with them count under
+    ``conv_gru:<level>``."""
     ch = gru.convz.weight.shape[0]
     wz, wr, wq = (_taps(c.weight) for c in (gru.convz, gru.convr, gru.convq))
     w_gate = torch.cat([wz, wr, wq], dim=-1).to(dtype)
     return GruWeights(_pad_cols(w_gate, _pad64(3 * ch)),
-                      _pad_cols(wq[:, :ch].to(dtype), _pad64(ch)), ch)
+                      _pad_cols(wq[:, :ch].to(dtype), _pad64(ch)), ch, level)
 
 
 def head_weights(head, dtype: torch.dtype) -> HeadWeights:
@@ -216,7 +218,7 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
         h_out.data_ptr(), w1, b1, w2, nh, None if f1 is None else f1.data_ptr(),
         None if dx is None else dx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
-    kernels.launches["conv_gru"] += 1
+    kernels.launches[f"conv_gru:{w.level}"] += 1
     return h_out, dx
 
 

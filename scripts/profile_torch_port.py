@@ -11,7 +11,10 @@ to warm up, then once under torch.profiler, and prints JSON lines:
   and the idle share of the frame's window;
 - device ms by group: the port's CUDA kernels (lookup, GRU engine, motion
   stage 1), convolutions and matmuls from the libraries, everything else;
-- the top kernels by device time, with their launch counts.
+- the top kernels by device time, with their launch counts;
+- the library matmuls' device ms by the torch op that launched them;
+- device ms per call of the corr volume and pyramid and of the two
+  per-iteration resizes, each run alone.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -39,9 +42,11 @@ def _group(name: str) -> str:
         return "port:conv3x3 engine (GRU, motion stages 2-3)"
     if "motion_stage1" in n:
         return "port:motion stage 1"
-    if "conv" in n or "cudnn" in n or "xmma" in n or "implicit" in n:
+    # cuDNN's convolutions are implicit GEMMs ("fprop", "implicit_gemm"), so
+    # they are told apart before the matmuls, whose names say gemm too.
+    if any(s in n for s in ("conv", "cudnn", "fprop", "implicit")):
         return "library conv"
-    if "gemm" in n or "cutlass" in n or "cublas" in n:
+    if any(s in n for s in ("gemm", "cutlass", "cublas", "nvjet", "xmma")):
         return "library matmul"
     return "other (elementwise, reductions, copies)"
 
@@ -107,7 +112,52 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, count) in top:
         print(json.dumps({"kernel": name[:120], "device_ms": ms, "launches": count}))
+    print(json.dumps({"library_matmul_by_op": _matmul_owners(prof)}))
+    print(json.dumps({"alone": _alone()}))
     return 0
+
+
+def _matmul_owners(prof) -> dict:
+    """The library matmul group's device ms and launches by the outermost
+    torch op that launched them (einsum of the resize, matmul of the
+    volume, ...), from the profiler's links of kernels to CPU ops."""
+    owners = defaultdict(lambda: [0.0, 0, set()])
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or not evt.kernels:
+            continue
+        owner, e = evt.name, evt
+        while e is not None:
+            if e.name.startswith("aten::"):
+                owner = e.name
+            e = e.cpu_parent
+        for k in evt.kernels:
+            if _group(k.name) == "library matmul":
+                owners[owner][0] += k.duration / 1e3
+                owners[owner][1] += 1
+                owners[owner][2].add(k.name[:80])
+    return {name: {"device_ms": ms, "launches": n, "kernels": sorted(names)}
+            for name, (ms, n, names) in owners.items()}
+
+
+def _alone() -> dict:
+    """Device ms per call of the per-frame volume and pyramid and of the two
+    per-iteration resizes, each alone at the main path's shapes."""
+    import chip_smoke
+    from raft_stereo_tpu_torch.corr import reg_cuda
+    from raft_stereo_tpu_torch.ops.resize import interp_align_corners
+    g = torch.Generator(device="cuda").manual_seed(10)
+    h, w = chip_smoke.FEAT
+    f1, f2 = (torch.randn((1, h, w, 256), generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    n16 = torch.randn((1, h // 2, w // 2, 128), generator=g, device="cuda").to(torch.bfloat16)
+    n32 = torch.randn((1, h // 4, w // 4, 128), generator=g, device="cuda").to(torch.bfloat16)
+    return {
+        "corr_volume_and_pyramid": chip_smoke._device_ms(
+            lambda: reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4)),
+        "resize_gru32_to_gru16": chip_smoke._device_ms(
+            lambda: interp_align_corners(n32, (h // 2, w // 2))),
+        "resize_gru16_to_gru08": chip_smoke._device_ms(
+            lambda: interp_align_corners(n16, (h, w)))}
 
 
 if __name__ == "__main__":

@@ -13,13 +13,21 @@ Phases, each fatal on failure:
    call of the kernel and of the plain version (torch.profiler, ``ms`` and
    ``plain_ms``), and the same calls' wall ms with the Python wrapper
    around them (CUDA events, ``wrapper_ms`` and ``plain_wall_ms``); and the
-   analytic bound;
+   analytic bound. The gru16+32 and resident kernels must also equal, bit
+   for bit, the serial CUDA chain they replace (``serial_ms``: its device
+   ms);
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
    levels, 4 corr levels, radius 4, bf16, reg_cuda) with weights from a
-   seed, three random 375x1242 pairs through the demo's inference function
-   at 32 iterations; per-frame ms, peak memory, and the launch counts, which
-   must be 32 lookup, 32 motion and 32 GRU launches at each of the three
-   levels per frame;
+   seed, through the demo's inference function at 32 iterations, with the
+   launch counts set to 0 before each path and read after it:
+   - the default loop, three random 375x1242 pairs: 32 fused_iter and 32
+     gru1632 launches a frame and none of the serial kernels;
+   - the serial loop (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0) on the first
+     pair again: 32 lookup, 32 motion and 32 GRU launches at each of the
+     three levels, and a disparity equal bit for bit to the default loop's;
+   - one random Middlebury-F pair (2016x2976, the JAX package's headline
+     geometry) through the default loop;
+   per-frame ms and peak memory for each;
 5. the same seeded model at 128x256 and 8 iterations on the card and on the
    CPU (plain versions), disparities held to a stated band.
 
@@ -30,7 +38,8 @@ differences grow into pixels (the JAX package's own bf16 kernel and XLA
 paths then differ that much too). Scaled, an iteration moves under a pixel
 or so, as a trained model's does.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, each kernel's launches
+counted on the path that runs it (named in ``path``); the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints neither.
 """
@@ -38,6 +47,7 @@ this file, it exits non-zero and prints neither.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -56,8 +66,10 @@ PEAK_BYTES = 3.35e12
 
 KITTI = (375, 1242)
 FEAT = (96, 312)  # 1/4 of the padded 384x1248
+MIDDLEBURY_F = (2016, 2976)
 ITERS = 32
 N_FRAMES = 3
+SWITCHES = ("RAFT_FUSE_ITER", "RAFT_FUSE_GRU1632")
 
 
 def _wall_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -214,7 +226,7 @@ def check_gru(level: str) -> dict:
         err = max(err, dx_err)
     npix = h * w
     cx = sum(parts)
-    macs = 9 * (cx * 3 * ch + ch * 2 * ch + ch * ch)
+    macs = _gru_macs(ch, cx)
     wbytes = 9 * (ch + cx) * 3 * ch * 2 + 9 * ch * ch * 2
     nbytes = npix * 2 * (ch + 3 * ch + cx + ch)
     if head:
@@ -277,18 +289,166 @@ def check_motion() -> dict:
             "shape": f"1x{h}x{w}, corr 36, bf16"}
 
 
+def _serial_gru1632(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p):
+    """The serial CUDA route the gru16+32 kernel replaces."""
+    from raft_stereo_tpu_torch.ops import stream
+    from raft_stereo_tpu_torch.ops.resize import interp_align_corners
+    h32n, _ = stream.fused_conv_gru(w32, h32, czrq32, x1p)
+    h16n, _ = stream.fused_conv_gru(w16, h16, czrq16, x0p,
+                                    interp_align_corners(h32n, tuple(h16.shape[1:3])))
+    return h16n, h32n
+
+
+def _gru_macs(ch: int, cx: int) -> int:
+    """MACs a pixel of one ConvGRU step: gates over [h; x], q over r*h."""
+    return 9 * (cx * 3 * ch + ch * 2 * ch + ch * ch)
+
+
+def check_gru1632() -> dict:
+    """Kernel 4 at the main path's shapes (gru16 48x156, gru32 24x78, 128
+    channels). Tolerance as for the GRU kernel, 2^-5 on both states; and
+    bit for bit the serial CUDA chain (two GRU launches and the resize)."""
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    from raft_stereo_tpu_torch.models.update import ConvGRU
+    from raft_stereo_tpu_torch.ops import stream
+    g = _gen(11)
+    ch, bf = 128, torch.bfloat16
+    (h16, w16), (h32, w32) = (FEAT[0] // 2, FEAT[1] // 2), (FEAT[0] // 4, FEAT[1] // 4)
+    g16, g32 = ConvGRU(ch, 2 * ch), ConvGRU(ch, ch)
+    init_weights(g16, torch.Generator().manual_seed(12))
+    init_weights(g32, torch.Generator().manual_seed(13))
+    g16, g32 = g16.cuda(), g32.cuda()
+    with torch.no_grad():
+        args = (stream.gru_weights(g16, bf, "gru16"), stream.gru_weights(g32, bf, "gru32"),
+                _randn((1, h16, w16, ch), g, 0.5), _randn((1, h32, w32, ch), g, 0.5),
+                stream.prepare_gru_context(g16, [_randn((1, h16, w16, ch), g, 0.3)
+                                                 for _ in range(3)], bf),
+                stream.prepare_gru_context(g32, [_randn((1, h32, w32, ch), g, 0.3)
+                                                 for _ in range(3)], bf),
+                _randn((1, h16, w16, ch), g), _randn((1, h32, w32, ch), g))
+        got = stream.fused_gru1632(*args)
+        ref = stream.gru1632_plain(*args)
+        serial = _serial_gru1632(*args)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -5
+    err = max(_max_err(a, b) for a, b in zip(got, ref))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, serial))
+    n16, n32 = h16 * w16, h32 * w32
+    macs = n32 * _gru_macs(ch, ch) + n16 * _gru_macs(ch, 2 * ch)
+    wbytes = 2 * (9 * (2 * ch) * 3 * ch + 9 * (3 * ch) * 3 * ch + 2 * 9 * ch * ch)
+    nbytes = 2 * ((n16 + n32) * (ch + 3 * ch + ch + ch)) + wbytes
+    bound_ms, bound_by = _bound(nbytes, 2.0 * macs, PEAK_BF16)
+
+    def kernel():
+        with torch.no_grad():
+            stream.fused_gru1632(*args)
+
+    def plain():
+        with torch.no_grad():
+            stream.gru1632_plain(*args)
+
+    def chain():
+        with torch.no_grad():
+            _serial_gru1632(*args)
+
+    return {"name": "gru1632", "counter": "gru1632", "tol": tol, "ok": err <= tol and bitwise,
+            "max_abs_err": err, "bitwise_equal_serial": bitwise, **_timings(kernel, plain),
+            "serial_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"}
+
+
+def check_resident() -> dict:
+    """Kernel 6 at the main path's shapes (96x312, 128 channels, the pyramid
+    of 256-channel feature maps, x2 the upsampled gru16 state). Tolerances
+    as for the GRU kernel with the head: 2^-5 for h', 2^-5 of the RMS of
+    dx for dx; and bit for bit the serial CUDA chain (lookup, motion, GRU
+    with the head)."""
+    from raft_stereo_tpu_torch.corr import reg_cuda
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
+    from raft_stereo_tpu_torch.ops import resident, stream
+    g = _gen(14)
+    ch, bf = 128, torch.bfloat16
+    h, w = FEAT
+    enc, gru, fh = BasicMotionEncoder(36), ConvGRU(ch, 2 * ch), FlowHead(ch, 256, 2)
+    for i, m in enumerate((enc, gru, fh)):
+        init_weights(m, torch.Generator().manual_seed(15 + i))
+    enc, gru, fh = enc.cuda(), gru.cuda(), fh.cuda()
+    ops = reg_cuda.build_corr_operands(_randn((1, h, w, 256), g), _randn((1, h, w, 256), g),
+                                       num_levels=4, radius=4)
+    coords = torch.rand((1, h, w), generator=g, device="cuda") * (w + 40) - 20
+    flow = torch.cat([_randn((1, h, w, 1), g, 4.0),
+                      torch.zeros((1, h, w, 1), device="cuda", dtype=bf)], -1)
+    with torch.no_grad():
+        args = (stream.motion_weights(enc, bf), stream.gru_weights(gru, bf, "gru08"),
+                stream.head_weights(fh, bf), ops, _randn((1, h, w, ch), g, 0.5),
+                stream.prepare_gru_context(gru, [_randn((1, h, w, ch), g, 0.3)
+                                                 for _ in range(3)], bf),
+                coords, flow, _randn((1, h, w, ch), g))
+        got = resident.fused_iter(*args)
+        ref = resident.fused_iter_plain(*args)
+
+        def chain():
+            corr = reg_cuda.lookup(ops, coords)
+            motion = stream.fused_motion(args[0], flow, corr)
+            return stream.fused_conv_gru(args[1], args[4], args[5], motion, args[8],
+                                         head=args[2])
+
+        serial = chain()
+    torch.cuda.synchronize()
+    tol = 2.0 ** -5
+    err_h = _max_err(got[0], ref[0])
+    dx_rms = float(ref[1].square().mean().sqrt())
+    err_dx = _max_err(got[1], ref[1])
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, serial))
+    npix, k = h * w, 9
+    motion_macs = 36 * 64 + 49 * 64 + 2 * 9 * 64 * 64 + 9 * 128 * 126
+    macs = npix * (motion_macs + _gru_macs(ch, 2 * ch) + 9 * (ch * 256 + 256))
+    wbytes = 2 * (36 * 64 + 49 * 64 + 9 * 128 * 128 + 9 * 128 * 126 + 9 * 3 * ch * 3 * ch
+                  + 9 * ch * ch + 9 * ch * 256 + 9 * 256)
+    # coords, the 2r+2 taps of 4 levels, flow; h, czrq, x2; h' and dx out.
+    nbytes = npix * (4 + 4 * (k + 1) * 2 + 2 * 2 + 2 * (ch + 3 * ch + ch) + 2 * ch + 4) + wbytes
+    bound_ms, bound_by = _bound(nbytes, 2.0 * macs, PEAK_BF16)
+
+    def kernel():
+        with torch.no_grad():
+            resident.fused_iter(*args)
+
+    def plain():
+        with torch.no_grad():
+            resident.fused_iter_plain(*args)
+
+    def serial_run():
+        with torch.no_grad():
+            chain()
+
+    return {"name": "fused_iter", "counter": "fused_iter", "tol": tol,
+            "ok": err_h <= tol and err_dx <= tol * dx_rms and bitwise,
+            "max_abs_err": max(err_h, err_dx), "max_abs_err_h": err_h, "max_abs_err_dx": err_dx,
+            "tol_dx": tol * dx_rms, "dx_rms": dx_rms, "bitwise_equal_serial": bitwise,
+            **_timings(kernel, plain), "serial_ms": _device_ms(serial_run),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"1x{h}x{w}x{ch}, 4 levels r=4, x2 {ch}, bf16"}
+
+
 def phase_kernels() -> list:
     from raft_stereo_tpu_torch.corr import reg_cuda
     from raft_stereo_tpu_torch.ops import stream
+    from raft_stereo_tpu_torch.ops import resident
     results = [check_lookup(), check_gru("gru08"), check_gru("gru16"),
-               check_gru("gru32"), check_motion()]
+               check_gru("gru32"), check_motion(), check_gru1632(), check_resident()]
     sources = {"corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu",
                                "raft_stereo_tpu/corr/pallas_reg.py:730", reg_cuda.lookup),
                "conv_gru": ("raft_stereo_tpu_torch/csrc/conv_gru.cu",
                             "raft_stereo_tpu/ops/pallas_stream.py:145",
                             stream.fused_conv_gru),
                "motion": ("raft_stereo_tpu_torch/csrc/motion.cu",
-                          "raft_stereo_tpu/ops/pallas_stream.py:1218", stream.fused_motion)}
+                          "raft_stereo_tpu/ops/pallas_stream.py:1218", stream.fused_motion),
+               "gru1632": ("raft_stereo_tpu_torch/csrc/gru1632.cu",
+                           "raft_stereo_tpu/ops/pallas_stream.py:686", stream.fused_gru1632),
+               "fused_iter": ("raft_stereo_tpu_torch/csrc/resident.cu",
+                              "raft_stereo_tpu/ops/pallas_resident.py:116",
+                              resident.fused_iter)}
     failed = []
     for r in results:
         kernel = r["name"].split(":")[0]
@@ -323,39 +483,69 @@ def seeded_model(device: str):
     return model
 
 
-def phase_main_path() -> dict:
-    """The demo's inference at full width; every kernel must carry the loop."""
+def _drive(model, pairs, want: dict, path: str) -> tuple:
+    """The demo's inference over ``pairs`` at full width, counts set to 0
+    just before and read just after; each frame must launch exactly
+    ``want``."""
     from raft_stereo_tpu_torch import kernels
     from raft_stereo_tpu_torch.demo import infer_pair
-    model = seeded_model("cuda")
-    pairs = random_pairs(N_FRAMES, KITTI, seed=7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    frame_ms, per_frame = [], []
-    want = {"corr_lookup": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS,
-            "conv_gru:gru16": ITERS, "conv_gru:gru32": ITERS}
+    frame_ms, per_frame, disps = [], [], []
     for left, right in pairs:
         before = dict(kernels.launches)
         t0 = time.perf_counter()
         disp = infer_pair(model, left, right, iters=ITERS)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        counts = {k: n - before.get(k, 0) for k, n in kernels.launches.items()}
+        counts = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
+                  if n != before.get(k, 0)}
         per_frame.append(counts)
-        if tuple(disp.shape) != KITTI or not bool(torch.isfinite(disp).all()):
-            raise SystemExit(f"bad disparity: shape {tuple(disp.shape)}, "
+        shape = tuple(left.shape[1:3])
+        if tuple(disp.shape) != shape or not bool(torch.isfinite(disp).all()):
+            raise SystemExit(f"{path}: bad disparity: shape {tuple(disp.shape)}, "
                              f"finite {bool(torch.isfinite(disp).all())}")
         if counts != want:
-            raise SystemExit(f"launches per frame {counts}, expected {want}")
-    result = {"phase": "main_path", "frames": N_FRAMES, "iters": ITERS,
-              "input": f"{KITTI[0]}x{KITTI[1]} padded to 384x1248",
-              "frame_ms": frame_ms,
+            raise SystemExit(f"{path}: launches per frame {counts}, expected {want}")
+        disps.append(disp)
+    result = {"phase": "main_path", "path": path, "frames": len(pairs), "iters": ITERS,
+              "input": "x".join(map(str, pairs[0][0].shape[1:3])), "frame_ms": frame_ms,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "launches": dict(kernels.launches), "launches_per_frame": per_frame,
-              "disparity_mean_last": float(disp.mean())}
+              "disparity_mean_last": float(disps[-1].mean())}
     print(json.dumps(result))
-    return result
+    return result, disps
+
+
+def phase_main_path() -> dict:
+    """The demo's inference at full width: the default loop, the serial
+    loop on the first pair again, and one headline-size frame. Every kernel
+    of a loop must carry it, and the two loops must agree bit for bit."""
+    model = seeded_model("cuda")
+    pairs = random_pairs(N_FRAMES, KITTI, seed=7)
+    default = {"fused_iter": ITERS, "gru1632": ITERS}
+    serial = {"corr_lookup": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS,
+              "conv_gru:gru16": ITERS, "conv_gru:gru32": ITERS}
+    for knob in SWITCHES:
+        os.environ.pop(knob, None)
+    run_default, disp_default = _drive(model, pairs, default, "default")
+    try:
+        for knob in SWITCHES:
+            os.environ[knob] = "0"
+        run_serial, disp_serial = _drive(model, pairs[:1], serial,
+                                         "serial (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)")
+    finally:
+        for knob in SWITCHES:
+            os.environ.pop(knob, None)
+    same = torch.equal(disp_default[0], disp_serial[0])
+    print(json.dumps({"phase": "default_vs_serial", "bitwise_equal": same,
+                      "max_abs_diff": _max_err(disp_default[0], disp_serial[0])}))
+    if not same:
+        raise SystemExit("the default and serial loops give different disparities")
+    headline, _ = _drive(model, random_pairs(1, MIDDLEBURY_F, seed=12), default,
+                         "default, Middlebury-F")
+    return {"default": run_default, "serial": run_serial, "headline": headline}
 
 
 def phase_cross_check() -> dict:
@@ -405,13 +595,19 @@ def main() -> int:
     phase_cross_check()
     line = []
     for r in results:
+        run = main_path["default" if r["counter"] in main_path["default"]["launches"]
+                        else "serial"]
         line.append({"name": r["name"], "route": r["route"], "source": r["source"],
-                     "replaces": r["replaces"],
-                     "launches": main_path["launches"][r["counter"]],
+                     "replaces": r["replaces"], "path": run["path"], "frames": run["frames"],
+                     "launches": run["launches"].get(r["counter"], 0),
+                     "launches_per_frame": run["launches_per_frame"][0].get(r["counter"], 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+                     "serial_ms": r.get("serial_ms"),
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None, "library_note": r["library_note"]})
+        if line[-1]["launches"] == 0:
+            raise SystemExit(f"kernel {r['name']} was launched no time on its path")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,20 @@ Correlation choices:
   ``reg_tpu`` is accepted as its alias, so JAX configurations load as is.
 - ``alt``, ``alt_cuda``, ``alt_tpu``: not ported yet (ROADMAP Queue B,
   "alt"); they raise ``NotImplementedError``.
+
+Two switches, read from the environment at call time under the JAX
+package's names, default on, off for ``0``/``false``/``no``/``off``:
+``RAFT_FUSE_GRU1632`` (the gru16+32 co-schedule kernel) and
+``RAFT_FUSE_ITER`` (the resident iteration kernel). Off, the loop runs the
+serial kernels of slice 1. Only a caller flips them; nothing does on an
+error.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +31,22 @@ import torch
 CORR_IMPLEMENTATIONS = ("reg", "alt", "reg_tpu", "alt_tpu", "reg_cuda", "alt_cuda")
 CORR_ALIASES = {"reg_tpu": "reg_cuda"}
 _NOT_PORTED = ("alt", "alt_cuda", "alt_tpu")
+_OFF = ("0", "false", "no", "off")
+
+
+def _switch_on(name: str) -> bool:
+    return os.environ.get(name, "1").strip().lower() not in _OFF
+
+
+def fuse_gru1632_on() -> bool:
+    """``RAFT_FUSE_GRU1632``: gru32 and gru16 in one kernel launch."""
+    return _switch_on("RAFT_FUSE_GRU1632")
+
+
+def fuse_iter_on() -> bool:
+    """``RAFT_FUSE_ITER``: lookup, motion encoder, gru08 and FlowHead in one
+    kernel launch."""
+    return _switch_on("RAFT_FUSE_ITER")
 
 
 @dataclasses.dataclass

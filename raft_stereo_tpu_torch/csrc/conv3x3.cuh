@@ -1,21 +1,30 @@
 // Shared 3x3 convolution engine for the GRU and motion-encoder kernels.
 //
-// An implicit GEMM over NHWC bf16 activations: a block computes BM output
-// pixels (flat over B*H*W) by BN output channels, walking K = 9 taps x the
-// input channels in BK-wide steps. Each step's A tile (BM pixels x BK
-// channels, zero where the tap falls outside the image: conv zero padding)
-// and B tile (BK x BN weights) are copied into a ring of STAGES shared-memory
-// tiles with cp.async, so the copies of the next steps overlap the current
-// one's WMMA bf16 tiles (mma.sync on Hopper), which accumulate in fp32. The
-// fp32 accumulators go through shared memory to an epilogue functor that
-// applies the caller's bias, nonlinearity and rounding per (pixel, channel)
-// and writes the outputs.
+// An implicit GEMM over NHWC bf16 activations: one output tile is BM output
+// pixels (flat over B*H*W) by BN output channels, computed by walking K = 9
+// taps x the input channels in BK-wide steps. Each step's A tile (BM pixels
+// x BK channels, zero where the tap falls outside the image: conv zero
+// padding) and B tile (BK x BN weights) are copied into a ring of STAGES
+// shared-memory tiles with cp.async, so the copies of the next steps overlap
+// the current one's WMMA bf16 tiles (mma.sync on Hopper), which accumulate
+// in fp32. The fp32 accumulators go through shared memory to an epilogue
+// functor that applies the caller's bias, nonlinearity and rounding per
+// (pixel, channel) and writes the outputs.
 //
-// The input is a virtual channel concat of up to three NHWC tensors, so a
-// caller's x parts are never concatenated in device memory. Output columns
+// The input is a virtual channel concat of up to four NHWC tensors, so a
+// caller's parts are never concatenated in device memory. Output columns
 // below `n_split` read input channels [k0a, k1a) of that concat, the others
 // [k0b, k1b): the GRU's q gate skips the hidden-state channels, and the
 // motion encoder's block-diagonal stage-2 conv reads only its own branch.
+// One part may instead be computed while its A tiles are loaded (the `Src`
+// policy): the gru16+32 kernel builds the upsampled gru32 state there.
+//
+// conv3x3_tile computes one (BM x BN) tile. conv3x3_kernel runs one tile
+// per block (the serial kernels, one launch per stage); the persistent
+// kernels (gru1632.cu, resident.cu) run conv3x3_stage, a grid-stride loop
+// over the same tiles, between grid barriers. Both reach the same code, so
+// the K-step order, the tile shape and the epilogue arithmetic are the same
+// and the two routes agree bit for bit.
 //
 // TMA copies, wgmma and warp specialisation are later work.
 #pragma once
@@ -29,9 +38,11 @@ namespace rst {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kMaxParts = 4;
+
 struct ConvIn {
-  const bf16* ptr[3];  // NHWC parts of the virtual input concat
-  int cin[3];          // channels of each part, multiples of BK
+  const bf16* ptr[kMaxParts];  // NHWC parts of the virtual input concat
+  int cin[kMaxParts];          // channels of each part, multiples of BK
   int nparts;
   int B, H, W;         // geometry shared by the parts and the output
   const bf16* w;       // [9][ctot][npad]: tap-major, input channel, output channel
@@ -46,6 +57,19 @@ constexpr int STAGES = 3;  // depth of the shared-memory ring of K steps
 
 // Weight matrices carry their output columns zero-padded to this multiple.
 inline int pad64(int n) { return (n + 63) / 64 * 64; }
+
+// Shared memory of one tile at output width BN: the ring, reused for the
+// fp32 accumulators once the K loop is done.
+template <int BN>
+struct TileSmem {
+  static constexpr int LDA = BK + 8;  // bf16 elements; keeps rows 16 B aligned
+  static constexpr int LDB = BN + 8;
+  static constexpr int LDC = BN + 4;  // floats
+  static constexpr int STAGE = BM * LDA + BK * LDB;  // bf16 elements per stage
+  static constexpr int AB = STAGES * STAGE * 2;
+  static constexpr int C = BM * LDC * 4;
+  static constexpr int BYTES = AB > C ? AB : C;
+};
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -64,29 +88,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int BN, class Epi>
-__global__ void __launch_bounds__(THREADS) conv3x3_kernel(ConvIn a, Epi epi) {
+// The default A-tile source: every part is a tensor in device memory. A
+// computed source (kComputed) writes the 8 bf16 values of one (pixel,
+// 8-channel) slot of its part with load8.
+struct CopySrc {
+  static constexpr bool kComputed = false;
+  int part = -1;
+  __device__ void load8(bf16*, int, int, int, int) const {}
+};
+
+template <int BN, class Epi, class Src = CopySrc>
+__device__ __forceinline__ void conv3x3_tile(const ConvIn& a, const Epi& epi, int mtile,
+                                             int ntile, unsigned char* smem,
+                                             const Src& src_policy = Src{}) {
   using namespace nvcuda;
+  using S = TileSmem<BN>;
   constexpr int WARPS_N = BN >= 32 ? 2 : 1;
   constexpr int WARPS_M = (THREADS / 32) / WARPS_N;
   constexpr int WM = BM / WARPS_M;
   constexpr int WN = BN / WARPS_N;
   constexpr int FM = WM / 16;
   constexpr int FN = WN / 16;
-  constexpr int LDA = BK + 8;  // bf16 elements; keeps rows 16 B aligned
-  constexpr int LDB = BN + 8;
-  constexpr int LDC = BN + 4;  // floats
-  constexpr int STAGE = BM * LDA + BK * LDB;  // bf16 elements per stage
-  constexpr int SMEM_AB = STAGES * STAGE * 2;
-  constexpr int SMEM_C = BM * LDC * 4;
-  constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
-  __shared__ __align__(128) unsigned char smem[SMEM];
+  constexpr int LDA = S::LDA;
+  constexpr int LDB = S::LDB;
+  constexpr int LDC = S::LDC;
+  constexpr int STAGE = S::STAGE;
   bf16* stages = reinterpret_cast<bf16*>(smem);
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int npix = a.B * a.H * a.W;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int m0 = mtile * BM;
+  const int n0 = ntile * BN;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wm = warp / WARPS_N;
@@ -132,13 +164,30 @@ __global__ void __launch_bounds__(THREADS) conv3x3_kernel(ConvIn a, Epi epi) {
     const int cl = kc - off;
     bf16* As = stages + stage * STAGE;
     bf16* Bs = As + BM * LDA;
+    if (Src::kComputed && part == src_policy.part) {
+      // Built in registers and stored; the __syncthreads before the step
+      // is consumed makes the stores visible, as it does the copies.
 #pragma unroll
-    for (int v = 0; v < AVEC; ++v) {
-      const int sy = ay[v] + dy;
-      const int sx = ax[v] + dx;
-      const bool in = aok[v] && sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
-      const bf16* g = in ? src + ((size_t)(aimg[v] + sy) * a.W + sx) * cin + cl + acol[v] : src;
-      cp_async16(As + arow[v] * LDA + acol[v], g, in);
+      for (int v = 0; v < AVEC; ++v) {
+        const int sy = ay[v] + dy;
+        const int sx = ax[v] + dx;
+        const bool in = aok[v] && sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
+        bf16* d = As + arow[v] * LDA + acol[v];
+        if (in)
+          src_policy.load8(d, aimg[v] / a.H, sy, sx, cl + acol[v]);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < AVEC; ++v) {
+        const int sy = ay[v] + dy;
+        const int sx = ax[v] + dx;
+        const bool in = aok[v] && sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
+        const bf16* g =
+            in ? src + ((size_t)(aimg[v] + sy) * a.W + sx) * cin + cl + acol[v] : src;
+        cp_async16(As + arow[v] * LDA + acol[v], g, in);
+      }
     }
     for (int idx = tid; idx < BK * BN / 8; idx += THREADS) {
       const int r = idx / (BN / 8);
@@ -201,15 +250,46 @@ __global__ void __launch_bounds__(THREADS) conv3x3_kernel(ConvIn a, Epi epi) {
     const int p = m0 + r;
     if (p < npix) epi(p, n0 + c, Cs[r * LDC + c]);
   }
+  __syncthreads();  // Cs is read out before a next tile refills the ring
 }
 
-// Launches the engine on `stream` and returns the launch's cudaError_t.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(THREADS) conv3x3_kernel(ConvIn a, Epi epi) {
+  __shared__ __align__(128) unsigned char smem[TileSmem<BN>::BYTES];
+  conv3x3_tile<BN>(a, epi, blockIdx.x, blockIdx.y, smem);
+}
+
+// Launches the engine on `stream`, one block per tile, and returns the
+// launch's cudaError_t.
 template <int BN, class Epi>
 inline int launch_conv3x3(const ConvIn& a, const Epi& epi, cudaStream_t stream) {
   const int npix = a.B * a.H * a.W;
   dim3 grid((npix + BM - 1) / BM, a.npad / BN);
   conv3x3_kernel<BN, Epi><<<grid, THREADS, 0, stream>>>(a, epi);
   return (int)cudaGetLastError();
+}
+
+inline __host__ __device__ int conv3x3_tiles(const ConvIn& a, int bn) {
+  return (a.B * a.H * a.W + BM - 1) / BM * (a.npad / bn);
+}
+
+// One stage of a persistent kernel: every tile of the launch above. Blocks
+// take tiles in the launch's order (pixel tiles fastest) from a counter in
+// device memory, zeroed before the launch, so a block that drew short tiles
+// takes more, as the hardware's block scheduler would do for the launch.
+template <int BN, class Epi, class Src = CopySrc>
+__device__ __forceinline__ void conv3x3_stage(const ConvIn& a, const Epi& epi, unsigned char* smem,
+                                              unsigned int* counter, const Src& src = Src{}) {
+  __shared__ int tile;
+  const int mt = (a.B * a.H * a.W + BM - 1) / BM;
+  const int total = mt * (a.npad / BN);
+  for (;;) {
+    if (threadIdx.x == 0) tile = (int)atomicAdd(counter, 1u);
+    __syncthreads();
+    const int t = tile;
+    if (t >= total) break;  // the tile ends in __syncthreads before `tile` is redrawn
+    conv3x3_tile<BN>(a, epi, t % mt, t / mt, smem, src);
+  }
 }
 
 }  // namespace rst

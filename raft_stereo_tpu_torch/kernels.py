@@ -26,9 +26,12 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "raft_stereo_tpu_torch"
-SOURCES = ("corr_lookup", "conv_gru", "motion")
+SOURCES = ("corr_lookup", "conv_gru", "motion", "gru1632", "resident")
+# -fmad=false: no multiply and add is contracted into a fused multiply-add
+# behind the source's back, so the serial kernels and the persistent ones
+# that inline the same stages round the same way (fmaf stays explicit).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,14 +46,21 @@ _SIGNATURES = {
     "motion": ("rst_motion",
                [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                 _P, _P, _P, _P]),
+    "gru1632": ("rst_gru1632",
+                [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 18),
+    "resident": ("rst_resident",
+                 [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _P, _P, _P,
+                  _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                  _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11),
 }
 
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
-# Launch counts, one plain integer per kernel ("corr_lookup", "motion") and
-# per GRU level for the ConvGRU kernel ("conv_gru:gru08", ...): a wrapper
-# adds one where it launches its kernel on CUDA tensors, and nowhere else.
+# Launch counts, one plain integer per kernel ("corr_lookup", "motion",
+# "gru1632", "fused_iter") and per GRU level for the ConvGRU kernel
+# ("conv_gru:gru08", ...): a wrapper adds one where it launches its kernel
+# on CUDA tensors, and nowhere else.
 launches: Counter = Counter()
 
 

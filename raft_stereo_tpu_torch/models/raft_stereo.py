@@ -16,6 +16,10 @@ segments of m iterations and one segment of k*m give the same bits.
 Per iteration, as in the JAX package: the flow is cast to the compute dtype,
 the x position feeds the correlation lookup, the update block steps the GRUs
 coarse to fine, and the y delta is zeroed in fp32 (the epipolar projection).
+In bf16 with ``reg_cuda`` the JAX package's default loop runs: the gru16+32
+kernel, then the resident iteration kernel in place of the lookup, motion
+and gru08 kernels (``RAFT_FUSE_GRU1632``, ``RAFT_FUSE_ITER``; either off
+gives the serial kernels, with the same bits).
 Train mode waits for the training slice.
 """
 
@@ -26,8 +30,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from raft_stereo_tpu_torch.config import RAFTStereoConfig, resolve_device
-from raft_stereo_tpu_torch.corr import make_corr_fn
+from raft_stereo_tpu_torch.config import RAFTStereoConfig, fuse_iter_on, resolve_device
+from raft_stereo_tpu_torch.corr import make_corr
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import Conv2d, ResidualBlock, init_weights
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
@@ -124,25 +128,35 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     """Advance the carry ``iters`` iterations. Returns ``(new_state,
     dnorm)``, where ``dnorm`` (B,) fp32 is the mean per-iteration |delta x|
     over the segment. ``warm_start`` keeps the motion encoder off the
-    kernel, as a caller-supplied flow_init requires."""
+    kernels (the motion kernel and the resident iteration), as a
+    caller-supplied flow_init requires."""
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
     corr_dtype = torch.float32 if cfg.corr_kind == "reg" else dt
-    corr_fn = make_corr_fn(cfg.corr_kind, state["fmap1"].to(corr_dtype),
-                           state["fmap2"].to(corr_dtype), num_levels=cfg.corr_levels,
-                           radius=cfg.corr_radius, out_dtype=dt)
+    corr_fn, corr_ops = make_corr(cfg.corr_kind, state["fmap1"].to(corr_dtype),
+                                  state["fmap2"].to(corr_dtype), num_levels=cfg.corr_levels,
+                                  radius=cfg.corr_radius, out_dtype=dt)
     coords_in = state["coords1"]
     b, h, w = coords_in.shape[:3]
     coords0 = coords_grid(b, h, w, device=coords_in.device)
     inp = state["inp"]
     fused = ub.prepare_fused(inp, dt) if dt == torch.bfloat16 else None
+    # The resident iteration, as in the JAX package: with the kernels in
+    # use, reg_cuda's operands, RAFT_FUSE_ITER on and no warm start (the
+    # kernel's motion encoder drops the flow-y weights).
+    resident = (fused is not None and corr_ops is not None and not warm_start
+                and fuse_iter_on())
     net, coords1 = state["net"], coords_in
     for _ in range(iters):
         flow = (coords1 - coords0).to(dt)
-        corr = corr_fn(coords1[..., 0])
-        net, delta_flow = ub(net, inp, corr, flow, fused=fused,
-                             fuse_motion=not warm_start)
+        if resident:
+            net, delta_flow = ub.step_resident(net, inp, corr_ops, coords1[..., 0], flow,
+                                               fused=fused)
+        else:
+            corr = corr_fn(coords1[..., 0])
+            net, delta_flow = ub(net, inp, corr, flow, fused=fused,
+                                 fuse_motion=not warm_start)
         dx = delta_flow[..., :1].float()
         coords1 = coords1 + torch.cat([dx, torch.zeros_like(dx)], dim=-1)
     dnorm = (coords1 - coords_in)[..., 0].abs().mean(dim=(1, 2)) / float(iters)

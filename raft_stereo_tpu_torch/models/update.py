@@ -5,9 +5,13 @@ The modules' own ``forward`` methods are the JAX package's plain
 formulation (``models/update.py``): split gate convs summed in fp32 and
 rounded once. In bf16 test mode the update block instead routes the GRUs,
 the FlowHead and the motion encoder through the hand-written kernels of
-:mod:`raft_stereo_tpu_torch.ops.stream`, which round where the JAX package's
-Pallas kernels do; the loop-invariant inputs those take are built once per
-frame by :meth:`BasicMultiUpdateBlock.prepare_fused`.
+:mod:`raft_stereo_tpu_torch.ops.stream` and :mod:`~raft_stereo_tpu_torch.
+ops.resident`, which round where the JAX package's Pallas kernels do; the
+loop-invariant inputs those take are built once per frame by
+:meth:`BasicMultiUpdateBlock.prepare_fused`. As in the JAX package, gru32
+and gru16 then run as one kernel (``RAFT_FUSE_GRU1632``), and the caller
+may take the resident iteration (:meth:`BasicMultiUpdateBlock.
+step_resident`, ``RAFT_FUSE_ITER``); both give the serial kernels' bits.
 
 Hidden-dim convention as in the reference: ``hidden_dims[2]`` is the finest
 scale (gru08), ``hidden_dims[0]`` the coarsest.
@@ -20,11 +24,12 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from raft_stereo_tpu_torch.config import RAFTStereoConfig
+from raft_stereo_tpu_torch.config import RAFTStereoConfig, fuse_gru1632_on
 from raft_stereo_tpu_torch.models.layers import Conv2d
 from raft_stereo_tpu_torch.ops import stream
 from raft_stereo_tpu_torch.ops.basic import conv2d
 from raft_stereo_tpu_torch.ops.pooling import pool2x
+from raft_stereo_tpu_torch.ops.resident import fused_iter
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners
 
 
@@ -130,6 +135,51 @@ class BasicMultiUpdateBlock(nn.Module):
             head=stream.head_weights(self.flow_head, dtype),
             motion=stream.motion_weights(self.encoder, dtype))
 
+    def _gru(self, idx: int, h: torch.Tensor, inp, fused: Optional[FusedInputs],
+             *xs: torch.Tensor) -> torch.Tensor:
+        if fused is not None:
+            return stream.fused_conv_gru(fused.gru[idx], h, fused.czrq[idx], *xs)[0]
+        return self.grus[idx](h, inp[idx], *xs)
+
+    def gru1632_engaged(self, net: Sequence[torch.Tensor],
+                        fused: Optional[FusedInputs]) -> bool:
+        """Whether the coarse GRUs run the gru16+32 kernel: three levels, the
+        kernels in use (bf16), ``RAFT_FUSE_GRU1632`` on, gru16 and gru32 of
+        one hidden width, and gru32's map exactly half of gru16's."""
+        if fused is None or self.n_gru_layers != 3 or not fuse_gru1632_on():
+            return False
+        h16, h32 = net[1], net[2]
+        return (h16.shape[-1] == h32.shape[-1] and h16.shape[1] == 2 * h32.shape[1]
+                and h16.shape[2] == 2 * h32.shape[2])
+
+    def step_coarse(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
+                    fused: Optional[FusedInputs] = None) -> Tuple[torch.Tensor, ...]:
+        """The coarse GRUs of one step, gru32 then gru16 (those the model
+        has), leaving gru08 as it is: the JAX package's update block with
+        ``iter08=False, update=False``. With the gru16+32 kernel engaged
+        (:meth:`gru1632_engaged`), one launch does both."""
+        net = list(net)
+        n = self.n_gru_layers
+        if self.gru1632_engaged(net, fused):
+            net[1], net[2] = stream.fused_gru1632(
+                fused.gru[1], fused.gru[2], net[1], net[2], fused.czrq[1], fused.czrq[2],
+                pool2x(net[0]), pool2x(net[1]))
+            return tuple(net)
+        if n == 3:
+            net[2] = self._gru(2, net[2], inp, fused, pool2x(net[1]))
+        if n >= 2:
+            xs16 = (pool2x(net[0]),)
+            if n == 3:
+                xs16 += (interp_align_corners(net[2], net[1].shape[1:3]),)
+            net[1] = self._gru(1, net[1], inp, fused, *xs16)
+        return tuple(net)
+
+    def _delta_flow(self, dx: torch.Tensor) -> torch.Tensor:
+        # The kernels leave out conv2.b[0]; the y delta is zeroed by the
+        # epipolar projection, so it is never computed.
+        dx = dx + self.flow_head.conv2.bias[0]
+        return torch.cat([dx, torch.zeros_like(dx)], dim=-1)
+
     def forward(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
                 corr: torch.Tensor, flow: torch.Tensor, *,
                 fused: Optional[FusedInputs] = None, fuse_motion: bool = True):
@@ -137,39 +187,37 @@ class BasicMultiUpdateBlock(nn.Module):
         delta_flow)``; the mask head is left to the caller, which needs it
         once, after the loop.
 
-        With ``fused`` the GRUs run the kernel, with the FlowHead chained onto
-        gru08's, and so does the motion encoder unless ``fuse_motion`` is off
-        (a caller-supplied flow_init may carry a nonzero y, whose weights the
-        kernel drops).
+        With ``fused`` the GRUs run the kernels, with the FlowHead chained
+        onto gru08's, and so does the motion encoder unless ``fuse_motion`` is
+        off (a caller-supplied flow_init may carry a nonzero y, whose weights
+        the kernel drops).
         """
-        net = list(net)
-        n = self.n_gru_layers
-
-        def gru(idx, h, *xs):
-            if fused is not None:
-                return stream.fused_conv_gru(fused.gru[idx], h, fused.czrq[idx], *xs)[0]
-            return self.grus[idx](h, inp[idx], *xs)
-
-        if n == 3:
-            net[2] = gru(2, net[2], pool2x(net[1]))
-        if n >= 2:
-            xs16 = (pool2x(net[0]),)
-            if n == 3:
-                xs16 += (interp_align_corners(net[2], net[1].shape[1:3]),)
-            net[1] = gru(1, net[1], *xs16)
+        net = list(self.step_coarse(net, inp, fused))
         if fused is not None and fuse_motion:
             motion = stream.fused_motion(fused.motion, flow, corr)
         else:
             motion = self.encoder(flow, corr)
         xs = (motion,)
-        if n > 1:
+        if self.n_gru_layers > 1:
             xs += (interp_align_corners(net[1], net[0].shape[1:3]),)
         if fused is None:
-            net[0] = gru(0, net[0], *xs)
+            net[0] = self._gru(0, net[0], inp, None, *xs)
             return tuple(net), self.flow_head(net[0])
         net[0], dx = stream.fused_conv_gru(fused.gru[0], net[0], fused.czrq[0], *xs,
                                            head=fused.head)
-        # The kernel leaves out conv2.b[0]; the y delta is zeroed by the
-        # epipolar projection, so it is never computed.
-        dx = dx + self.flow_head.conv2.bias[0]
-        return tuple(net), torch.cat([dx, torch.zeros_like(dx)], dim=-1)
+        return tuple(net), self._delta_flow(dx)
+
+    def step_resident(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
+                      corr_ops, coords_x: torch.Tensor, flow: torch.Tensor, *,
+                      fused: FusedInputs):
+        """:meth:`forward` with the lookup, the motion encoder and gru08 with
+        the head in the resident iteration kernel, which gathers the
+        correlation taps from ``corr_ops`` at ``coords_x`` itself. The
+        upsampled gru16 state stays outside, as in the JAX package. Same
+        return, same bits."""
+        net = list(self.step_coarse(net, inp, fused))
+        xs2 = ((interp_align_corners(net[1], net[0].shape[1:3]),)
+               if self.n_gru_layers > 1 else ())
+        net[0], dx = fused_iter(fused.motion, fused.gru[0], fused.head, corr_ops, net[0],
+                                fused.czrq[0], coords_x, flow, *xs2)
+        return tuple(net), self._delta_flow(dx)

@@ -1,11 +1,12 @@
 """The refinement loop's kernels: the ConvGRU step (optionally with the
-FlowHead) and the motion encoder.
+FlowHead), the motion encoder, and gru32 + gru16 co-scheduled.
 
 Counterpart of the JAX package's ``ops/pallas_stream.py``. Each kernel has
-a wrapper that launches ``csrc/conv_gru.cu`` or ``csrc/motion.cu`` on CUDA
-tensors, and a plain torch version with the same signature and the same
-rounding points that the wrapper runs on CPU tensors. There is no other
-route between them: a CUDA tensor the kernel does not take raises.
+a wrapper that launches ``csrc/conv_gru.cu``, ``csrc/motion.cu`` or
+``csrc/gru1632.cu`` on CUDA tensors, and a plain torch version with the
+same signature and the same rounding points that the wrapper runs on CPU
+tensors. There is no other route between them: a CUDA tensor the kernel
+does not take raises.
 
 The kernels round where the Pallas kernels do, which is not where the plain
 torch modules of ``models/update.py`` round:
@@ -32,9 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch import kernels
+from raft_stereo_tpu_torch.ops.resize import interp_align_corners, lerp_taps
 
 _COL = 64  # csrc/conv3x3.cuh pad64: output-column multiple of weight matrices
 _HEAD2_COLS = 16  # columns of the FlowHead conv2 matrix (one used)
+_COUNTERS = 8  # csrc/grid.cuh kCounters: a persistent kernel's barrier and tile counters
 
 
 def _pad64(n: int) -> int:
@@ -272,3 +275,70 @@ def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> to
         s2.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches["motion"] += 1
     return out
+
+
+# -- gru32 + gru16 co-scheduled: kernel 4 -------------------------------------
+
+
+def gru1632_plain(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
+                  h32: torch.Tensor, czrq16: torch.Tensor, czrq32: torch.Tensor,
+                  x0p: torch.Tensor, x1p: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`fused_gru1632`: the gru32 step, the
+    aligned-corners resize of its new state to gru16's size, the gru16
+    step."""
+    h32n, _ = conv_gru_plain(w32, h32, czrq32, x1p)
+    up = interp_align_corners(h32n, tuple(h16.shape[1:3]))
+    h16n, _ = conv_gru_plain(w16, h16, czrq16, x0p, up)
+    return h16n, h32n
+
+
+def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
+                  h32: torch.Tensor, czrq16: torch.Tensor, czrq32: torch.Tensor,
+                  x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two coarse GRU steps in one launch (the JAX package's
+    ``fused_gru1632``): ``(h16', h32')`` with
+    ``h32' = gru32(h32, czrq32, x1p)`` and
+    ``h16' = gru16(h16, czrq16, x0p, interp_align_corners(h32'))``, the
+    resize built inside the kernel. Bit for bit the serial route's:
+    :func:`fused_conv_gru` twice with the resize between.
+
+    h16: (B, H16, W16, ch); h32: (B, H32, W32, ch); x0p: (B, H16, W16, cx0),
+    pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16).
+    """
+    if h16.device.type == "cpu":
+        return gru1632_plain(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
+    b, hh16, ww16, ch = h16.shape
+    hh32, ww32 = h32.shape[1:3]
+    cx0 = x0p.shape[-1]
+    dev, dt = h16.device, torch.bfloat16
+    if ch != w16.ch or ch != w32.ch or ch % 32 or cx0 % 32:
+        raise ValueError(f"gru1632 kernel: both levels need one hidden width, a "
+                         f"multiple of 32: gru16 {w16.ch}, gru32 {w32.ch}, h {ch}, x0 {cx0}")
+    for name, t, shape in (("h16", h16, (b, hh16, ww16, ch)), ("h32", h32, (b, hh32, ww32, ch)),
+                           ("czrq16", czrq16, (b, hh16, ww16, 3 * ch)),
+                           ("czrq32", czrq32, (b, hh32, ww32, 3 * ch)),
+                           ("x0p", x0p, (b, hh16, ww16, cx0)), ("x1p", x1p, (b, hh32, ww32, ch)),
+                           ("w16.w_gate", w16.w_gate, (9, 2 * ch + cx0, _pad64(3 * ch))),
+                           ("w16.w_q", w16.w_q, (9, ch, _pad64(ch))),
+                           ("w32.w_gate", w32.w_gate, (9, 2 * ch, _pad64(3 * ch))),
+                           ("w32.w_q", w32.w_q, (9, ch, _pad64(ch)))):
+        _check_nhwc(name, t, shape, dt, dev)
+    yi, yw = lerp_taps(hh32, hh16, dt, dev)
+    xi, xw = lerp_taps(ww32, ww16, dt, dev)
+    z16, rh16, h16_out = (torch.empty_like(h16) for _ in range(3))
+    z32, rh32, h32_out = (torch.empty_like(h32) for _ in range(3))
+    aqx16 = torch.empty(h16.shape, dtype=torch.float32, device=dev)
+    aqx32 = torch.empty(h32.shape, dtype=torch.float32, device=dev)
+    bar = torch.empty(_COUNTERS, dtype=torch.int32, device=dev)
+    fn = kernels.entry("gru1632")
+    kernels.check("gru1632", fn(
+        h16.data_ptr(), h32.data_ptr(), czrq16.data_ptr(), czrq32.data_ptr(),
+        x0p.data_ptr(), cx0, x1p.data_ptr(), b, hh16, ww16, hh32, ww32, ch,
+        w16.w_gate.data_ptr(), w16.w_q.data_ptr(), w32.w_gate.data_ptr(),
+        w32.w_q.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(),
+        z16.data_ptr(), rh16.data_ptr(), aqx16.data_ptr(), z32.data_ptr(),
+        rh32.data_ptr(), aqx32.data_ptr(), h16_out.data_ptr(), h32_out.data_ptr(),
+        bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    kernels.launches["gru1632"] += 1
+    return h16_out, h32_out

@@ -42,6 +42,10 @@ def _group(name: str) -> str:
         return "port:conv3x3 engine (GRU, motion stages 2-3)"
     if "motion_stage1" in n:
         return "port:motion stage 1"
+    if "gru1632_kernel" in n:
+        return "port:gru1632 (gru32 + gru16)"
+    if "resident_kernel" in n:
+        return "port:resident (lookup + motion + gru08 + head)"
     # cuDNN's convolutions are implicit GEMMs ("fprop", "implicit_gemm"), so
     # they are told apart before the matmuls, whose names say gemm too.
     if any(s in n for s in ("conv", "cudnn", "fprop", "implicit")):

@@ -6,12 +6,20 @@ run on a machine with the card but no JAX, without the repo's conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
 Shapes are small and ragged (pixel counts that are not a multiple of the
-kernels' 128-pixel tile, B=2, narrow channels) to reach the edge handling
-that the main path's shapes in chip_smoke.py do not. Tolerances as in
-chip_smoke.py: a bf16 rounding one ulp apart in an intermediate carries
-into the outputs, |err| <= 2^-5 for h', 2^-5 of the RMS of the head's x
-delta, and 2^-5 of max(1, max|fused|) for the motion encoder's fused
-channels; the flow channels it copies are exact.
+kernels' 128-pixel tile, B=2, narrow channels, heights that are not a
+multiple of 8) to reach the edge handling that the main path's shapes in
+chip_smoke.py do not. Tolerances as in chip_smoke.py: a bf16 rounding one
+ulp apart in an intermediate carries into the outputs, |err| <= 2^-5 for
+h', 2^-5 of the RMS of the head's x delta, and 2^-5 of max(1, max|fused|)
+for the motion encoder's fused channels; the flow channels it copies are
+exact.
+
+The gru16+32 and resident kernels must besides equal, bit for bit, the
+serial CUDA chain they replace (the same stage code); at the main path's
+shapes a block of their persistent grid runs several tiles a stage.
+With integer inputs they must also equal their plain versions wherever no
+sigmoid or tanh sits between (those are the card's and the library's own
+functions, which may round their last fp32 bit apart).
 """
 
 import pytest
@@ -20,7 +28,8 @@ import torch
 from raft_stereo_tpu_torch.corr import reg_cuda
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
-from raft_stereo_tpu_torch.ops import stream
+from raft_stereo_tpu_torch.ops import resident, stream
+from raft_stereo_tpu_torch.ops.resize import interp_align_corners
 
 
 @pytest.fixture
@@ -40,6 +49,7 @@ def _modules_on(device, ch, cin, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,ch,parts", [(2, 7, 13, 64, (64, 32)),
                                             (1, 5, 130, 32, (32,)),
+                                            (1, 6, 20, 32, (32, 64, 32)),
                                             (1, 24, 78, 128, (128,))])
 def test_gpu_conv_gru_kernel_matches_plain(cuda, b, h, w, ch, parts):
     gru, head, _ = _modules_on(cuda, ch, sum(parts), 10)
@@ -129,3 +139,142 @@ def test_gpu_motion_kernel_integer_exact(cuda):
         ref = stream.motion_plain(wts, flow, corr)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _gru1632_case(device, b, h16, w16, ch, seed, ints=False):
+    h32, w32 = h16 // 2, w16 // 2
+    g16, g32 = ConvGRU(ch, 2 * ch), ConvGRU(ch, ch)
+    for i, m in enumerate((g16, g32)):
+        init_weights(m, torch.Generator().manual_seed(seed + i))
+    g16, g32 = g16.to(device), g32.to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(shape, scale):
+        if ints:
+            return torch.randint(-1, 2, shape, generator=g, device=device).to(torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+    bf = torch.bfloat16
+    with torch.no_grad():
+        if ints:
+            for p in (*g16.parameters(), *g32.parameters()):
+                p.copy_(torch.randint(-1, 2, p.shape, generator=g, device=device).float())
+        w16_, w32_ = stream.gru_weights(g16, bf, "gru16"), stream.gru_weights(g32, bf, "gru32")
+        czrq16 = stream.prepare_gru_context(g16, [rnd((b, h16, w16, ch), 0.3)] * 3, bf)
+        czrq32 = stream.prepare_gru_context(g32, [rnd((b, h32, w32, ch), 0.3)] * 3, bf)
+    args = (w16_, w32_, rnd((b, h16, w16, ch), 0.5), rnd((b, h32, w32, ch), 0.5), czrq16, czrq32,
+            rnd((b, h16, w16, ch), 1.0), rnd((b, h32, w32, ch), 1.0))
+    return args
+
+
+def _gru1632_serial(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p):
+    h32n, _ = stream.fused_conv_gru(w32, h32, czrq32, x1p)
+    up = interp_align_corners(h32n, tuple(h16.shape[1:3]))
+    h16n, _ = stream.fused_conv_gru(w16, h16, czrq16, x0p, up)
+    return h16n, h32n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h16,w16,ch", [(2, 10, 26, 32), (1, 14, 18, 64), (1, 48, 156, 128)])
+def test_gpu_gru1632_kernel_matches_plain_and_serial(cuda, b, h16, w16, ch):
+    args = _gru1632_case(cuda, b, h16, w16, ch, 50)
+    with torch.no_grad():
+        got = stream.fused_gru1632(*args)
+        serial = _gru1632_serial(*args)
+        plain = stream.gru1632_plain(*args)
+    torch.cuda.synchronize()
+    for g_, s_, p_ in zip(got, serial, plain):
+        assert torch.equal(g_, s_)
+        assert float((g_.float() - p_.float()).abs().max()) <= 2.0 ** -5
+
+
+@pytest.mark.gpu
+def test_gpu_gru1632_kernel_integer_inputs(cuda):
+    """Integer weights and inputs: every conv sum of gru32's gates is an
+    exact integer, so z, r (sigmoid of an integer) and r*h round alike on
+    both routes; the kernel equals the serial chain bit for bit and its
+    plain version within the tolerance, on all but a few elements exactly."""
+    args = _gru1632_case(cuda, 2, 12, 22, 32, 60, ints=True)
+    with torch.no_grad():
+        got = stream.fused_gru1632(*args)
+        serial = _gru1632_serial(*args)
+        plain = stream.gru1632_plain(*args)
+    torch.cuda.synchronize()
+    for g_, s_, p_ in zip(got, serial, plain):
+        assert torch.equal(g_, s_)
+        assert float((g_.float() - p_.float()).abs().max()) <= 2.0 ** -5
+        assert float((g_ == p_).float().mean()) >= 0.99
+
+
+def _resident_case(device, b, h, w, ch, seed, ints=False):
+    gru, head, enc = _modules_on(device, ch, 128 + ch, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0, lo=-1, hi=2):
+        if ints:
+            return torch.randint(lo, hi, shape, generator=g, device=device).to(bf)
+        return (torch.randn(shape, generator=g, device=device) * scale).to(bf)
+
+    with torch.no_grad():
+        if ints:
+            for p in (*gru.parameters(), *head.parameters(), *enc.parameters()):
+                p.copy_(torch.randint(-1, 2, p.shape, generator=g, device=device).float())
+        f1, f2 = rnd((b, h, w, 16)), rnd((b, h, w, 16))
+        ops = reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4)
+        if ints:
+            coords = torch.randint(-6, w + 6, (b, h, w), generator=g, device=device).float()
+        else:
+            coords = torch.rand((b, h, w), generator=g, device=device) * (w + 20) - 10
+        flow = torch.cat([rnd((b, h, w, 1), 3.0, -3, 4),
+                          torch.zeros((b, h, w, 1), device=device, dtype=bf)], -1)
+        wts = (stream.motion_weights(enc, bf), stream.gru_weights(gru, bf, "gru08"),
+               stream.head_weights(head, bf))
+        czrq = stream.prepare_gru_context(gru, [rnd((b, h, w, ch), 0.3)] * 3, bf)
+    return (*wts, ops, rnd((b, h, w, ch), 0.5), czrq, coords, flow, rnd((b, h, w, ch)))
+
+
+def _resident_serial(mw, gw, hw, ops, h, czrq, coords, flow, *x2):
+    corr = reg_cuda.lookup(ops, coords)
+    motion = stream.fused_motion(mw, flow, corr)
+    return stream.fused_conv_gru(gw, h, czrq, motion, *x2, head=hw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,ch", [(2, 7, 13, 32), (1, 10, 45, 64), (1, 96, 312, 128)])
+def test_gpu_resident_kernel_matches_plain_and_serial(cuda, b, h, w, ch):
+    args = _resident_case(cuda, b, h, w, ch, 70)
+    with torch.no_grad():
+        got = resident.fused_iter(*args)
+        serial = _resident_serial(*args)
+        plain = resident.fused_iter_plain(*args)
+    torch.cuda.synchronize()
+    for g_, s_ in zip(got, serial):
+        assert torch.equal(g_, s_)
+    assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
+    assert float((got[1] - plain[1]).abs().max()) <= 2.0 ** -5 * float(
+        plain[1].square().mean().sqrt())
+
+
+@pytest.mark.gpu
+def test_gpu_resident_kernel_integer_inputs(cuda):
+    """Integer fmaps (a volume over sqrt(16) = 4, exact), integer coords
+    (each lerp returns a tap), integer weights and inputs: the gather and
+    the motion stages are exact, so any tap, border or channel slip shows
+    as an integer-sized error; the kernel equals the serial chain bit for
+    bit and its plain version within the tolerance."""
+    args = _resident_case(cuda, 2, 9, 37, 32, 80, ints=True)
+    with torch.no_grad():
+        got = resident.fused_iter(*args)
+        serial = _resident_serial(*args)
+        plain = resident.fused_iter_plain(*args)
+        mw, _, _, ops, _, _, coords, flow, _ = args
+        corr = reg_cuda.lookup(ops, coords)
+        motion_exact = torch.equal(stream.fused_motion(mw, flow, corr),
+                                   stream.motion_plain(mw, flow, corr))
+    torch.cuda.synchronize()
+    assert motion_exact
+    for g_, s_ in zip(got, serial):
+        assert torch.equal(g_, s_)
+    assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
+    assert float((got[0] == plain[0]).float().mean()) >= 0.99

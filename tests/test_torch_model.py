@@ -264,7 +264,8 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['raft_stereo_tpu'] = None\n"
             "import raft_stereo_tpu_torch, raft_stereo_tpu_torch.demo, "
             "raft_stereo_tpu_torch.transplant, raft_stereo_tpu_torch.corr.reg_cuda, "
-            "raft_stereo_tpu_torch.ops.stream, raft_stereo_tpu_torch.kernels, chip_smoke\n"
+            "raft_stereo_tpu_torch.ops.stream, raft_stereo_tpu_torch.ops.resident, "
+            "raft_stereo_tpu_torch.kernels, chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -11,12 +11,17 @@ Correlation choices:
 - ``alt``, ``alt_cuda``, ``alt_tpu``: not ported yet (ROADMAP Queue B,
   "alt"); they raise ``NotImplementedError``.
 
-Two switches, read from the environment at call time under the JAX
+Four switches, read from the environment at call time under the JAX
 package's names, default on, off for ``0``/``false``/``no``/``off``:
-``RAFT_FUSE_GRU1632`` (the gru16+32 co-schedule kernel) and
-``RAFT_FUSE_ITER`` (the resident iteration kernel). Off, the loop runs the
-serial kernels of slice 1. Only a caller flips them; nothing does on an
-error.
+- ``RAFT_FUSE_GRU1632`` (the gru16+32 co-schedule kernel) and
+  ``RAFT_FUSE_ITER`` (the resident iteration kernel). Off, the loop runs the
+  serial lookup, motion and ConvGRU kernels.
+- ``RAFT_FUSED_ENCODERS`` (the encoders' stem, streamed 3x3 pass and
+  point2/point3 kernels of ``ops/encoder.py``). Off, the encoders run plain
+  convolutions with torch norms between them. ``RAFT_STREAM_TAIL`` (the
+  stride-1 second blocks of layer2/layer3 and the finest heads through those
+  kernels) only matters while the first is on; off, only stem + layer1 fuse.
+Only a caller flips them; nothing does on an error.
 """
 
 from __future__ import annotations
@@ -47,6 +52,17 @@ def fuse_iter_on() -> bool:
     """``RAFT_FUSE_ITER``: lookup, motion encoder, gru08 and FlowHead in one
     kernel launch."""
     return _switch_on("RAFT_FUSE_ITER")
+
+
+def fused_encoders_on() -> bool:
+    """``RAFT_FUSED_ENCODERS``: the encoder kernels (``ops/encoder.py``)."""
+    return _switch_on("RAFT_FUSED_ENCODERS")
+
+
+def stream_tail_on() -> bool:
+    """``RAFT_STREAM_TAIL``: the encoders' stride-1 tail blocks and finest
+    heads through the encoder kernels too."""
+    return _switch_on("RAFT_STREAM_TAIL")
 
 
 @dataclasses.dataclass

@@ -34,9 +34,9 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
-namespace rst {
+#include "rounding.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace rst {
 
 constexpr int kMaxParts = 4;
 
@@ -70,10 +70,6 @@ struct TileSmem {
   static constexpr int C = BM * LDC * 4;
   static constexpr int BYTES = AB > C ? AB : C;
 };
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Asynchronous 16-byte global->shared copy; with pred false it writes
 // zeros and reads nothing (src must still be a valid address).

@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "raft_stereo_tpu_torch"
-SOURCES = ("corr_lookup", "conv_gru", "motion", "gru1632", "resident")
+SOURCES = ("corr_lookup", "conv_gru", "motion", "gru1632", "resident",
+           "enc_stem", "enc_pass", "enc_point")
 # -fmad=false: no multiply and add is contracted into a fused multiply-add
 # behind the source's back, so the serial kernels and the persistent ones
 # that inline the same stages round the same way (fmaf stays explicit).
@@ -52,20 +53,39 @@ _SIGNATURES = {
                  [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _P, _P, _P,
                   _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                   _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11),
+    "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "enc_pass": ("rst_enc_pass",
+                 [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "enc_point": ("rst_enc_point", [_I, _I] + [_P] * 9 + [_I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
 # Launch counts, one plain integer per kernel ("corr_lookup", "motion",
-# "gru1632", "fused_iter") and per GRU level for the ConvGRU kernel
-# ("conv_gru:gru08", ...): a wrapper adds one where it launches its kernel
-# on CUDA tensors, and nowhere else.
+# "gru1632", "fused_iter", "enc_stem", "enc_pass", "enc_point3",
+# "enc_point2") and per GRU level for the ConvGRU kernel ("conv_gru:gru08",
+# ...): a wrapper adds one where it launches its kernel on CUDA tensors, and
+# nowhere else.
 launches: Counter = Counter()
+# The encoder kernels' launches once more, by variant: the norm the launch
+# applies ("bn": BatchNorm folded, no statistics; "instance": statistics
+# taken and applied), the pass kind and the channels, as "enc_stem:instance",
+# "enc_pass:mid1/bn/64", "enc_point2:instance/128". Added to beside
+# ``launches``, at the same place; it tells the context net's launches from
+# the feature net's.
+variants: Counter = Counter()
+
+
+def count_launch(kernel: str, variant: str) -> None:
+    """One launch of ``kernel`` in its ``variant``."""
+    launches[kernel] += 1
+    variants[f"{kernel}:{variant}"] += 1
 
 
 def reset_launches() -> None:
     launches.clear()
+    variants.clear()
 
 
 def nvcc_path() -> str:

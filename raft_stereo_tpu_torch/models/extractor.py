@@ -7,8 +7,17 @@
   reference, ``outputs08`` (finest) emits ``dim[2]`` channels and
   ``outputs32`` (coarsest) ``dim[0]``.
 
-These are the JAX package's unfused encoders (``fused=False``): plain
-convolutions, which the JAX package leaves to XLA on this slice's path.
+Routing follows the JAX package's ``apply_basic_encoder`` and
+``apply_multi_basic_encoder`` at their defaults. Where the gates of
+``ops/encoder.py`` hold (bf16, one sample, stride-1 stem, identity
+shortcuts), the stem and layer1 run as the fused chain (frozen BatchNorm
+folded into the convs for the context net, streamed instance-norm statistics
+for the feature net), and the stride-1 second block of layer2 and layer3 and
+the finest heads' residual block and 3x3 conv run as streamed passes. The
+stride-2 entry blocks, ``layer4``/``layer5`` and the coarser heads stay plain
+convolutions with torch norms, as does everything in fp32, at B > 1, or with
+``RAFT_FUSED_ENCODERS=0`` (``RAFT_STREAM_TAIL=0`` keeps only the trunk
+fused).
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from raft_stereo_tpu_torch.models.layers import Conv2d, ResidualBlock, make_norm
+from raft_stereo_tpu_torch.ops import encoder as enc
 
 
 def _trunk_strides(downsample: int) -> Tuple[int, int, int]:
@@ -30,11 +40,23 @@ def _stage(in_planes: int, dim: int, norm_fn: str, stride: int) -> nn.Sequential
                          ResidualBlock(dim, dim, norm_fn, stride=1))
 
 
+def _apply_stage(stage: nn.Sequential, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
+    """The entry block plain; the stride-1 second block streamed when it can be."""
+    return _maybe_stream_block(stage[1], stage[0](x), norm_fn)
+
+
+def _maybe_stream_block(block: ResidualBlock, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
+    if enc.resblock_streamable(block, x, norm_fn):
+        return enc.stream_resblock(block, x, norm_fn)
+    return block(x)
+
+
 class _Trunk(nn.Module):
     """Stem and layer1..layer3, shared by both encoders."""
 
     def __init__(self, norm_fn: str, downsample: int):
         super().__init__()
+        self.norm_fn = norm_fn
         s_stem, s2, s3 = _trunk_strides(downsample)
         self.conv1 = Conv2d(3, 64, 7, stride=s_stem, padding=3)
         # The stem GroupNorm uses 8 groups, unlike the blocks (planes // 8).
@@ -44,8 +66,15 @@ class _Trunk(nn.Module):
         self.layer3 = _stage(96, 128, norm_fn, s3)
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.norm1(self.conv1(x)))
-        return self.layer3(self.layer2(self.layer1(x)))
+        s_stem = self.conv1.stride[0]
+        if enc.stem_layer1_is_fusable(self, x, self.norm_fn, s_stem):
+            y = enc.fused_stem_layer1(self, x)
+        elif enc.in_stem_layer1_is_fusable(self, x, self.norm_fn, s_stem):
+            y = enc.fused_in_stem_layer1(self, x)
+        else:
+            y = self.layer1(torch.relu(self.norm1(self.conv1(x))))
+        y = _apply_stage(self.layer2, y, self.norm_fn)
+        return _apply_stage(self.layer3, y, self.norm_fn)
 
 
 class BasicEncoder(_Trunk):
@@ -73,6 +102,15 @@ class MultiBasicEncoder(_Trunk):
         self.outputs32 = nn.ModuleList(
             Conv2d(128, dim[0], 3, padding=1) for dim in output_dim)
 
+    def _head08(self, head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        """A finest-scale head: its residual block and 3x3 conv streamed
+        when they can be."""
+        res, conv = head
+        x = _maybe_stream_block(res, x, self.norm_fn)
+        if enc.head_conv_streamable(conv, x):
+            return enc.stream_head_conv(conv, x)
+        return conv(x)
+
     def forward(self, x: torch.Tensor, dual_inp: bool = False, num_layers: int = 3):
         """Per-scale head lists, finest first; with ``dual_inp`` also the
         full-batch trunk features (the shared-backbone mode)."""
@@ -80,7 +118,7 @@ class MultiBasicEncoder(_Trunk):
         if dual_inp:
             v = x
             x = x[: x.shape[0] // 2]
-        outputs = [[head(x) for head in self.outputs08]]
+        outputs = [[self._head08(head, x) for head in self.outputs08]]
         if num_layers >= 2:
             y = self.layer4(x)
             outputs.append([head(y) for head in self.outputs16])

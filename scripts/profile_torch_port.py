@@ -5,16 +5,20 @@
 
 Runs chip_smoke.py's main path (the seeded full-width model, bf16,
 reg_cuda, one random 375x1242 pair padded to 384x1248, 32 iterations) twice
-to warm up, then once under torch.profiler, and prints JSON lines:
-- the card (nvidia-smi name and power limit);
+to warm up, then once under torch.profiler, first on the default path and
+then with the plain encoders (RAFT_FUSED_ENCODERS=0), and prints JSON lines,
+for each of the two:
+- the card (nvidia-smi name and power limit), once;
 - the frame's host wall ms, the device-busy ms (union of kernel intervals)
   and the idle share of the frame's window;
 - device ms by group: the port's CUDA kernels (lookup, GRU engine, motion
-  stage 1), convolutions and matmuls from the libraries, everything else;
+  stage 1, the persistent loop kernels, the encoder kernels), convolutions
+  and matmuls from the libraries, everything else;
 - the top kernels by device time, with their launch counts;
 - the library matmuls' device ms by the torch op that launched them;
-- device ms per call of the corr volume and pyramid and of the two
-  per-iteration resizes, each run alone.
+- device ms of the prepare step alone (encoders and zqr convs), by group;
+and once, device ms per call of the corr volume and pyramid and of the two
+per-iteration resizes, each run alone.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -22,6 +26,7 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,6 +51,9 @@ def _group(name: str) -> str:
         return "port:gru1632 (gru32 + gru16)"
     if "resident_kernel" in n:
         return "port:resident (lookup + motion + gru08 + head)"
+    if any(s in n for s in ("enc_stem_kernel", "enc_pass_kernel", "point3_kernel",
+                            "point2_kernel", "stats_reduce_kernel")):
+        return "port:encoder kernels (stem, 3x3 pass, point3/point2, statistics)"
     # cuDNN's convolutions are implicit GEMMs ("fprop", "implicit_gemm"), so
     # they are told apart before the matmuls, whose names say gemm too.
     if any(s in n for s in ("conv", "cudnn", "fprop", "implicit")):
@@ -73,8 +81,6 @@ def main() -> int:
         return 2
     import chip_smoke
     from raft_stereo_tpu_torch import kernels
-    from raft_stereo_tpu_torch.demo import infer_pair
-    from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,14 +89,20 @@ def main() -> int:
     kernels.build()
     model = chip_smoke.seeded_model("cuda")
     (left, right), = chip_smoke.random_pairs(1, chip_smoke.KITTI, seed=9)
-    for _ in range(2):
-        infer_pair(model, left, right, iters=chip_smoke.ITERS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        infer_pair(model, left, right, iters=chip_smoke.ITERS)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for route, env in (("default", {}), ("plain encoders", {"RAFT_FUSED_ENCODERS": "0"})):
+        os.environ.update(env)
+        try:
+            _profile_frame(route, model, left, right)
+        finally:
+            for knob in env:
+                os.environ.pop(knob, None)
+    print(json.dumps({"alone": _alone()}))
+    return 0
+
+
+def _events(prof):
+    """Device events of a profile: ms and launches by kernel name, and the
+    intervals."""
     by_name = defaultdict(lambda: [0.0, 0])
     intervals = []
     for evt in prof.events():
@@ -102,23 +114,54 @@ def main() -> int:
         intervals.append((evt.time_range.start, evt.time_range.end))
     if not intervals:
         raise SystemExit("the profiler recorded no device activity")
-    busy = _busy_ms(intervals)
-    window = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
+    return by_name, intervals
+
+
+def _by_group(by_name) -> dict:
     groups = defaultdict(float)
     for name, (ms, _) in by_name.items():
         groups[_group(name)] += ms
-    print(json.dumps({"frame_wall_ms": wall_ms, "device_busy_ms": busy,
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def _profile_frame(route: str, model, left, right) -> None:
+    import chip_smoke
+    from raft_stereo_tpu_torch import raft_stereo_prepare
+    from raft_stereo_tpu_torch.demo import infer_pair
+    from raft_stereo_tpu_torch.ops.padder import InputPadder
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        infer_pair(model, left, right, iters=chip_smoke.ITERS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        infer_pair(model, left, right, iters=chip_smoke.ITERS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, intervals = _events(prof)
+    busy = _busy_ms(intervals)
+    window = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
+    print(json.dumps({"route": route, "frame_wall_ms": wall_ms, "device_busy_ms": busy,
                       "device_window_ms": window,
                       "idle_share_of_wall": 1.0 - busy / wall_ms,
                       "kernel_launches": sum(c for _, c in by_name.values())}))
-    print(json.dumps({"device_ms_by_group": dict(sorted(groups.items(),
-                                                        key=lambda kv: -kv[1]))}))
+    print(json.dumps({"route": route, "device_ms_by_group": _by_group(by_name)}))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, count) in top:
-        print(json.dumps({"kernel": name[:120], "device_ms": ms, "launches": count}))
-    print(json.dumps({"library_matmul_by_op": _matmul_owners(prof)}))
-    print(json.dumps({"alone": _alone()}))
-    return 0
+        print(json.dumps({"route": route, "kernel": name[:120], "device_ms": ms,
+                          "launches": count}))
+    print(json.dumps({"route": route, "library_matmul_by_op": _matmul_owners(prof)}))
+    padded = InputPadder(left.shape, divis_by=32).pad(left, right)
+    raft_stereo_prepare(model, *padded)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        raft_stereo_prepare(model, *padded)
+        torch.cuda.synchronize()
+    by_name, intervals = _events(prof)
+    print(json.dumps({"route": route, "prepare_device_busy_ms": _busy_ms(intervals),
+                      "prepare_kernel_launches": sum(c for _, c in by_name.values()),
+                      "prepare_device_ms_by_group": _by_group(by_name)}))
 
 
 def _matmul_owners(prof) -> dict:

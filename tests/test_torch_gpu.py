@@ -20,6 +20,12 @@ shapes a block of their persistent grid runs several tiles a stage.
 With integer inputs they must also equal their plain versions wherever no
 sigmoid or tanh sits between (those are the card's and the library's own
 functions, which may round their last fp32 bit apart).
+
+The encoder kernels (``ops/encoder.py``: stem, 3x3 pass, point3, point2) are
+held to 1 bf16 ulp of their plain versions (an fp32 sum in another order can
+put the one rounding on the other side), their statistics to 1e-5 of the
+plain version's fp64 sums, and two runs to the same bits; with integer
+inputs, where every sum is exact, to equality.
 """
 
 import pytest
@@ -28,6 +34,7 @@ import torch
 from raft_stereo_tpu_torch.corr import reg_cuda
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
+from raft_stereo_tpu_torch.ops import encoder as enc
 from raft_stereo_tpu_torch.ops import resident, stream
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners
 
@@ -278,3 +285,190 @@ def test_gpu_resident_kernel_integer_inputs(cuda):
         assert torch.equal(g_, s_)
     assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
     assert float((got[0] == plain[0]).float().mean()) >= 0.99
+
+
+# -- the encoder kernels ------------------------------------------------------------
+
+RAGGED = [(7, 13), (5, 131), (33, 70), (3, 259)]  # odd H and W, H < 8, W off the 128-pixel tile
+
+
+def _ulps(got, ref):
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(r.abs(), r.square().mean().sqrt().clamp_min(1e-6))
+    return float(((g - r).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _stats_close(got, ref, n):
+    sq = ref[1].double()
+    e_sum = ((got[0].double() - ref[0].double()).abs() / (n * sq).sqrt()).max()
+    e_sq = ((got[1].double() - sq).abs() / sq).max()
+    return float(torch.maximum(e_sum, e_sq)) <= 1e-5
+
+
+def _enc_conv(device, cin, cout, k, seed, bias=True, ints=False):
+    g = torch.Generator().manual_seed(seed)
+    if ints:
+        w = torch.randint(-1, 2, (cout, cin, k, k), generator=g).float()
+        b = torch.randint(-2, 3, (cout,), generator=g).float()
+    else:
+        w = torch.randn((cout, cin, k, k), generator=g) * (2.0 / (cout * k * k)) ** 0.5
+        b = torch.rand((cout,), generator=g) - 0.5
+    return w.to(device), (b.to(device) if bias else None)
+
+
+def _enc_triple(device, g, shape, with_mv, ints=False):
+    if ints:
+        raw = torch.randint(-3, 4, shape, generator=g, device=device).to(torch.bfloat16)
+    else:
+        raw = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    if not with_mv:
+        return raw, None, None
+    c = shape[-1]
+    if ints:  # a power-of-two inv and an integer mean keep the transform exact
+        return (raw, torch.randint(-1, 2, (c,), generator=g, device=device).float(),
+                torch.full((c,), 0.5, device=device))
+    return (raw, torch.randn(c, generator=g, device=device) * 0.3,
+            torch.rand(c, generator=g, device=device) * 1.5 + 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("h,w", RAGGED + [(64, 96)])
+def test_gpu_stem_kernel_matches_plain(cuda, h, w, stats):
+    g = torch.Generator(device=cuda).manual_seed(90)
+    x = (torch.rand((1, h, w, 3), generator=g, device=cuda) * 2 - 1).to(torch.bfloat16)
+    wt, b = _enc_conv(cuda, 3, 64, 7, 91)
+    got, st = enc.stem(x, wt, b, stats=stats)
+    again, st2 = enc.stem(x, wt, b, stats=stats)
+    ref, st_ref = enc.stem_plain(x, wt, b, stats=stats)
+    torch.cuda.synchronize()
+    assert _ulps(got, ref) <= 1.0 and torch.equal(got, again)
+    if stats:
+        assert _stats_close(st, st_ref, h * w) and torch.equal(st, st2)
+    else:
+        assert st is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("kind", ["raw1", "mid1", "mid2"])
+@pytest.mark.parametrize("h,w,cin,cout", [(7, 13, 64, 64), (5, 131, 96, 96), (33, 70, 128, 128),
+                                          (3, 259, 128, 32), (9, 20, 32, 160)])
+def test_gpu_pass_kernel_matches_plain(cuda, h, w, cin, cout, kind, stats):
+    g = torch.Generator(device=cuda).manual_seed(92)
+    inputs = [_enc_triple(cuda, g, (1, h, w, cin), stats and kind != "raw1")
+              for _ in range(2 if kind == "mid2" else 1)]
+    wt, b = _enc_conv(cuda, cin, cout, 3, 93)
+    got, st = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    again, st2 = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    ref, st_ref = enc.conv_pass_plain(kind, inputs, wt, b, stats=stats)
+    torch.cuda.synchronize()
+    assert _ulps(got, ref) <= 1.0 and torch.equal(got, again)
+    if stats:
+        assert _stats_close(st, st_ref, h * w) and torch.equal(st, st2)
+    else:
+        assert st is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["raw1", "mid1"])
+def test_gpu_pass_kernel_without_a_bias(cuda, kind):
+    g = torch.Generator(device=cuda).manual_seed(94)
+    inputs = [_enc_triple(cuda, g, (1, 6, 21, 64), kind == "mid1")]
+    wt, _ = _enc_conv(cuda, 64, 96, 3, 95, bias=False)
+    got, st = enc.conv_pass(kind, inputs, wt, None, stats=True)
+    ref, st_ref = enc.conv_pass_plain(kind, inputs, wt, None, stats=True)
+    torch.cuda.synchronize()
+    assert _ulps(got, ref) <= 1.0 and _stats_close(st, st_ref, 6 * 21)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,stats", [("raw1", True), ("mid1", False), ("mid1", True),
+                                        ("mid2", False), ("mid2", True)])
+def test_gpu_pass_kernel_integer_exact(cuda, kind, stats):
+    """Small integer weights, inputs and means with inv = 1/2 keep every
+    transform and every fp32 sum exact in any order: outputs and statistics
+    must equal the plain version's bit for bit. A wrong tap, border (a tap
+    outside the image must read 0, not the transform of 0: the means are
+    not 0 here), channel chunk or output column shows as an integer."""
+    g = torch.Generator(device=cuda).manual_seed(96)
+    h, w, cin, cout = 9, 37, 96, 96
+    inputs = [_enc_triple(cuda, g, (1, h, w, cin), stats and kind != "raw1", ints=True)
+              for _ in range(2 if kind == "mid2" else 1)]
+    wt, b = _enc_conv(cuda, cin, cout, 3, 97, ints=True)
+    got, st = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    ref, st_ref = enc.conv_pass_plain(kind, inputs, wt, b, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if stats:
+        assert torch.equal(st, st_ref)
+
+
+@pytest.mark.gpu
+def test_gpu_stem_kernel_integer_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(98)
+    h, w = 11, 45
+    x = torch.randint(-2, 3, (1, h, w, 3), generator=g, device=cuda).to(torch.bfloat16)
+    wt, b = _enc_conv(cuda, 3, 64, 7, 99, ints=True)
+    got, st = enc.stem(x, wt, b, stats=True)
+    ref, st_ref = enc.stem_plain(x, wt, b, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(st, st_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("h,w,ch", [(7, 13, 64), (5, 131, 96), (3, 259, 128), (2, 3, 8)])
+def test_gpu_point_kernels_match_plain(cuda, h, w, ch, norm):
+    g = torch.Generator(device=cuda).manual_seed(100)
+    shape = (1, h, w, ch)
+    s, y2, y4 = (_enc_triple(cuda, g, shape, True) for _ in range(3))
+    got3, ref3 = enc.point3(s, y2, y4, norm=norm), enc.point3_plain(s, y2, y4, norm=norm)
+    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    got2, ref2 = enc.point2(x, y2, norm=norm), enc.point2_plain(x, y2, norm=norm)
+    torch.cuda.synchronize()
+    assert _ulps(got3, ref3) <= 1.0 and torch.equal(got3, enc.point3(s, y2, y4, norm=norm))
+    assert _ulps(got2, ref2) <= 1.0 and torch.equal(got2, enc.point2(x, y2, norm=norm))
+
+
+@pytest.mark.gpu
+def test_gpu_encoder_kernels_reject_what_they_do_not_take(cuda):
+    wt, b = _enc_conv(cuda, 64, 64, 3, 101)
+    x = torch.zeros((1, 8, 8, 64), device=cuda)  # fp32: the kernels take bf16 only
+    with pytest.raises(TypeError):
+        enc.conv_pass("raw1", [(x, None, None)], wt, b, stats=False)
+    xb = torch.zeros((2, 8, 8, 64), device=cuda, dtype=torch.bfloat16)  # B = 2
+    with pytest.raises(ValueError):
+        enc.conv_pass("raw1", [(xb, None, None)], wt, b, stats=False)
+    with pytest.raises(ValueError):  # instance norm without the statistics
+        enc.conv_pass("mid1", [(xb[:1], None, None)], wt, b, stats=True)
+
+
+@pytest.mark.gpu
+def test_gpu_encoder_launches_are_counted_by_variant(cuda):
+    """The feature net's chain counts under the instance-norm variants and
+    the context net's under the folded-BatchNorm ones, each launch once."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.models.extractor import BasicEncoder
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    nets = {}
+    for norm_fn in ("instance", "batch"):
+        net = BasicEncoder(output_dim=256, norm_fn=norm_fn, downsample=2)
+        init_weights(net, torch.Generator().manual_seed(102))
+        nets[norm_fn] = net.to(cuda).eval()
+    fnet = nets["instance"]
+    x = torch.zeros((1, 16, 24, 3), device=cuda, dtype=torch.bfloat16)
+    kernels.reset_launches()
+    with torch.no_grad():
+        enc.fused_in_stem_layer1(fnet, x)
+        enc.stream_resblock(fnet.layer2[1], torch.zeros((1, 8, 12, 96), device=cuda,
+                                                        dtype=torch.bfloat16), "instance")
+        enc.fused_stem_layer1(nets["batch"], x)
+    torch.cuda.synchronize()
+    assert kernels.variants == {
+        "enc_stem:instance": 1, "enc_pass:mid1/instance/64": 3, "enc_pass:mid2/instance/64": 1,
+        "enc_point3:instance/64": 1, "enc_pass:raw1/instance/96": 1,
+        "enc_pass:mid1/instance/96": 1, "enc_point2:instance/96": 1,
+        "enc_stem:bn": 1, "enc_pass:mid1/bn/64": 3, "enc_pass:mid2/bn/64": 1,
+        "enc_point3:bn/64": 1}
+    assert kernels.launches == {"enc_stem": 2, "enc_pass": 10, "enc_point3": 2, "enc_point2": 1}

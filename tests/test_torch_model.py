@@ -265,7 +265,7 @@ def test_port_imports_with_jax_blocked():
             "import raft_stereo_tpu_torch, raft_stereo_tpu_torch.demo, "
             "raft_stereo_tpu_torch.transplant, raft_stereo_tpu_torch.corr.reg_cuda, "
             "raft_stereo_tpu_torch.ops.stream, raft_stereo_tpu_torch.ops.resident, "
-            "raft_stereo_tpu_torch.kernels, chip_smoke\n"
+            "raft_stereo_tpu_torch.ops.encoder, raft_stereo_tpu_torch.kernels, chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

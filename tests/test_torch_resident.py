@@ -273,14 +273,22 @@ def test_switches_parse_like_the_jax_knobs(monkeypatch, value):
     assert fuse_gru1632_on() == fuse_iter_on()
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 64, 96), (2, 128, 256)])
+@pytest.mark.parametrize("b,h,w", [(1, 64, 96), (2, 128, 256), (1, 32, 1696)])
 def test_port_matches_jax_where_jax_skips_its_kernels(rng, monkeypatch, b, h, w):
     """At B=1 64x96 gru32 has 4 rows, under the 8 the JAX kernels need
     (``gru_is_fusable``), so JAX runs gru32 (and so gru16+32) in XLA; at
     B=2 128x256 the frame is under ``stream_batch_crossover`` and JAX runs
-    every GRU and motion step in XLA. The port's kernels take every shape,
-    and must stay in the canary band of JAX's route there too."""
-    monkeypatch.setenv("RAFT_FUSED_ENCODERS", "0")
+    every GRU and motion step in XLA; both with the encoder kernels off.
+    With them on, at width 1696 no strip width suits the JAX package's compiler (``_strip_wb``,
+    and ``_strip_cols`` at 848 and 424), so its context net runs in XLA.
+    The port's kernels take every shape, and must stay in the canary band
+    of JAX's route there too."""
+    encoders = w == 1696
+    monkeypatch.setenv("RAFT_FUSED_ENCODERS", "1" if encoders else "0")
+    if encoders:
+        from raft_stereo_tpu.ops import pallas_encoder as jx_pe
+        assert jx_pe._strip_wb(w) == 0 and jx_pe._strip_cols(w // 2) == 0
+        assert jx_pe._strip_cols(w // 4) == 0
     kw = dict(SMALL, corr_implementation="reg_tpu", mixed_precision=True)
     params = _temper(jx_init(jax.random.PRNGKey(5), JaxConfig(**kw)))
     i1, i2 = _images(rng, h, w, b)

@@ -8,8 +8,11 @@ Correlation choices:
 - ``reg``: the all-pairs volume and pyramid with a plain torch lookup (fp32).
 - ``reg_cuda``: the same volume with the hand-written CUDA lookup kernel.
   ``reg_tpu`` is accepted as its alias, so JAX configurations load as is.
-- ``alt``, ``alt_cuda``, ``alt_tpu``: not ported yet (ROADMAP Queue B,
-  "alt"); they raise ``NotImplementedError``.
+- ``alt``: no volume; per lookup, the 2r+1 pooled fmap2 vectors around
+  each position dotted with fmap1, plain torch in fp32 (:mod:`.corr.alt`).
+- ``alt_cuda``: the same with the hand-written CUDA alt kernel, the feature
+  maps in their own dtype (:mod:`.corr.alt_cuda`). ``alt_tpu`` is accepted
+  as its alias. The memory path for full-resolution frames.
 
 Four switches, read from the environment at call time under the JAX
 package's names, default on, off for ``0``/``false``/``no``/``off``:
@@ -22,6 +25,14 @@ package's names, default on, off for ``0``/``false``/``no``/``off``:
   stride-1 second blocks of layer2/layer3 and the finest heads through those
   kernels) only matters while the first is on; off, only stem + layer1 fuse.
 Only a caller flips them; nothing does on an error.
+
+One more, ``RAFT_CORR_PACK8``, defaults OFF and is on only for
+``1``/``true``/``yes``/``on``: ``reg_cuda`` quantizes a bf16 pyramid to
+int8 levels with per-sample, per-level scales when it builds the operands,
+and the lookup and the resident kernels dequantize the taps they read. Its
+result is not the bf16 path's bits (each tap is within half a scale step),
+so an operator opts in. It does nothing for fp32 volumes or the other
+correlation choices.
 """
 
 from __future__ import annotations
@@ -34,9 +45,9 @@ from typing import Optional, Tuple
 import torch
 
 CORR_IMPLEMENTATIONS = ("reg", "alt", "reg_tpu", "alt_tpu", "reg_cuda", "alt_cuda")
-CORR_ALIASES = {"reg_tpu": "reg_cuda"}
-_NOT_PORTED = ("alt", "alt_cuda", "alt_tpu")
+CORR_ALIASES = {"reg_tpu": "reg_cuda", "alt_tpu": "alt_cuda"}
 _OFF = ("0", "false", "no", "off")
+_ON = ("1", "true", "yes", "on")
 
 
 def _switch_on(name: str) -> bool:
@@ -52,6 +63,12 @@ def fuse_iter_on() -> bool:
     """``RAFT_FUSE_ITER``: lookup, motion encoder, gru08 and FlowHead in one
     kernel launch."""
     return _switch_on("RAFT_FUSE_ITER")
+
+
+def corr_pack8_on() -> bool:
+    """``RAFT_CORR_PACK8``: int8 correlation levels for ``reg_cuda``; default
+    off, read when the operands are built."""
+    return os.environ.get("RAFT_CORR_PACK8", "0").strip().lower() in _ON
 
 
 def fused_encoders_on() -> bool:
@@ -88,10 +105,6 @@ class RAFTStereoConfig:
             raise ValueError(
                 f"corr_implementation must be one of {CORR_IMPLEMENTATIONS}, "
                 f"got {self.corr_implementation!r}")
-        if self.corr_implementation in _NOT_PORTED:
-            raise NotImplementedError(
-                f"corr_implementation {self.corr_implementation!r} is not "
-                "ported yet (ROADMAP Queue B: the alt memory path)")
         if self.slow_fast_gru:
             raise NotImplementedError(
                 "slow_fast_gru is not ported yet (ROADMAP Queue A, update block)")
@@ -104,7 +117,8 @@ class RAFTStereoConfig:
 
     @property
     def corr_kind(self) -> str:
-        """``reg`` or ``reg_cuda`` after resolving the alias."""
+        """``reg``, ``reg_cuda``, ``alt`` or ``alt_cuda``, after resolving
+        the aliases."""
         return CORR_ALIASES.get(self.corr_implementation, self.corr_implementation)
 
     @property

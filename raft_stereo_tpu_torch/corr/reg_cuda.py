@@ -10,6 +10,17 @@ width-halving pyramid. Levels are stored unpadded as ``(B*H*W1, W_l)`` rows;
 :func:`lookup` runs ``csrc/corr_lookup.cu`` on CUDA tensors and
 :func:`lookup_plain`, the same arithmetic in torch, on CPU tensors. Both
 lerp in fp32 and round once to the volume's dtype.
+
+Under ``RAFT_CORR_PACK8=1`` a bf16 pyramid is also quantized to int8 when
+the operands are built (the JAX package's ``level_scale8`` and
+``quantize_pack_rows8``): per sample and level, ``scale = max(amax,
+1e-30) / 127`` over that sample's rows and ``q = clip(round(v / scale),
+-127, 127)``, in fp32. The lookup and the resident kernel then read the
+int8 levels and dequantize each tap as ``q * scale`` in fp32, after the
+true-width mask, before the lerp; the taps are still emitted in bf16. The
+JAX package's combined four-per-lane container is TPU layout: the int8
+levels here are plain ``(B*H*W1, W_l)`` rows and the scales a ``(B, L)``
+tensor.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch import kernels
+from raft_stereo_tpu_torch.config import corr_pack8_on
 from raft_stereo_tpu_torch.corr.reg import lookup_pyramid
 from raft_stereo_tpu_torch.ops.pooling import avg_pool_last
 
@@ -37,7 +49,9 @@ def level_widths(w2: int, num_levels: int) -> Tuple[int, ...]:
 
 @dataclasses.dataclass
 class CorrOperands:
-    """What the lookup reads: per-level ``(B*H*W1, widths[l])`` rows."""
+    """What the lookup reads: per-level ``(B*H*W1, widths[l])`` rows; under
+    pack8 the int8 levels of the same shape and their ``(B, L)`` fp32
+    scales too, which the kernels then read instead."""
 
     levels: List[torch.Tensor]
     widths: Tuple[int, ...]
@@ -45,6 +59,27 @@ class CorrOperands:
     b: int
     h: int
     w1: int
+    levels8: Optional[List[torch.Tensor]] = None
+    scales: Optional[torch.Tensor] = None
+
+    @property
+    def pack8(self) -> bool:
+        return self.levels8 is not None
+
+
+def quantize_levels8(levels: List[torch.Tensor], b: int
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Per-sample symmetric int8 levels and their ``(B, L)`` fp32 scales.
+    Per sample, so a sample's quantization does not depend on its
+    batchmates."""
+    qs, scales = [], []
+    for lvl in levels:
+        rows = lvl.float().reshape(b, -1)
+        scale = rows.abs().amax(dim=1).clamp_min(1e-30) / 127.0
+        q = torch.clamp(torch.round(rows / scale[:, None]), -127.0, 127.0)
+        qs.append(q.to(torch.int8).reshape(lvl.shape))
+        scales.append(scale)
+    return qs, torch.stack(scales, dim=1).contiguous()
 
 
 def build_corr_operands(fmap1: torch.Tensor, fmap2: torch.Tensor, *,
@@ -66,14 +101,55 @@ def build_corr_operands(fmap1: torch.Tensor, fmap2: torch.Tensor, *,
     for _ in range(num_levels - 1):
         cur = avg_pool_last(cur)
         levels.append(cur)
-    return CorrOperands(levels, widths, radius, b, h, w1)
+    ops = CorrOperands(levels, widths, radius, b, h, w1)
+    if vol.dtype == torch.bfloat16 and corr_pack8_on():
+        ops.levels8, ops.scales = quantize_levels8(levels, b)
+    return ops
 
 
-def lookup_plain(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of :func:`lookup`: same taps, same fp32 lerp."""
+def lookup_plain(ops: CorrOperands, coords_x: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain torch version of :func:`lookup`: same taps (dequantized under
+    pack8), same fp32 lerp. ``out_dtype`` (default: the volume's dtype, as
+    the kernel) is where the fp32 taps are rounded to."""
     coords = coords_x.reshape(-1).float()
-    out = lookup_pyramid(ops.levels, coords, ops.radius)
-    return out.to(ops.levels[0].dtype).reshape(ops.b, ops.h, ops.w1, -1)
+    levels = ops.levels
+    if ops.pack8:
+        per_row = ops.h * ops.w1
+        levels = [q.float() * ops.scales[:, i].repeat_interleave(per_row)[:, None]
+                  for i, q in enumerate(ops.levels8)]
+    out = lookup_pyramid(levels, coords, ops.radius)
+    dtype = ops.levels[0].dtype if out_dtype is None else out_dtype
+    return out.to(dtype).reshape(ops.b, ops.h, ops.w1, -1)
+
+
+def kernel_levels(ops: CorrOperands, device: torch.device):
+    """The level rows, their widths, the mode (0 fp32, 1 bf16, 2 int8 with
+    scales) and the scales' pointer, as the kernels take them (ctypes);
+    raises on operands they do not take."""
+    dtype = ops.levels[0].dtype
+    nlev = len(ops.levels)
+    npix = ops.b * ops.h * ops.w1
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"corr kernels take bf16 or fp32 volumes, got {dtype}")
+    if not 1 <= nlev <= MAX_LEVELS:
+        raise ValueError(f"corr kernels take 1..{MAX_LEVELS} levels, got {nlev}")
+    rows, want, scales = ops.levels, dtype, None
+    if ops.pack8:
+        rows, want, scales = ops.levels8, torch.int8, ops.scales
+        if (scales.device != device or scales.dtype != torch.float32
+                or scales.shape != (ops.b, nlev) or not scales.is_contiguous()):
+            raise ValueError(f"pack8 scales must be contiguous fp32 {(ops.b, nlev)} "
+                             "on the coords' device")
+    for lvl, w in zip(rows, ops.widths):
+        if (lvl.device != device or lvl.dtype != want
+                or lvl.shape != (npix, w) or not lvl.is_contiguous()):
+            raise ValueError(f"corr levels must be contiguous (B*H*W1, width) {want} "
+                             "rows on the coords' device")
+    mode = 2 if ops.pack8 else int(dtype == torch.bfloat16)
+    return ((ctypes.c_void_p * nlev)(*[lvl.data_ptr() for lvl in rows]),
+            (ctypes.c_int * nlev)(*ops.widths), mode,
+            None if scales is None else scales.data_ptr())
 
 
 def lookup(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
@@ -83,33 +159,22 @@ def lookup(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
     raise."""
     if coords_x.device.type == "cpu":
         return lookup_plain(ops, coords_x)
-    dtype = ops.levels[0].dtype
-    nlev = len(ops.levels)
-    npix = ops.b * ops.h * ops.w1
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"corr lookup kernel takes bf16 or fp32 volumes, got {dtype}")
     if coords_x.dtype != torch.float32 or coords_x.shape != (ops.b, ops.h, ops.w1):
         raise ValueError(f"coords_x must be fp32 of shape {(ops.b, ops.h, ops.w1)}, "
                          f"got {coords_x.dtype} {tuple(coords_x.shape)}")
-    if not 1 <= nlev <= MAX_LEVELS:
-        raise ValueError(f"corr lookup kernel takes 1..{MAX_LEVELS} levels, got {nlev}")
-    for lvl, w in zip(ops.levels, ops.widths):
-        if (lvl.device != coords_x.device or lvl.dtype != dtype
-                or lvl.shape != (npix, w) or not lvl.is_contiguous()):
-            raise ValueError("corr levels must be contiguous (B*H*W1, width) rows "
-                             "of one dtype on the coords' device")
+    rows, widths, mode, scales = kernel_levels(ops, coords_x.device)
     coords = coords_x.contiguous()
-    k = 2 * ops.radius + 1
-    out = torch.empty((ops.b, ops.h, ops.w1, nlev * k), dtype=dtype,
-                      device=coords.device)
-    rows = (ctypes.c_void_p * nlev)(*[lvl.data_ptr() for lvl in ops.levels])
-    widths = (ctypes.c_int * nlev)(*ops.widths)
+    nlev = len(ops.levels)
+    out = torch.empty((ops.b, ops.h, ops.w1, nlev * (2 * ops.radius + 1)),
+                      dtype=ops.levels[0].dtype, device=coords.device)
     fn = kernels.entry("corr_lookup")
     kernels.check("corr_lookup", fn(
-        coords.data_ptr(), rows, widths, nlev, ops.radius, npix,
-        int(dtype == torch.bfloat16), out.data_ptr(),
+        coords.data_ptr(), rows, widths, nlev, ops.radius, ops.b * ops.h * ops.w1, mode,
+        scales, ops.h * ops.w1, out.data_ptr(),
         torch.cuda.current_stream(coords.device).cuda_stream))
     kernels.launches["corr_lookup"] += 1
+    if ops.pack8:
+        kernels.variants["corr_lookup:pack8"] += 1
     return out
 
 

@@ -10,7 +10,14 @@
 //   out[t] = tap[t] * (1 - frac) + tap[t + 1] * frac   (fp32, one downcast)
 // The lerp uses explicit round-to-nearest multiplies and adds so no fused
 // multiply-add changes its rounding.
+//
+// int8 levels (RAFT_CORR_PACK8; pallas_reg.py:gather_lerp_taps_packed8):
+// a tap inside the row is q * scale in fp32, scale the (sample, level)
+// dequant scale; the mask comes first, so a tap outside the row is an exact
+// zero. The lerp and the bf16 downcast are as above.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,10 +30,13 @@ template <typename T>
 struct Levels {
   const T* row[kMaxLevels];  // [npix][width[l]] per level, unpadded
   int width[kMaxLevels];
+  // int8 levels only: scale[b * nlev + l] for a pixel p of sample
+  // b = p / sample_pixels.
+  const float* scale;
+  int sample_pixels;
+  int nlev;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -36,10 +46,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// The 2r+1 taps of pixel p at level l, written to o[0 .. 2r].
+// A tap inside the row as fp32.
+__device__ __forceinline__ float tap_f32(float v, float) { return v; }
+__device__ __forceinline__ float tap_f32(__nv_bfloat16 v, float) { return __bfloat162float(v); }
+__device__ __forceinline__ float tap_f32(int8_t q, float scale) {
+  return __fmul_rn((float)q, scale);
+}
+
 template <typename T>
+__device__ __forceinline__ float level_scale(const Levels<T>&, int, int) { return 1.0f; }
+__device__ __forceinline__ float level_scale(const Levels<int8_t>& lv, int l, int p) {
+  return lv.scale[(p / lv.sample_pixels) * lv.nlev + l];
+}
+
+// The 2r+1 taps of pixel p at level l, written to o[0 .. 2r] (the levels'
+// own type, bf16 for int8 levels).
+template <typename T, typename O>
 __device__ __forceinline__ void gather_level_taps(const Levels<T>& lv, int l, int p, float x,
-                                                  int radius, T* o) {
+                                                  int radius, O* o) {
   const int k = 2 * radius + 1;
   const int w = lv.width[l];
   const T* row = lv.row[l] + (size_t)p * w;
@@ -50,12 +74,13 @@ __device__ __forceinline__ void gather_level_taps(const Levels<T>& lv, int l, in
   // Positions this far outside the row give all-zero taps either way; the
   // clamp only keeps the integer conversion in range.
   const int i0 = (int)fminf(fmaxf(i0f, (float)(-radius - 2)), (float)(w + radius + 1));
+  const float scale = level_scale(lv, l, p);
   int pos = i0 - radius;
-  float prev = (pos >= 0 && pos < w) ? to_f32(row[pos]) : 0.0f;
+  float prev = (pos >= 0 && pos < w) ? tap_f32(row[pos], scale) : 0.0f;
   for (int t = 0; t < k; ++t) {
     ++pos;
-    const float next = (pos >= 0 && pos < w) ? to_f32(row[pos]) : 0.0f;
-    o[t] = from_f32<T>(__fadd_rn(__fmul_rn(prev, omf), __fmul_rn(next, frac)));
+    const float next = (pos >= 0 && pos < w) ? tap_f32(row[pos], scale) : 0.0f;
+    o[t] = from_f32<O>(__fadd_rn(__fmul_rn(prev, omf), __fmul_rn(next, frac)));
     prev = next;
   }
 }

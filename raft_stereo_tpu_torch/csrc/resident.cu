@@ -2,7 +2,9 @@
 // FlowHead in one launch.
 //
 // Replaces raft_stereo_tpu/ops/pallas_resident.py:_resident_kernel (driven
-// by fused_iter_fwd_impl). It computes what the serial route does with the
+// by fused_iter_fwd_impl), with its corr gather in the plain mode (bf16
+// levels) and the packed8 mode (int8 levels, RAFT_CORR_PACK8; _corr_rows):
+// one instantiation each. It computes what the serial route does with the
 // corr_lookup.cu, motion.cu and conv_gru.cu (+head) launches and gives the
 // same bits:
 //   corr      = lookup(pyramid, coords_x)                 (never written)
@@ -33,6 +35,8 @@
 // at 80 so that three blocks fit an SM, as for the serial engine launches:
 // a few bytes spill, and the engine stages, latency-bound, run faster than
 // at two blocks.
+#include <type_traits>
+
 #include "corr_taps.cuh"
 #include "grid.cuh"
 #include "motion_stage1.cuh"
@@ -43,7 +47,8 @@ namespace rst {
 constexpr int kTapPixels = 32;  // pixels per gather tile of stage 1
 
 struct ResidentParams {
-  Levels<bf16> lv;
+  Levels<bf16> lv;      // the pyramid's levels, or
+  Levels<int8_t> lv8;   // its int8 levels with their scales
   int nlev, radius, npix;
   const float* coords;  // [P] x positions
   MotionStage1 stage1;
@@ -58,7 +63,18 @@ struct ResidentParams {
   unsigned int* bar;
 };
 
+template <typename T>
+__device__ __forceinline__ const Levels<T>& levels_of(const ResidentParams& p) {
+  if constexpr (std::is_same_v<T, int8_t>) {
+    return p.lv8;
+  } else {
+    return p.lv;
+  }
+}
+
+template <typename T>
 __device__ __forceinline__ void gather_stage1(const ResidentParams& p, unsigned char* smem) {
+  const Levels<T>& lv = levels_of<T>(p);
   bf16* taps = reinterpret_cast<bf16*>(smem);  // [kTapPixels][ccorr]
   const int ccorr = p.stage1.ccorr;
   const int k = 2 * p.radius + 1;
@@ -70,7 +86,7 @@ __device__ __forceinline__ void gather_stage1(const ResidentParams& p, unsigned 
       const int px = i / p.nlev;
       const int l = i % p.nlev;
       if (p0 + px < p.npix)
-        gather_level_taps(p.lv, l, p0 + px, p.coords[p0 + px], p.radius,
+        gather_level_taps(lv, l, p0 + px, p.coords[p0 + px], p.radius,
                           taps + px * ccorr + l * k);
     }
     __syncthreads();
@@ -84,10 +100,11 @@ __device__ __forceinline__ void gather_stage1(const ResidentParams& p, unsigned 
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 3) resident_kernel(ResidentParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   GridBarrier grid{p.bar};
-  gather_stage1(p, smem);
+  gather_stage1<T>(p, smem);
   grid.sync();
   conv3x3_stage<64>(p.s2, p.s2_epi, smem, p.bar + 1);
   grid.sync();
@@ -106,8 +123,9 @@ __global__ void __launch_bounds__(THREADS, 3) resident_kernel(ResidentParams p) 
 
 using rst::bf16;
 
-// Pyramid: rows[l]: [P][widths[l]] bf16, coords: [P] fp32, nlev levels of
-// radius r (ccorr = nlev (2r+1) taps). flow: [P][2]. h: [P][ch], czrq:
+// Pyramid: rows[l]: [P][widths[l]], bf16, or int8 when int8_levels (then
+// scales: [B][nlev] fp32); coords: [P] fp32, nlev levels of radius r
+// (ccorr = nlev (2r+1) taps). flow: [P][2]. h: [P][ch], czrq:
 // [P][3ch], xa/xb: gru08's x parts after the motion features ([P][cxa],
 // [P][cxb], 0 channels = absent). Motion weights as rst_motion's (wc1:
 // [ccorr][n1], wf1: [49][nf], b1, w2, b2, wf, bf, cf); GRU weights as
@@ -116,7 +134,8 @@ using rst::bf16;
 // fp32, f1: [P][nh]: scratch. Outputs h_out: [P][ch], dx: [P] fp32. bar:
 // rst::kCounters counters. Returns the first non-zero cudaError_t.
 extern "C" int rst_resident(const float* coords, const void* const* rows, const int* widths,
-                            int nlev, int radius, const bf16* flow, const bf16* h,
+                            int nlev, int radius, int int8_levels, const float* scales,
+                            const bf16* flow, const bf16* h,
                             const bf16* czrq, const bf16* xa, int cxa, const bf16* xb, int cxb,
                             int B, int H, int W, int ch, const bf16* wc1, const bf16* wf1,
                             const float* b1, int n1, int nf, const bf16* w2, const float* b2,
@@ -129,11 +148,16 @@ extern "C" int rst_resident(const float* coords, const void* const* rows, const 
   const int ccorr = nlev * (2 * radius + 1);
   const size_t smem = rst::TileSmem<64>::BYTES;
   if ((size_t)rst::kTapPixels * ccorr * sizeof(bf16) > smem) return (int)cudaErrorInvalidValue;
+  if (int8_levels && scales == nullptr) return (int)cudaErrorInvalidValue;
   rst::ResidentParams p{};
   for (int l = 0; l < nlev; ++l) {
     p.lv.row[l] = static_cast<const bf16*>(rows[l]);
-    p.lv.width[l] = widths[l];
+    p.lv8.row[l] = static_cast<const int8_t*>(rows[l]);
+    p.lv.width[l] = p.lv8.width[l] = widths[l];
   }
+  p.lv8.scale = scales;
+  p.lv8.sample_pixels = H * W;
+  p.lv8.nlev = nlev;
   p.nlev = nlev;
   p.radius = radius;
   p.npix = B * H * W;
@@ -162,6 +186,9 @@ extern "C" int rst_resident(const float* coords, const void* const* rows, const 
     const int t = rst::conv3x3_tiles(*a, 64);
     if (t > tiles) tiles = t;
   }
-  return rst::launch_persistent(rst::resident_kernel, p, bar, tiles, smem, rst::THREADS,
+  if (int8_levels)
+    return rst::launch_persistent(rst::resident_kernel<int8_t>, p, bar, tiles, smem,
+                                  rst::THREADS, stream);
+  return rst::launch_persistent(rst::resident_kernel<bf16>, p, bar, tiles, smem, rst::THREADS,
                                 stream);
 }

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "raft_stereo_tpu_torch"
-SOURCES = ("corr_lookup", "conv_gru", "motion", "gru1632", "resident",
+SOURCES = ("corr_lookup", "corr_alt", "conv_gru", "motion", "gru1632", "resident",
            "enc_stem", "enc_pass", "enc_point")
 # -fmad=false: no multiply and add is contracted into a fused multiply-add
 # behind the source's back, so the serial kernels and the persistent ones
@@ -36,11 +36,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each library's one C entry point (csrc/<name>.cu).
 _SIGNATURES = {
     "corr_lookup": ("rst_corr_lookup",
                     [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I,
-                     _P, _P]),
+                     _P, _I, _P, _P]),
+    "corr_alt": ("rst_corr_alt",
+                 [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _I, _F,
+                  _I, _P, _P]),
     "conv_gru": ("rst_conv_gru",
                  [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
@@ -50,7 +54,7 @@ _SIGNATURES = {
     "gru1632": ("rst_gru1632",
                 [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 18),
     "resident": ("rst_resident",
-                 [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _P, _P, _P,
+                 [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _P, _P, _P, _P,
                   _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                   _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11),
     "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
@@ -62,18 +66,19 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 
-# Launch counts, one plain integer per kernel ("corr_lookup", "motion",
-# "gru1632", "fused_iter", "enc_stem", "enc_pass", "enc_point3",
+# Launch counts, one plain integer per kernel ("corr_lookup", "corr_alt",
+# "motion", "gru1632", "fused_iter", "enc_stem", "enc_pass", "enc_point3",
 # "enc_point2") and per GRU level for the ConvGRU kernel ("conv_gru:gru08",
 # ...): a wrapper adds one where it launches its kernel on CUDA tensors, and
 # nowhere else.
 launches: Counter = Counter()
-# The encoder kernels' launches once more, by variant: the norm the launch
-# applies ("bn": BatchNorm folded, no statistics; "instance": statistics
-# taken and applied), the pass kind and the channels, as "enc_stem:instance",
-# "enc_pass:mid1/bn/64", "enc_point2:instance/128". Added to beside
-# ``launches``, at the same place; it tells the context net's launches from
-# the feature net's.
+# Some launches once more, by variant. The encoder kernels': the norm the
+# launch applies ("bn": BatchNorm folded, no statistics; "instance":
+# statistics taken and applied), the pass kind and the channels, as
+# "enc_stem:instance", "enc_pass:mid1/bn/64", "enc_point2:instance/128"; it
+# tells the context net's launches from the feature net's. The lookup's and
+# the resident kernel's on int8 levels (RAFT_CORR_PACK8): "corr_lookup:pack8",
+# "fused_iter:pack8". Added to beside ``launches``, at the same place.
 variants: Counter = Counter()
 
 

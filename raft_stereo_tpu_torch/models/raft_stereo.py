@@ -19,7 +19,9 @@ coarse to fine, and the y delta is zeroed in fp32 (the epipolar projection).
 In bf16 with ``reg_cuda`` the JAX package's default loop runs: the gru16+32
 kernel, then the resident iteration kernel in place of the lookup, motion
 and gru08 kernels (``RAFT_FUSE_GRU1632``, ``RAFT_FUSE_ITER``; either off
-gives the serial kernels, with the same bits).
+gives the serial kernels, with the same bits). With ``alt_cuda`` there is
+no pyramid for the resident kernel to gather from, so the loop runs the
+gru16+32 kernel, the alt kernel, then the motion and gru08+head kernels.
 Train mode waits for the training slice.
 """
 
@@ -133,7 +135,9 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
-    corr_dtype = torch.float32 if cfg.corr_kind == "reg" else dt
+    # The plain correlations stay fp32 under bf16, as in the JAX package;
+    # the kernel-backed ones take the feature maps in the compute dtype.
+    corr_dtype = torch.float32 if cfg.corr_kind in ("reg", "alt") else dt
     corr_fn, corr_ops = make_corr(cfg.corr_kind, state["fmap1"].to(corr_dtype),
                                   state["fmap2"].to(corr_dtype), num_levels=cfg.corr_levels,
                                   radius=cfg.corr_radius, out_dtype=dt)

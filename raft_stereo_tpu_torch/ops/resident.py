@@ -12,18 +12,19 @@ same stage code (``csrc/stages.cuh``, ``corr_taps.cuh``,
 
 Inference only, for the default zero-initialised flow: like the motion
 kernel it drops convf1's flow-y weights, so a caller-supplied flow_init
-keeps the serial path.
+keeps the serial path. Under ``RAFT_CORR_PACK8`` the kernel gathers from the
+operands' int8 levels, with the lookup's dequantization (the JAX package's
+``packed8`` ``_corr_rows``).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
 from raft_stereo_tpu_torch import kernels
-from raft_stereo_tpu_torch.corr.reg_cuda import MAX_LEVELS, CorrOperands, lookup_plain
+from raft_stereo_tpu_torch.corr.reg_cuda import CorrOperands, kernel_levels, lookup_plain
 from raft_stereo_tpu_torch.ops.stream import (
     _COUNTERS, _HEAD2_COLS, GruWeights, HeadWeights, MotionWeights, _check_nhwc, _pad64,
     conv_gru_plain, motion_plain)
@@ -63,14 +64,12 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
     b, hh, ww, ch = h.shape
     dev, dt = h.device, torch.bfloat16
     nlev = len(corr_ops.levels)
-    npix = b * hh * ww
     if (corr_ops.b, corr_ops.h, corr_ops.w1) != (b, hh, ww):
         raise ValueError(f"corr operands of {(corr_ops.b, corr_ops.h, corr_ops.w1)}, "
                          f"state of {(b, hh, ww)}")
-    if not 1 <= nlev <= MAX_LEVELS:
-        raise ValueError(f"resident kernel takes 1..{MAX_LEVELS} levels, got {nlev}")
-    for lvl, w in zip(corr_ops.levels, corr_ops.widths):
-        _check_nhwc("corr level", lvl, (npix, w), dt, dev)
+    if corr_ops.levels[0].dtype != dt:
+        raise TypeError(f"resident kernel takes a bf16 pyramid, got {corr_ops.levels[0].dtype}")
+    rows, widths, mode, scales = kernel_levels(corr_ops, dev)
     if coords_x.dtype != torch.float32 or tuple(coords_x.shape) != (b, hh, ww):
         raise ValueError(f"coords_x must be fp32 of shape {(b, hh, ww)}, "
                          f"got {coords_x.dtype} {tuple(coords_x.shape)}")
@@ -111,11 +110,10 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
     f1 = torch.empty((b, hh, ww, head_w.nh), dtype=dt, device=dev)
     dx = torch.empty((b, hh, ww, 1), dtype=torch.float32, device=dev)
     bar = torch.empty(_COUNTERS, dtype=torch.int32, device=dev)
-    rows = (ctypes.c_void_p * nlev)(*[lvl.data_ptr() for lvl in corr_ops.levels])
-    widths = (ctypes.c_int * nlev)(*corr_ops.widths)
     fn = kernels.entry("resident")
     kernels.check("resident", fn(
-        coords.data_ptr(), rows, widths, nlev, corr_ops.radius, flow.data_ptr(),
+        coords.data_ptr(), rows, widths, nlev, corr_ops.radius, int(mode == 2), scales,
+        flow.data_ptr(),
         h.data_ptr(), czrq.data_ptr(), parts[0][0], parts[0][1], parts[1][0], parts[1][1],
         b, hh, ww, ch, m.wc1.data_ptr(), m.wf1.data_ptr(), m.b1.data_ptr(), m.n1, m.nf,
         m.w2.data_ptr(), m.b2.data_ptr(), m.wf.data_ptr(), m.bf.data_ptr(), m.cf,
@@ -125,4 +123,6 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         f1.data_ptr(), h_out.data_ptr(), dx.data_ptr(), bar.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches["fused_iter"] += 1
+    if corr_ops.pack8:
+        kernels.variants["fused_iter:pack8"] += 1
     return h_out, dx

@@ -5,9 +5,10 @@
 
 Runs chip_smoke.py's main path (the seeded full-width model, bf16,
 reg_cuda, one random 375x1242 pair padded to 384x1248, 32 iterations) twice
-to warm up, then once under torch.profiler, first on the default path and
-then with the plain encoders (RAFT_FUSED_ENCODERS=0), and prints JSON lines,
-for each of the two:
+to warm up, then once under torch.profiler, first on the default path,
+then with the plain encoders (RAFT_FUSED_ENCODERS=0), then with
+``alt_cuda`` (the same weights), and prints JSON lines, for each of the
+three:
 - the card (nvidia-smi name and power limit), once;
 - the frame's host wall ms, the device-busy ms (union of kernel intervals)
   and the idle share of the frame's window;
@@ -17,8 +18,9 @@ for each of the two:
 - the top kernels by device time, with their launch counts;
 - the library matmuls' device ms by the torch op that launched them;
 - device ms of the prepare step alone (encoders and zqr convs), by group;
-and once, device ms per call of the corr volume and pyramid and of the two
-per-iteration resizes, each run alone.
+and once, device ms per call of the corr volume and pyramid, of the alt
+path's pooled fmap2 pyramid and of the two per-iteration resizes, each run
+alone.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -43,6 +45,8 @@ def _group(name: str) -> str:
     n = name.lower()
     if "corr_lookup_kernel" in n:
         return "port:corr_lookup"
+    if "corr_alt_kernel" in n:
+        return "port:corr_alt"
     if "conv3x3_kernel" in n:
         return "port:conv3x3 engine (GRU, motion stages 2-3)"
     if "motion_stage1" in n:
@@ -89,7 +93,10 @@ def main() -> int:
     kernels.build()
     model = chip_smoke.seeded_model("cuda")
     (left, right), = chip_smoke.random_pairs(1, chip_smoke.KITTI, seed=9)
-    for route, env in (("default", {}), ("plain encoders", {"RAFT_FUSED_ENCODERS": "0"})):
+    for route, env in (("default", {}), ("plain encoders", {"RAFT_FUSED_ENCODERS": "0"}),
+                       ("alt_cuda", {})):
+        if route == "alt_cuda":
+            model = chip_smoke.seeded_model("cuda", "alt_cuda")
         os.environ.update(env)
         try:
             _profile_frame(route, model, left, right)
@@ -187,10 +194,11 @@ def _matmul_owners(prof) -> dict:
 
 
 def _alone() -> dict:
-    """Device ms per call of the per-frame volume and pyramid and of the two
-    per-iteration resizes, each alone at the main path's shapes."""
+    """Device ms per call of the per-frame volume and pyramid (reg_cuda), of
+    the pooled fmap2 pyramid (alt_cuda) and of the two per-iteration
+    resizes, each alone at the main path's shapes."""
     import chip_smoke
-    from raft_stereo_tpu_torch.corr import reg_cuda
+    from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
     from raft_stereo_tpu_torch.ops.resize import interp_align_corners
     g = torch.Generator(device="cuda").manual_seed(10)
     h, w = chip_smoke.FEAT
@@ -201,6 +209,8 @@ def _alone() -> dict:
     return {
         "corr_volume_and_pyramid": chip_smoke._device_ms(
             lambda: reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4)),
+        "alt_pooled_pyramid": chip_smoke._device_ms(
+            lambda: alt_cuda.build_alt_operands(f1, f2, num_levels=4, radius=4)),
         "resize_gru32_to_gru16": chip_smoke._device_ms(
             lambda: interp_align_corners(n32, (h // 2, w // 2))),
         "resize_gru16_to_gru08": chip_smoke._device_ms(

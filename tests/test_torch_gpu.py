@@ -26,12 +26,17 @@ held to 1 bf16 ulp of their plain versions (an fp32 sum in another order can
 put the one rounding on the other side), their statistics to 1e-5 of the
 plain version's fp64 sums, and two runs to the same bits; with integer
 inputs, where every sum is exact, to equality.
+
+The alt kernel is held to 1 bf16 ulp (1e-5 of the largest tap in fp32) of
+its plain version, whose fp32 row product sums in another order; the
+lookup's int8 mode (RAFT_CORR_PACK8) to equality, and the resident kernel
+on int8 levels bit for bit to the serial int8 chain.
 """
 
 import pytest
 import torch
 
-from raft_stereo_tpu_torch.corr import reg_cuda
+from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
 from raft_stereo_tpu_torch.ops import encoder as enc
@@ -472,3 +477,105 @@ def test_gpu_encoder_launches_are_counted_by_variant(cuda):
         "enc_stem:bn": 1, "enc_pass:mid1/bn/64": 3, "enc_pass:mid2/bn/64": 1,
         "enc_point3:bn/64": 1}
     assert kernels.launches == {"enc_stem": 2, "enc_pass": 10, "enc_point3": 2, "enc_point2": 1}
+
+
+# -- the alt kernel and the int8 correlation (RAFT_CORR_PACK8) ----------------------
+
+
+def _ulps_of(got, ref):
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return float(((got.float() - r).abs() / ulp).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w1,w2,d,levels,radius", [
+    (2, 3, 37, 37, 16, 4, 4), (1, 5, 200, 131, 24, 3, 2), (1, 2, 312, 312, 256, 4, 4),
+    (1, 1, 9, 5, 512, 2, 1), (1, 3, 40, 40, 64, 2, 7)])
+def test_gpu_alt_kernel_matches_plain(cuda, dtype, b, h, w1, w2, d, levels, radius):
+    """The alt kernel sums each dot in another order than the plain
+    version's fp32 matmul: fp32 within 1e-5 of the largest tap, bf16 within
+    one ulp of each value (the one downcast may land on the other side).
+    Positions far off the row give exact zeros; ragged widths, a level
+    narrower than the radius, D from 16 to 512, radius 1 to 7 (the most the
+    kernel takes)."""
+    g = torch.Generator(device=cuda).manual_seed(90)
+    f1 = torch.randn((b, h, w1, d), generator=g, device=cuda).to(dtype)
+    f2 = torch.randn((b, h, w2, d), generator=g, device=cuda).to(dtype)
+    ops = alt_cuda.build_alt_operands(f1, f2, num_levels=levels, radius=radius)
+    coords = torch.rand((b, h, w1), generator=g, device=cuda) * (w2 + 20) - 10
+    flat = coords.view(-1)
+    flat[::10], flat[5::10] = -1e6, 1e6
+    got = alt_cuda.lookup(ops, coords)
+    ref = alt_cuda.lookup_plain(ops, coords)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got.view(-1, got.shape[-1])[::5], torch.zeros_like(ref.view(
+        -1, ref.shape[-1])[::5]))
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert _ulps_of(got, ref) <= 1.0
+
+
+@pytest.mark.gpu
+def test_gpu_alt_kernel_rejects_what_it_does_not_take(cuda):
+    f = torch.zeros((1, 2, 8, 12), device=cuda, dtype=torch.bfloat16)  # D = 12
+    ops = alt_cuda.build_alt_operands(f, f, num_levels=2, radius=2)
+    with pytest.raises(ValueError):
+        alt_cuda.lookup(ops, torch.zeros((1, 2, 8), device=cuda))
+    f = torch.zeros((1, 2, 8, 16), device=cuda, dtype=torch.bfloat16)
+    ops = alt_cuda.build_alt_operands(f, f, num_levels=2, radius=8)  # 18 dots a level
+    with pytest.raises(ValueError):
+        alt_cuda.lookup(ops, torch.zeros((1, 2, 8), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,levels,radius", [(2, 3, 37, 4, 4), (1, 5, 20, 2, 3),
+                                                 (1, 96, 312, 4, 4)])
+def test_gpu_pack8_lookup_matches_plain_exactly(cuda, monkeypatch, b, h, w, levels, radius):
+    """int8 levels: the kernel's dequant, mask and lerp are the plain
+    version's fp32 operations in the same order, so bit for bit; counted as
+    corr_lookup and as its pack8 variant."""
+    from raft_stereo_tpu_torch import kernels
+    monkeypatch.setenv("RAFT_CORR_PACK8", "1")
+    g = torch.Generator(device=cuda).manual_seed(91)
+    f1 = torch.randn((b, h, w, 16), generator=g, device=cuda).bfloat16()
+    f2 = torch.randn((b, h, w, 16), generator=g, device=cuda).bfloat16()
+    f1[-1] *= 9.0  # another scale for the last sample
+    ops = reg_cuda.build_corr_operands(f1, f2, num_levels=levels, radius=radius)
+    assert ops.pack8
+    coords = torch.rand((b, h, w), generator=g, device=cuda) * (w + 20) - 10
+    kernels.reset_launches()
+    got = reg_cuda.lookup(ops, coords)
+    ref = reg_cuda.lookup_plain(ops, coords)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+    assert kernels.launches == {"corr_lookup": 1}
+    assert kernels.variants == {"corr_lookup:pack8": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,ch", [(2, 7, 13, 32), (1, 96, 312, 128)])
+def test_gpu_resident_pack8_matches_serial_bitwise(cuda, monkeypatch, b, h, w, ch):
+    """The resident kernel on int8 levels gathers with the lookup's own
+    body: bit for bit the serial pack8 chain, and within the tolerance of
+    its plain version."""
+    from raft_stereo_tpu_torch import kernels
+    monkeypatch.setenv("RAFT_CORR_PACK8", "1")
+    args = _resident_case(cuda, b, h, w, ch, 92)
+    assert args[3].pack8
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = resident.fused_iter(*args)
+        serial = _resident_serial(*args)
+        plain = resident.fused_iter_plain(*args)
+    torch.cuda.synchronize()
+    for g_, s_ in zip(got, serial):
+        assert torch.equal(g_, s_)
+    assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
+    assert float((got[1] - plain[1]).abs().max()) <= 2.0 ** -5 * float(
+        plain[1].square().mean().sqrt())
+    assert kernels.variants["fused_iter:pack8"] == 1
+    assert kernels.variants["corr_lookup:pack8"] == 1

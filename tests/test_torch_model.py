@@ -201,9 +201,12 @@ def test_sequential_fnet_matches_batched(rng, monkeypatch):
 def test_config_choices():
     assert RAFTStereoConfig(corr_implementation="reg_tpu").corr_kind == "reg_cuda"
     assert with_eval_precision(RAFTStereoConfig(corr_implementation="reg_cuda")).mixed_precision
-    for impl in ("alt", "alt_cuda", "alt_tpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RAFTStereoConfig(corr_implementation=impl)
+    for impl, kind in (("alt", "alt"), ("alt_cuda", "alt_cuda"), ("alt_tpu", "alt_cuda")):
+        assert RAFTStereoConfig(corr_implementation=impl).corr_kind == kind
+    assert with_eval_precision(RAFTStereoConfig(corr_implementation="alt_tpu")).mixed_precision
+    assert not with_eval_precision(RAFTStereoConfig(corr_implementation="alt")).mixed_precision
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RAFTStereoConfig(slow_fast_gru=True)
     with pytest.raises(NotImplementedError):
         RAFTStereo(RAFTStereoConfig(**SMALL))(torch.zeros(1, 32, 32, 3),
                                               torch.zeros(1, 32, 32, 3))

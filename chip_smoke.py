@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from raft_stereo_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc per source, all at once;
+   (sm_90a), one nvcc per source, all at once, and print the loop kernels'
+   and the q8 exits' registers and spills (ptxas -v);
 3. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (KITTI 375x1242 padded to 384x1248: features at
    96x312, B=1, bf16): max |error| against a stated tolerance; device ms per
@@ -25,7 +26,16 @@ Phases, each fatal on failure:
    conv, ``F.conv2d``) carry its time (``library_ms``); the context net's
    fused stem + layer1, one streamed residual block and the feature net's
    fused stem + layer1 (at both frame sizes) are held as chains, kernel
-   route against plain route;
+   route against plain route. The int8 context lanes (RAFT_LANE_PACK8):
+   the three GRU kernels on int8 czrq (``bf16_ms``: the bf16 mode's ms in
+   this call; gru16+32 and resident bit for bit their serial lane8 chains),
+   the quantize-on-exit pass at the zqr convs' shapes (128 -> 384: KITTI
+   96x312, 48x156, 24x78, Middlebury-F 504x744; ``library_ms`` the
+   F.conv2d of the same conv, without the quantization) and point2 q8 at
+   96x312x128 and 504x744x128, both norms, each bit for bit the host
+   quantization of the same kernel's bf16 output; the point2 q8 exit, on
+   no model path, runs in four stream_resblock_q8 chains (context and
+   feature net layer3[1] at both sizes), whose launches are its row's;
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
    levels, 4 corr levels, radius 4, bf16, reg_cuda) with weights from a
    seed, through the demo's inference function at 32 iterations, with the
@@ -53,6 +63,11 @@ Phases, each fatal on failure:
      RAFT_CORR_PACK8=1 on the KITTI pair (32 resident launches on the int8
      levels), again with RAFT_FUSE_ITER=0 (32 int8 lookups, equal bits), in
      a stated band of the bf16 frame;
+   - RAFT_LANE_PACK8=1 (``phase_lane_paths``): the KITTI pair (32 gru16+32
+     and 32 resident launches, all on int8 czrq, and one q8 pass per zqr
+     level), again on the serial loop (32 lane8 GRU launches a level, equal
+     bits), and the Middlebury-F pair with the prepare step's and the
+     loop's peaks apart; both in LANE_BANDS of the bf16 frames;
    - the prepare step twice on one pair: equal bits (no atomics);
    per-frame ms and peak memory for each;
 5. the same seeded model at 128x256 and 8 iterations on the card and on the
@@ -225,11 +240,35 @@ def phase_device() -> dict:
     return {"nvidia_smi": smi}
 
 
+def _ptxas_usage(log: str) -> list:
+    """Each kernel's registers and spill bytes from ptxas's -v lines."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> float:
     from raft_stereo_tpu_torch import kernels
     seconds = kernels.build()
     print(json.dumps({"phase": "build", "seconds": seconds,
                       "sources": list(kernels.SOURCES)}))
+    # The loop kernels' and the q8 exits' instantiations (resident_kernel<T,
+    # Q>: T the level type, Q czrq's; "a" is int8, "13__nv_bfloat16" bf16).
+    for name in ("resident", "gru1632", "conv_gru", "enc_pass", "enc_point"):
+        print(json.dumps({"phase": "ptxas", "source": name,
+                          "kernels": _ptxas_usage(kernels.build_log(name))}))
     return seconds
 
 
@@ -334,13 +373,28 @@ def _gru_case(g, level, h, w, ch, parts, head: bool):
     return wts, hw, hst, czrq, xs
 
 
-def check_gru(level: str) -> dict:
+def _lane8(t):
+    from raft_stereo_tpu_torch.corr.reg_cuda import quantize_feature8
+    return quantize_feature8(t)
+
+
+def _lane8_row(out: dict, variant: str, on_path: str, replaces: str, bf16_kernel) -> dict:
+    """A lane8 mode's row: its variant, the path that runs it, the TPU
+    kernel it replaces and the bf16 mode's device ms in this call."""
+    out.update(name=f"{out['name']}:lane8", variant=variant, on_path=on_path,
+               replaces=replaces, bf16_ms=_device_ms(bf16_kernel))
+    return out
+
+
+def check_gru(level: str, lane8: bool = False) -> dict:
     """Kernel 2 at one GRU level's main-path shapes. Tolerance: the kernel
     sums in another order than cuDNN's fp32 conv, so a bf16 rounding of
     z, r, q (or f1) can land one ulp apart and carry into h' (and dx):
     |err| <= 2^-5 (8 bf16 ulps at 1.0) for h' in [-1, 1], and 2^-5 of the
     RMS of dx for dx. A wrong tap, halo or border moves dx by about its RMS,
-    32x that bound; the measured error sits several times under it (PERF.md)."""
+    32x that bound; the measured error sits several times under it (PERF.md).
+    With ``lane8`` on the int8 container of the same czrq (RAFT_LANE_PACK8),
+    the same tolerances, and the bf16 mode's ms beside it."""
     from raft_stereo_tpu_torch.ops import stream
     g = _gen(4)
     ch = 128
@@ -348,7 +402,8 @@ def check_gru(level: str) -> dict:
             "gru32": (FEAT[0] // 4, FEAT[1] // 4)}[level]
     parts = {"gru08": (128, 128), "gru16": (128, 128), "gru32": (128,)}[level]
     head = level == "gru08"
-    wts, hw, hst, czrq, xs = _gru_case(g, level, h, w, ch, parts, head)
+    wts, hw, hst, czrq_bf16, xs = _gru_case(g, level, h, w, ch, parts, head)
+    czrq = _lane8(czrq_bf16) if lane8 else czrq_bf16
     with torch.no_grad():
         got_h, got_dx = stream.fused_conv_gru(wts, hst, czrq, *xs, head=hw)
         ref_h, ref_dx = stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
@@ -367,7 +422,7 @@ def check_gru(level: str) -> dict:
     cx = sum(parts)
     macs = _gru_macs(ch, cx)
     wbytes = 9 * (ch + cx) * 3 * ch * 2 + 9 * ch * ch * 2
-    nbytes = npix * 2 * (ch + 3 * ch + cx + ch)
+    nbytes = npix * (2 * (ch + cx + ch) + 3 * ch * (1 if lane8 else 2))
     if head:
         macs += 9 * (ch * 256 + 256)
         wbytes += 9 * ch * 256 * 2 + 9 * 256 * 2
@@ -382,10 +437,20 @@ def check_gru(level: str) -> dict:
         with torch.no_grad():
             stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
 
-    return {"name": f"conv_gru:{level}{'+head' if head else ''}",
-            "counter": f"conv_gru:{level}", "tol": tol, "ok": ok, "max_abs_err": err,
-            **detail, **_timings(kernel, plain), "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": f"1x{h}x{w}x{ch}, x parts {list(parts)}, bf16"}
+    out = {"name": f"conv_gru:{level}{'+head' if head else ''}",
+           "counter": f"conv_gru:{level}", "tol": tol, "ok": ok, "max_abs_err": err,
+           **detail, **_timings(kernel, plain), "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": f"1x{h}x{w}x{ch}, x parts {list(parts)}, bf16"
+                    f"{', czrq int8' if lane8 else ''}"}
+    if not lane8:
+        return out
+
+    def bf16_kernel():
+        with torch.no_grad():
+            stream.fused_conv_gru(wts, hst, czrq_bf16, *xs, head=hw)
+
+    return _lane8_row(out, f"conv_gru:{level}:lane8", "lane8_serial",
+                      "raft_stereo_tpu/ops/pallas_stream.py:238", bf16_kernel)
 
 
 def check_motion() -> dict:
@@ -443,10 +508,12 @@ def _gru_macs(ch: int, cx: int) -> int:
     return 9 * (cx * 3 * ch + ch * 2 * ch + ch * ch)
 
 
-def check_gru1632() -> dict:
+def check_gru1632(lane8: bool = False) -> dict:
     """Kernel 4 at the main path's shapes (gru16 48x156, gru32 24x78, 128
     channels). Tolerance as for the GRU kernel, 2^-5 on both states; and
-    bit for bit the serial CUDA chain (two GRU launches and the resize)."""
+    bit for bit the serial CUDA chain (two GRU launches and the resize).
+    With ``lane8`` on int8 czrq containers, against the serial lane8
+    chain."""
     from raft_stereo_tpu_torch.models.layers import init_weights
     from raft_stereo_tpu_torch.models.update import ConvGRU
     from raft_stereo_tpu_torch.ops import stream
@@ -465,6 +532,9 @@ def check_gru1632() -> dict:
                 stream.prepare_gru_context(g32, [_randn((1, h32, w32, ch), g, 0.3)
                                                  for _ in range(3)], bf),
                 _randn((1, h16, w16, ch), g), _randn((1, h32, w32, ch), g))
+        bf16_args = args
+        if lane8:
+            args = (*args[:4], _lane8(args[4]), _lane8(args[5]), *args[6:])
         got = stream.fused_gru1632(*args)
         ref = stream.gru1632_plain(*args)
         serial = _serial_gru1632(*args)
@@ -475,7 +545,7 @@ def check_gru1632() -> dict:
     n16, n32 = h16 * w16, h32 * w32
     macs = n32 * _gru_macs(ch, ch) + n16 * _gru_macs(ch, 2 * ch)
     wbytes = 2 * (9 * (2 * ch) * 3 * ch + 9 * (3 * ch) * 3 * ch + 2 * 9 * ch * ch)
-    nbytes = 2 * ((n16 + n32) * (ch + 3 * ch + ch + ch)) + wbytes
+    nbytes = (n16 + n32) * (2 * (ch + ch + ch) + 3 * ch * (1 if lane8 else 2)) + wbytes
     bound_ms, bound_by = _bound(nbytes, 2.0 * macs, PEAK_BF16)
 
     def kernel():
@@ -490,19 +560,29 @@ def check_gru1632() -> dict:
         with torch.no_grad():
             _serial_gru1632(*args)
 
-    return {"name": "gru1632", "counter": "gru1632", "tol": tol, "ok": err <= tol and bitwise,
-            "max_abs_err": err, "bitwise_equal_serial": bitwise, **_timings(kernel, plain),
-            "serial_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"}
+    out = {"name": "gru1632", "counter": "gru1632", "tol": tol, "ok": err <= tol and bitwise,
+           "max_abs_err": err, "bitwise_equal_serial": bitwise, **_timings(kernel, plain),
+           "serial_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"
+                    f"{', czrq int8' if lane8 else ''}"}
+    if not lane8:
+        return out
+
+    def bf16_kernel():
+        with torch.no_grad():
+            stream.fused_gru1632(*bf16_args)
+
+    return _lane8_row(out, "gru1632:lane8", "lane8", "raft_stereo_tpu/ops/pallas_stream.py:814",
+                      bf16_kernel)
 
 
-def check_resident(pack8: bool = False) -> dict:
+def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
     """Kernel 6 at the main path's shapes (96x312, 128 channels, the pyramid
     of 256-channel feature maps, x2 the upsampled gru16 state); with
-    ``pack8`` on its int8 levels. Tolerances as for the GRU kernel with the
-    head: 2^-5 for h', 2^-5 of the RMS of dx for dx; and bit for bit the
-    serial CUDA chain (lookup, motion, GRU with the head) on the same
-    levels."""
+    ``pack8`` on its int8 levels, with ``lane8`` on an int8 czrq container.
+    Tolerances as for the GRU kernel with the head: 2^-5 for h', 2^-5 of
+    the RMS of dx for dx; and bit for bit the serial CUDA chain (lookup,
+    motion, GRU with the head) on the same levels and czrq."""
     from raft_stereo_tpu_torch.corr import reg_cuda
     from raft_stereo_tpu_torch.models.layers import init_weights
     from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
@@ -528,7 +608,11 @@ def check_resident(pack8: bool = False) -> dict:
                 stream.prepare_gru_context(gru, [_randn((1, h, w, ch), g, 0.3)
                                                  for _ in range(3)], bf),
                 coords, flow, _randn((1, h, w, ch), g))
-        got = resident.fused_iter(*args)
+        bf16_args = args
+        if lane8:
+            args = (*args[:5], _lane8(args[5]), *args[6:])
+        got = _with_env({"RAFT_LANE_PACK8": "1"} if lane8 else {},
+                        lambda: resident.fused_iter(*args))
         ref = resident.fused_iter_plain(*args)
 
         def chain():
@@ -551,8 +635,8 @@ def check_resident(pack8: bool = False) -> dict:
                   + 9 * ch * ch + 9 * ch * 256 + 9 * 256)
     # coords, the 2r+2 taps of 4 levels, flow; h, czrq, x2; h' and dx out.
     tap_bytes = 1 if pack8 else 2
-    nbytes = npix * (4 + 4 * (k + 1) * tap_bytes + 2 * 2 + 2 * (ch + 3 * ch + ch) + 2 * ch
-                     + 4) + wbytes
+    nbytes = npix * (4 + 4 * (k + 1) * tap_bytes + 2 * 2 + 2 * (ch + ch) + 2 * ch + 4
+                     + 3 * ch * (1 if lane8 else 2)) + wbytes
     bound_ms, bound_by = _bound(nbytes, 2.0 * macs, PEAK_BF16)
 
     def kernel():
@@ -567,17 +651,27 @@ def check_resident(pack8: bool = False) -> dict:
         with torch.no_grad():
             chain()
 
+    timings = _with_env({"RAFT_LANE_PACK8": "1"} if lane8 else {},
+                        lambda: {**_timings(kernel, plain), "serial_ms": _device_ms(serial_run)})
     out = {"name": "fused_iter:pack8" if pack8 else "fused_iter", "counter": "fused_iter",
            "tol": tol, "ok": err_h <= tol and err_dx <= tol * dx_rms and bitwise,
            "max_abs_err": max(err_h, err_dx), "max_abs_err_h": err_h, "max_abs_err_dx": err_dx,
            "tol_dx": tol * dx_rms, "dx_rms": dx_rms, "bitwise_equal_serial": bitwise,
-           **_timings(kernel, plain), "serial_ms": _device_ms(serial_run),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "shape": f"1x{h}x{w}x{ch}, 4 levels r=4 {'int8' if pack8 else 'bf16'}, x2 {ch}, bf16"}
+           **timings, "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": f"1x{h}x{w}x{ch}, 4 levels r=4 {'int8' if pack8 else 'bf16'}, x2 {ch}, bf16"
+                    f"{', czrq int8' if lane8 else ''}"}
     if pack8:
         out.update(variant="fused_iter:pack8", on_path="pack8",
                    replaces="raft_stereo_tpu/ops/pallas_resident.py:97")
-    return out
+    if not lane8:
+        return out
+
+    def bf16_kernel():
+        with torch.no_grad():
+            resident.fused_iter(*bf16_args)
+
+    return _lane8_row(out, "fused_iter:lane8", "lane8",
+                      "raft_stereo_tpu/ops/pallas_resident.py:250", bf16_kernel)
 
 
 def _ulp_err(got, ref) -> tuple:
@@ -756,6 +850,157 @@ def check_point(path, which: int, h: int, w: int, ch: int, norm: bool) -> dict:
         lambda: kernel(*args, norm=norm), lambda: plain(*args, norm=norm))
 
 
+Q8_PASS = "enc_pass:raw1/bn/128/q8"  # a zqr context conv under RAFT_LANE_PACK8
+Q8_STEPS = 2.0  # quantization steps: one from a bf16 ulp of the value, one of the amax
+
+
+def _q8_steps(lane, ref) -> float:
+    """max |difference| of two int8 containers' values, in quantization
+    steps of the larger scale."""
+    d = (lane.q.float() * lane.scale - ref.q.float() * ref.scale).abs().max()
+    return float(d / torch.maximum(lane.scale, ref.scale))
+
+
+def _q8_result(variant, path, hw, shape, lane, again, host, ref, nbytes, flops, peak, kernel,
+               plain, bf16_kernel, own, library=None, library_note=None) -> dict:
+    """The record of a quantize-on-exit check: bit for bit the host
+    quantization of the same kernel's bf16 output, equal over two runs, and
+    within Q8_STEPS of the plain version's container; ``bf16_ms`` the bf16
+    mode's device ms in this call."""
+    torch.cuda.synchronize()
+    h, w = hw
+    bitwise = torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+    same = torch.equal(lane.q, again.q) and torch.equal(lane.scale, again.scale)
+    steps = _q8_steps(lane, ref)
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+    reps, warmup = (20, 3) if h * w <= FEAT[0] * FEAT[1] else (5, 1)
+    out = {"name": f"{variant} {h}x{w}", "counter": variant.split(":")[0], "variant": variant,
+           "on_path": path, "tol": Q8_STEPS, "tol_unit": "quantization steps",
+           "max_steps": steps, "max_abs_err": steps * float(lane.scale),
+           "bitwise_equal_host_quantization": bitwise, "deterministic": same,
+           "scale": float(lane.scale), "ok": bitwise and same and steps <= Q8_STEPS,
+           **_timings(kernel, plain, reps, warmup, own),
+           "bf16_ms": _device_ms(bf16_kernel, reps, warmup),
+           "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
+           "library_ms": None if library is None else _device_ms(library, reps, warmup),
+           "library_note": library_note or "no single PyTorch call computes this function"}
+    return out
+
+
+def check_pass_q8(path, h: int, w: int) -> dict:
+    """A zqr context conv (128 -> 384, 3x3, bias, over a relu'd map) as the
+    quantize-on-exit pass (RAFT_LANE_PACK8) at a main path's shape. The one
+    F.conv2d of the same conv is ``library_ms``: the conv only, without the
+    quantization."""
+    import torch.nn.functional as F
+
+    from raft_stereo_tpu_torch.corr.reg_cuda import quantize_feature8
+    from raft_stereo_tpu_torch.ops import encoder as enc
+    g = _gen(26)
+    inputs = [(torch.relu(_randn((1, h, w, 128), g)), None, None)]
+    wt, b = _enc_weights(128, 384, 3, 27)
+
+    def kernel():
+        return enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)[0]
+
+    def plain():
+        return enc.conv_pass_plain("raw1", inputs, wt, b, stats=False, quant=True)[0]
+
+    def bf16_kernel():
+        return enc.conv_pass("raw1", inputs, wt, b, stats=False)[0]
+
+    xl = inputs[0][0].permute(0, 3, 1, 2)
+    wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bl = b.to(torch.bfloat16)
+    npix = h * w
+    return _q8_result(
+        Q8_PASS, path, (h, w), f"1x{h}x{w}x128 -> 384, bf16 -> int8", kernel(), kernel(),
+        quantize_feature8(bf16_kernel()), plain(),
+        npix * (128 * 2 + 384) + 9 * 128 * 384 * 2, 2.0 * 9 * 128 * 384 * npix, PEAK_BF16,
+        kernel, plain, bf16_kernel, ("enc_pass_amax_kernel", "enc_pass_quant_kernel"),
+        lambda: F.conv2d(xl, wl, bl, 1, 1),
+        "F.conv2d 3x3 pad 1, 128 -> 384, with bias, bf16, channels-last: the conv only, "
+        "without the quantization")
+
+
+def check_point2_q8(path, h: int, w: int, norm: bool) -> dict:
+    """point2 with the quantize-on-exit epilogue (``_point2_q8_kernel``)."""
+    from raft_stereo_tpu_torch.corr.reg_cuda import quantize_feature8
+    from raft_stereo_tpu_torch.ops import encoder as enc
+    g = _gen(29)
+    shape = (1, h, w, 128)
+    x, y = _randn(shape, g), _enc_triple(g, shape, True)
+
+    def kernel():
+        return enc.point2(x, y, norm=norm, quant=True)
+
+    def plain():
+        return enc.point2_plain(x, y, norm=norm, quant=True)
+
+    def bf16_kernel():
+        return enc.point2(x, y, norm=norm)
+
+    npix = h * w
+    return _q8_result(
+        f"enc_point2:{_norm_name(norm)}/128/q8", path, (h, w), f"1x{h}x{w}x128, bf16 -> int8",
+        kernel(), kernel(), quantize_feature8(bf16_kernel()), plain(), npix * 128 * 5,
+        8.0 * npix * 128, PEAK_FP32, kernel, plain, bf16_kernel, ("point2_kernel",))
+
+
+def check_resblock_q8_chains(model) -> dict:
+    """``stream_resblock_q8``, the only caller of the point2 q8 exit (no
+    model path runs it), on the main paths' resblock shapes: layer3[1] of
+    the context net (folded BatchNorm) and of the feature net (instance
+    norm) over a 96x312x128 and a 504x744x128 map. The launch counts are
+    set to 0 before the four chains and read after: the point2 q8 rows'
+    path. Each chain's container must equal, bit for bit, the host
+    quantization of the kernel route's bf16 chain, and stay within
+    Q8_STEPS, plus the bf16 chains' own difference, of the plain route's."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.corr.reg_cuda import quantize_feature8
+    from raft_stereo_tpu_torch.ops import encoder as enc
+    g = _gen(28)
+    cases = []
+    for size, (h, w) in (("KITTI", FEAT), ("Middlebury-F", ALT_HEADLINE_FEAT)):
+        x = torch.relu(_randn((1, h, w, 128), g))
+        for norm_fn, block in (("batch", model.cnet.layer3[1]), ("instance", model.fnet.layer3[1])):
+            cases.append((f"stream_resblock_q8 {norm_fn}, {size}", block, x, norm_fn))
+    failed = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        lanes = [enc.stream_resblock_q8(block, x, nf) for _, block, x, nf in cases]
+        torch.cuda.synchronize()
+        run = {"path": "stream_resblock_q8 chains", "frames": 1,
+               "launches": dict(kernels.launches), "variants": dict(kernels.variants)}
+        run.update(launches_per_frame=[run["launches"]], variants_per_frame=[run["variants"]])
+        for (name, block, x, nf), lane in zip(cases, lanes):
+            bf = enc.stream_resblock(block, x, nf)
+            host = quantize_feature8(bf)
+            with _plain_encoder_route():
+                ref_bf = enc.stream_resblock(block, x, nf)
+                ref = enc.stream_resblock_q8(block, x, nf)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+            ulps, _ = _ulp_err(bf, ref_bf)
+            dv = _max_err(bf, ref_bf) / float(torch.maximum(lane.scale, ref.scale))
+            steps = _q8_steps(lane, ref)
+            ok = bitwise and ulps <= CHAIN_ULPS and steps <= dv + Q8_STEPS
+            print(json.dumps({"phase": "chain", "name": name, "ok": ok,
+                              "bitwise_equal_host_quantization": bitwise,
+                              "bf16_max_ulps": ulps, "tol_ulps": CHAIN_ULPS,
+                              "max_steps": steps, "tol_steps": dv + Q8_STEPS}))
+            if not ok:
+                failed.append(name)
+    run["variants_expected"] = {"enc_point2:bn/128/q8": 2, "enc_point2:instance/128/q8": 2}
+    if {k: n for k, n in run["variants"].items() if k.startswith("enc_point2")} != \
+            run["variants_expected"]:
+        raise SystemExit(f"stream_resblock_q8 chains launched {run['variants']}")
+    if failed:
+        raise SystemExit(f"stream_resblock_q8 chains disagree: {failed}")
+    return run
+
+
 class _plain_encoder_route:
     """Inside, the encoder chains run the plain versions on the card too."""
 
@@ -773,14 +1018,15 @@ class _plain_encoder_route:
             setattr(enc, n, fn)
 
 
-def check_chains() -> None:
+def check_chains() -> dict:
     """The context net's fused stem + layer1 at the KITTI frame, one
     streamed residual block (layer3[1], 96x312x128) and the feature net's
     fused stem + layer1 at the KITTI and the Middlebury-F frame, of the
     seeded model, kernel route against plain route on the card. A rounding
     that flips in one pass is carried through the later convolutions and
     exits, so the chains are held to CHAIN_ULPS bf16 ulps; the share of
-    elements that differ at all is printed."""
+    elements that differ at all is printed. Then the quantize-on-exit
+    resblocks (check_resblock_q8_chains), whose launch record it returns."""
     from raft_stereo_tpu_torch.ops import encoder as enc
     model = seeded_model("cuda")
     g = _gen(25)
@@ -811,6 +1057,7 @@ def check_chains() -> None:
     torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"encoder chains disagree with their plain route: {failed}")
+    return check_resblock_q8_chains(model)
 
 
 def encoder_checks() -> list:
@@ -835,7 +1082,25 @@ def encoder_checks() -> list:
     return results
 
 
-def phase_kernels() -> list:
+def lane8_checks() -> list:
+    """The RAFT_LANE_PACK8 modes at the main paths' shapes: the three GRU
+    kernels on int8 czrq (the serial GRU at each KITTI level, gru16+32 and
+    the resident iteration, the last two bit for bit their serial lane8
+    chains), the quantize-on-exit pass at the zqr convs' shapes (KITTI
+    96x312, 48x156, 24x78; Middlebury-F 504x744) and point2 q8 at the
+    resblock shapes, both norms."""
+    (h, w), (hh, wh) = FEAT, ALT_HEADLINE_FEAT
+    out = [check_gru(level, lane8=True) for level in ("gru08", "gru16", "gru32")]
+    out += [check_gru1632(lane8=True), check_resident(lane8=True)]
+    out += [check_pass_q8("lane8", h // k, w // k) for k in (1, 2, 4)]
+    out.append(check_pass_q8("lane8_headline", hh, wh))
+    out += [check_point2_q8("resblock_q8", *hw, norm) for hw in (FEAT, ALT_HEADLINE_FEAT)
+            for norm in (False, True)]
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels() -> tuple:
     from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
     from raft_stereo_tpu_torch.ops import stream
     from raft_stereo_tpu_torch.ops import resident
@@ -844,7 +1109,7 @@ def phase_kernels() -> list:
                check_gru("gru32"), check_motion(), check_gru1632(), check_resident(),
                *encoder_checks(), check_alt("alt", *FEAT),
                check_alt("alt_headline", *ALT_HEADLINE_FEAT), check_lookup(pack8=True),
-               check_resident(pack8=True)]
+               check_resident(pack8=True), *lane8_checks()]
     sources = {"corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu",
                                "raft_stereo_tpu/corr/pallas_reg.py:730", reg_cuda.lookup),
                "corr_alt": ("raft_stereo_tpu_torch/csrc/corr_alt.cu",
@@ -867,12 +1132,15 @@ def phase_kernels() -> list:
                               "raft_stereo_tpu/ops/pallas_encoder.py:448", enc.point3),
                "enc_point2": ("raft_stereo_tpu_torch/csrc/enc_point.cu",
                               "raft_stereo_tpu/ops/pallas_encoder.py:467", enc.point2)}
+    q8_replaces = {Q8_PASS: "raft_stereo_tpu/ops/pallas_encoder.py:440",
+                   "enc_point2:bn/128/q8": "raft_stereo_tpu/ops/pallas_encoder.py:496",
+                   "enc_point2:instance/128/q8": "raft_stereo_tpu/ops/pallas_encoder.py:496"}
     failed = []
     for r in results:
         kernel = r["counter"].split(":")[0]
         r["route"] = "cuda"
         r["source"] = sources[kernel][0]
-        r.setdefault("replaces", sources[kernel][1])
+        r.setdefault("replaces", q8_replaces.get(r.get("variant"), sources[kernel][1]))
         r.setdefault("library_ms", None)
         r.setdefault("library_note", "no single PyTorch call computes this function")
         ok = r.pop("ok", r["max_abs_err"] <= r["tol"])
@@ -881,8 +1149,7 @@ def phase_kernels() -> list:
             failed.append(r["name"])
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
-    check_chains()
-    return results
+    return results, check_chains()
 
 
 def random_pairs(n: int, shape, seed: int):
@@ -1059,6 +1326,8 @@ def phase_main_path() -> dict:
     _disparity_band("plain encoders vs default", "Middlebury-F", disp_big_plain[0], disp_big[0])
     del disp_big_plain
     runs = phase_corr_paths(model, pairs[0], big[0], disp_default[0], disp_big[0])
+    runs.update(phase_lane_paths(model, pairs[0], big[0], disp_default[0], disp_big[0],
+                                 runs["alt_headline"]["peaks"]["reg_cuda"]))
     del disp_big
     _prepare_twice(model, pairs[0])
     _prepare_twice(model, big[0])
@@ -1140,6 +1409,61 @@ def phase_corr_paths(model, pair, big, disp_reg, disp_reg_big) -> dict:
             "pack8": run_pack8, "pack8_serial": run_pack8_serial}
 
 
+# The lane8 frames against the bf16 frame of the same pair after ITERS
+# iterations, set as CORR_BANDS are: the mean to about twice a sound tree's
+# reading, every pixel within ROUTE_MAX_TOL. Readings on an H100, mean and
+# max px: 0.063 and 0.380 (KITTI), 0.065 and 0.568 (Middlebury-F).
+LANE_BANDS = {"KITTI": (0.13, ROUTE_MAX_TOL), "Middlebury-F": (0.13, ROUTE_MAX_TOL)}
+
+
+def phase_lane_paths(model, pair, big, disp_reg, disp_reg_big, peak_reg_big) -> dict:
+    """RAFT_LANE_PACK8=1 through the demo's inference, against reg_cuda's
+    bf16 frames of the same pairs (``disp_reg``, ``disp_reg_big``):
+    - the KITTI pair, default loop: 32 gru1632 and 32 resident launches,
+      every one on int8 czrq (``gru1632:lane8``, ``fused_iter:lane8``), the
+      context net's encoder launches and one quantize-on-exit pass per zqr
+      level, and no other variant;
+    - the same with RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0: 32 lane8 GRU
+      launches at each level, and a disparity equal bit for bit to the
+      default lane8 loop's;
+    - the Middlebury-F pair: its frame ms and peak, and the prepare step's
+      and the loop's peaks apart beside reg_cuda's bf16 ones
+      (``peak_reg_big``);
+    - each frame within LANE_BANDS of the bf16 frame."""
+    lane = {"RAFT_LANE_PACK8": "1"}
+    q8 = {Q8_PASS: model.cfg.n_gru_layers}
+    enc_k = {**ENC_KITTI, "enc_pass": ENC_KITTI["enc_pass"] + q8[Q8_PASS]}
+    enc_m = {**ENC_MIDDLEBURY, "enc_pass": ENC_MIDDLEBURY["enc_pass"] + q8[Q8_PASS]}
+    loop = {"fused_iter": ITERS, "gru1632": ITERS}
+    loop_var = {"fused_iter:lane8": ITERS, "gru1632:lane8": ITERS}
+    levels = ("gru08", "gru16", "gru32")
+    serial = {"corr_lookup": ITERS, "motion": ITERS, **{f"conv_gru:{lv}": ITERS for lv in levels}}
+    serial_var = {f"conv_gru:{lv}:lane8": ITERS for lv in levels}
+    run, disp = _with_env(lane, lambda: _drive(
+        model, [pair], {**loop, **enc_k}, "lane8 (RAFT_LANE_PACK8=1)",
+        {**VAR_CNET, **q8, **loop_var}))
+    run_serial, disp_serial = _with_env({**lane, **dict.fromkeys(SWITCHES, "0")}, lambda: _drive(
+        model, [pair], {**serial, **enc_k},
+        "lane8 serial (RAFT_LANE_PACK8=1 RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)",
+        {**VAR_CNET, **q8, **serial_var}))
+    same = torch.equal(disp[0], disp_serial[0])
+    print(json.dumps({"phase": "lane8_default_vs_serial", "bitwise_equal": same,
+                      "max_abs_diff": _max_err(disp[0], disp_serial[0])}))
+    if not same:
+        raise SystemExit("the lane8 default and serial loops give different disparities")
+    _disparity_band("lane8 vs bf16", "KITTI", disp[0], disp_reg, LANE_BANDS["KITTI"])
+    run_big, disp_big = _with_env(lane, lambda: _drive(
+        model, [big], {**loop, **enc_m}, "lane8, Middlebury-F",
+        {**VAR_MIDDLEBURY, **q8, **loop_var}))
+    _disparity_band("lane8 vs bf16", "Middlebury-F", disp_big[0], disp_reg_big,
+                    LANE_BANDS["Middlebury-F"])
+    del disp_big
+    torch.cuda.empty_cache()
+    peak = _with_env(lane, lambda: _peak_split(model, big, "lane8, Middlebury-F"))
+    return {"lane8": run, "lane8_serial": run_serial,
+            "lane8_headline": {**run_big, "peaks": {"lane8": peak, "reg_cuda": peak_reg_big}}}
+
+
 def phase_cross_check() -> list:
     """The same seeded model at 128x256, 8 iterations, on the card and on
     the CPU (plain versions), with reg_cuda and with alt_cuda. Band: mean |delta| within the serving canary's
@@ -1186,8 +1510,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_device()
     phase_build()
-    results = phase_kernels()
-    main_path = phase_main_path()
+    results, chain_run = phase_kernels()
+    main_path = {**phase_main_path(), "resblock_q8": chain_run}
     phase_cross_check()
     line = []
     for r in results:
@@ -1208,7 +1532,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "kernel_ms": r.get("kernel_ms"),
                      "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
-                     "serial_ms": r.get("serial_ms"),
+                     "serial_ms": r.get("serial_ms"), "bf16_ms": r.get("bf16_ms"),
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "library_note": r["library_note"]})
         if line[-1]["launches"] == 0:

@@ -33,6 +33,16 @@ and the lookup and the resident kernels dequantize the taps they read. Its
 result is not the bf16 path's bits (each tap is within half a scale step),
 so an operator opts in. It does nothing for fp32 volumes or the other
 correlation choices.
+
+``RAFT_LANE_PACK8`` parses the same way and defaults OFF too: in test mode
+the loop-invariant context (each GRU level's zqr conv output) and the two
+feature maps ride the carry as int8 values with a per-sample fp32 scale
+(``corr/reg_cuda.py:Lane8``), dequantized once a segment, and the GRU
+kernels read the folded czrq context as int8 (``ops/stream.py:
+prepare_gru_context_any``). Each value moves by up to half a scale step, so
+it is opt-in as well. A carry's containers are dequantized whatever the
+switch says when the segment runs; a czrq container reaching the resident
+kernel while the switch is off raises.
 """
 
 from __future__ import annotations
@@ -69,6 +79,11 @@ def corr_pack8_on() -> bool:
     """``RAFT_CORR_PACK8``: int8 correlation levels for ``reg_cuda``; default
     off, read when the operands are built."""
     return os.environ.get("RAFT_CORR_PACK8", "0").strip().lower() in _ON
+
+
+def lane_pack8_on() -> bool:
+    """``RAFT_LANE_PACK8``: int8 context lanes in test mode; default off."""
+    return os.environ.get("RAFT_LANE_PACK8", "0").strip().lower() in _ON
 
 
 def fused_encoders_on() -> bool:

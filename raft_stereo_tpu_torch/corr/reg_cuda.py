@@ -21,13 +21,21 @@ true-width mask, before the lerp; the taps are still emitted in bf16. The
 JAX package's combined four-per-lane container is TPU layout: the int8
 levels here are plain ``(B*H*W1, W_l)`` rows and the scales a ``(B, L)``
 tensor.
+
+The same module holds the feature quantization of ``RAFT_LANE_PACK8``
+(the JAX package's ``feature_scale8``, ``quantize_pack_feature8`` and
+``unpack_feature8``): a ``(B, ...)`` tensor becomes a :class:`Lane8`, its
+int8 values in the tensor's own shape and one fp32 scale per sample,
+``max(amax, 1e-30) / 127`` over every non-batch element. The JAX package's
+width-group fp32 container (four int8 lanes in one 32-bit lane, the width
+padded to a multiple of 4) is TPU layout and is not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +88,43 @@ def quantize_levels8(levels: List[torch.Tensor], b: int
         qs.append(q.to(torch.int8).reshape(lvl.shape))
         scales.append(scale)
     return qs, torch.stack(scales, dim=1).contiguous()
+
+
+class Lane8(NamedTuple):
+    """An int8 lane container: ``q`` in the source tensor's shape, ``scale``
+    ``(B,)`` fp32, so that the value is ``q * scale[b]``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def feature_scale8(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample dequant scale of a ``(B, ...)`` tensor, ``(B,)`` fp32:
+    ``max(amax|v|, 1e-30) / 127`` over every non-batch element, so a
+    sample's grid does not depend on its batchmates."""
+    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
+    amax = torch.maximum(-lo.float(), hi.float())  # max |v|, without an fp32 copy of x
+    return amax.clamp_min(1e-30) / 127.0
+
+
+def _per_sample(scale: torch.Tensor, ndim: int) -> torch.Tensor:
+    return scale.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def quantize_feature8(x: torch.Tensor) -> Lane8:
+    """``q = clip(round_half_even(v / scale), -127, 127)`` in fp32 with the
+    scale of :func:`feature_scale8`. Zeros stay exact zeros. One fp32 copy
+    of ``x`` at a time (the operations work in place on it)."""
+    scale = feature_scale8(x)
+    q = x.to(torch.float32, copy=True).div_(_per_sample(scale, x.ndim))
+    q = q.round_().clamp_(-127.0, 127.0)
+    return Lane8(q.to(torch.int8).contiguous(), scale.contiguous())
+
+
+def dequantize_feature8(lane: Lane8, dtype: torch.dtype) -> torch.Tensor:
+    """The container's values ``q * scale`` in fp32 (in fp32 they are what
+    the kernels add), cast once to ``dtype``."""
+    return lane.q.to(torch.float32).mul_(_per_sample(lane.scale, lane.q.ndim)).to(dtype)
 
 
 def build_corr_operands(fmap1: torch.Tensor, fmap2: torch.Tensor, *,

@@ -23,6 +23,12 @@
 // pass moves 123 MB and does 35 GFLOP); at 96 and 128 channels in the tail,
 // operations.
 //
+// With `q` set (RAFT_LANE_PACK8, raw1 without statistics: the zqr context
+// convs), the pass is the quantize-on-exit variant instead, replacing
+// ops/pallas_encoder.py:_pass_q8_kernel: the exit writes int8 q and one fp32
+// scale (quant8.cuh) in place of `out`, in two launches of the same tiles,
+// the first taking the maximum of |out|, the second quantizing.
+//
 // Design: the TPU kernel streams row blocks of a parity-packed, width-strip
 // layout through a VMEM ring on a sequential grid and carries the statistics
 // in scratch from step to step. Here the map is plain NHWC and the pass is
@@ -36,6 +42,7 @@
 // same bits every run. Output columns are padded to a multiple of 64, so a
 // 96-channel pass computes 128 columns and throws a quarter away.
 #include "enc_stats.cuh"
+#include "quant8.cuh"
 #include "stages.cuh"
 
 namespace rst {
@@ -161,6 +168,60 @@ __global__ void __launch_bounds__(THREADS) enc_pass_kernel(ConvIn a, PassEpi epi
   }
 }
 
+// Phase 0 of the quantize-on-exit pass: the thread's maximum of
+// |bf16(acc + bias)|.
+struct AmaxEpi {
+  const float* bias;
+  int cout;
+  float* m;
+  __device__ void operator()(int p, int n, float acc) const {
+    if (n < cout) *m = fmaxf(*m, fabsf(bf16r(__fadd_rn(acc, bias[n]))));
+  }
+};
+
+// Phase 1: bf16(acc + bias) quantized with the map's scale.
+struct QuantEpi {
+  const float* bias;
+  int cout;
+  int8_t* q;
+  float scale;
+  __device__ void operator()(int p, int n, float acc) const {
+    if (n < cout) q[(size_t)p * cout + n] = quant8(bf16r(__fadd_rn(acc, bias[n])), scale);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS) enc_pass_amax_kernel(ConvIn a, AmaxEpi epi,
+                                                                unsigned int* amax) {
+  __shared__ __align__(128) unsigned char smem[TileSmem<64>::BYTES];
+  float m = 0.0f;
+  epi.m = &m;
+  conv3x3_tile<64>(a, epi, blockIdx.x, blockIdx.y, smem);
+  amax_fold(m, amax);
+}
+
+__global__ void __launch_bounds__(THREADS) enc_pass_quant_kernel(ConvIn a, QuantEpi epi,
+                                                                 const unsigned int* amax,
+                                                                 float* scale) {
+  __shared__ __align__(128) unsigned char smem[TileSmem<64>::BYTES];
+  epi.scale = quant_scale(*amax);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *scale = epi.scale;
+  conv3x3_tile<64>(a, epi, blockIdx.x, blockIdx.y, smem);
+}
+
+// The two phases: amax zeroed, taken, then the quantizing launch.
+inline int launch_pass_q8(const ConvIn& a, const float* bias, int cout, int8_t* q, float* scale,
+                          unsigned int* amax, cudaStream_t stream) {
+  dim3 grid((a.H * a.W + BM - 1) / BM, a.npad / 64);
+  int err = (int)cudaMemsetAsync(amax, 0, sizeof(unsigned int), stream);
+  if (err) return err;
+  enc_pass_amax_kernel<<<grid, THREADS, 0, stream>>>(a, AmaxEpi{bias, cout, nullptr}, amax);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  enc_pass_quant_kernel<<<grid, THREADS, 0, stream>>>(a, QuantEpi{bias, cout, q, 0.0f}, amax,
+                                                      scale);
+  return (int)cudaGetLastError();
+}
+
 template <class Src>
 inline int launch_pass(const ConvIn& a, const PassEpi& epi, const Src& src, float* partial,
                        cudaStream_t stream) {
@@ -178,13 +239,21 @@ using rst::bf16;
 // relu only, means unused. a, b: [H][W][cin] bf16 (b for mid2 only), cin a
 // multiple of 32. w: [9][cin][pad64(cout)] bf16, bias: [cout] fp32, out:
 // [H][W][cout] bf16. With partial != null ([ceil(H*W/128)][2][pad64(cout)]
-// fp32 scratch) the sums land in stats ([2][cout] fp32). Returns the first
-// non-zero cudaError_t.
+// fp32 scratch) the sums land in stats ([2][cout] fp32). With q != null
+// (raw1 without statistics only) the quantize-on-exit pass: q: [H][W][cout]
+// int8 and scale: [1] fp32 in place of out, amax: one unsigned scratch
+// word. Returns the first non-zero cudaError_t.
 extern "C" int rst_enc_pass(int kind, int norm, const bf16* a, const float* ma, const float* va,
                             const bf16* b, const float* mb, const float* vb, int H, int W, int cin,
                             const bf16* w, const float* bias, int cout, bf16* out, float* partial,
-                            float* stats, cudaStream_t stream) {
+                            float* stats, int8_t* q, float* scale, unsigned int* amax,
+                            cudaStream_t stream) {
   const rst::ConvIn in = rst::single_in(a, cin, 1, H, W, w, rst::pad64(cout));
+  if (q != nullptr) {
+    if (kind != 0 || partial != nullptr || scale == nullptr || amax == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return rst::launch_pass_q8(in, bias, cout, q, scale, amax, stream);
+  }
   const rst::PassEpi epi{bias, out, cout, nullptr, nullptr};
   int err;
   if (kind == 0)

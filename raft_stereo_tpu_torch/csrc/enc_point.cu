@@ -14,6 +14,11 @@
 // transform. (The same s + y2 sum is rounded to bf16 where enc_pass.cu's
 // mid2 builds conv3's input; here it is not, as in the TPU kernels.)
 //
+// point2 has a quantize-on-exit variant too (RAFT_LANE_PACK8, replacing
+// ops/pallas_encoder.py:_point2_q8_kernel): the same exit values, written as
+// int8 q and one fp32 scale (quant8.cuh), in two launches: the first takes
+// the maximum of |out|, the second recomputes and quantizes.
+//
 // What bounds it on an H100: bytes. point3 reads three maps and writes one
 // (245 MB at 384x1248x64), for a handful of operations a value.
 //
@@ -23,6 +28,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "quant8.cuh"
 #include "rounding.cuh"
 
 namespace rst {
@@ -77,14 +83,23 @@ __global__ void __launch_bounds__(kPointThreads)
   }
 }
 
-template <bool NORM>
+// What point2 does with its exit values: write them (kWrite), fold their
+// maximum into *amax (kAmax, phase 0) or quantize them (kQuant, phase 1).
+enum ExitMode { kWrite, kAmax, kQuant };
+
+template <bool NORM, int MODE>
 __global__ void __launch_bounds__(kPointThreads)
     point2_kernel(const bf16* x, const bf16* y, const float* m, const float* v, size_t nvec, int C,
-                  bf16* out) {
+                  bf16* out, int8_t* q, float* scale, unsigned int* amax) {
   extern __shared__ float sm[];  // NORM: [2][C] m, v
   if (NORM) {
     const float* rows[2] = {m, v};
     stage_rows(sm, rows, 2, C);
+  }
+  float s = 0.0f, mx = 0.0f;
+  if (MODE == kQuant) {
+    s = quant_scale(*amax);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *scale = s;
   }
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += stride) {
@@ -94,13 +109,39 @@ __global__ void __launch_bounds__(kPointThreads)
     const bf16* xy = reinterpret_cast<const bf16*>(&qy);
     uint4 res;
     bf16* o = reinterpret_cast<bf16*>(&res);
+    uint2 packed;
+    int8_t* o8 = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const float t = NORM ? normed(xy[k], sm[c0 + k], sm[C + c0 + k]) : relu(xy[k]);
       o[k] = __float2bfloat16(fmaxf(__fadd_rn(__bfloat162float(xx[k]), t), 0.0f));
+      if (MODE == kAmax) mx = fmaxf(mx, fabsf(__bfloat162float(o[k])));
+      if (MODE == kQuant) o8[k] = quant8(__bfloat162float(o[k]), s);
     }
-    *(reinterpret_cast<uint4*>(out) + i) = res;
+    if (MODE == kWrite) *(reinterpret_cast<uint4*>(out) + i) = res;
+    if (MODE == kQuant) *(reinterpret_cast<uint2*>(q) + i) = packed;
   }
+  if (MODE == kAmax) amax_fold(mx, amax);
+}
+
+template <bool NORM>
+inline int launch_point2(const bf16* x, const bf16* y, const float* m, const float* v, size_t nvec,
+                         int C, bf16* out, int8_t* q, float* scale, unsigned int* amax,
+                         int blocks, size_t smem, cudaStream_t stream) {
+  if (q == nullptr) {
+    point2_kernel<NORM, kWrite><<<blocks, kPointThreads, smem, stream>>>(x, y, m, v, nvec, C, out,
+                                                                         q, scale, amax);
+    return (int)cudaGetLastError();
+  }
+  int err = (int)cudaMemsetAsync(amax, 0, sizeof(unsigned int), stream);
+  if (err) return err;
+  point2_kernel<NORM, kAmax><<<blocks, kPointThreads, smem, stream>>>(x, y, m, v, nvec, C, out, q,
+                                                                      scale, amax);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  point2_kernel<NORM, kQuant><<<blocks, kPointThreads, smem, stream>>>(x, y, m, v, nvec, C, out,
+                                                                       q, scale, amax);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rst
@@ -110,16 +151,21 @@ using rst::bf16;
 // kind 3: point3 over a = s, b = y2, c = y4 with (ma, va), (mb, vb),
 // (mc, vc); kind 2: point2 over a = x (no transform), b = y with (mb, vb).
 // Maps are [npix][C] bf16, C a multiple of 8; means and inverse deviations
-// [C] fp32, read only when norm != 0. Returns the launch's cudaError_t.
+// [C] fp32, read only when norm != 0. With q != null (point2 only), the
+// quantize-on-exit variant: q: [npix][C] int8 and scale: [1] fp32 in place
+// of out, amax: one unsigned scratch word. Returns the first non-zero
+// cudaError_t.
 extern "C" int rst_enc_point(int kind, int norm, const bf16* a, const float* ma, const float* va,
                              const bf16* b, const float* mb, const float* vb, const bf16* c,
                              const float* mc, const float* vc, int npix, int C, bf16* out,
-                             cudaStream_t stream) {
+                             int8_t* q, float* scale, unsigned int* amax, cudaStream_t stream) {
   const size_t nvec = (size_t)npix * C / 8;
   const size_t want = (nvec + rst::kPointThreads - 1) / rst::kPointThreads;
   const int blocks = (int)(want < (size_t)rst::kPointBlocks ? want : rst::kPointBlocks);
   const int nrows = kind == 3 ? 6 : 2;
   const size_t smem = norm ? (size_t)nrows * C * sizeof(float) : 0;
+  if (q != nullptr && (kind != 2 || scale == nullptr || amax == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (kind == 3 && norm)
     rst::point3_kernel<true><<<blocks, rst::kPointThreads, smem, stream>>>(
         a, ma, va, b, mb, vb, c, mc, vc, nvec, C, out);
@@ -127,10 +173,10 @@ extern "C" int rst_enc_point(int kind, int norm, const bf16* a, const float* ma,
     rst::point3_kernel<false><<<blocks, rst::kPointThreads, smem, stream>>>(
         a, ma, va, b, mb, vb, c, mc, vc, nvec, C, out);
   else if (norm)
-    rst::point2_kernel<true><<<blocks, rst::kPointThreads, smem, stream>>>(a, b, mb, vb, nvec, C,
-                                                                           out);
+    return rst::launch_point2<true>(a, b, mb, vb, nvec, C, out, q, scale, amax, blocks, smem,
+                                    stream);
   else
-    rst::point2_kernel<false><<<blocks, rst::kPointThreads, smem, stream>>>(a, b, mb, vb, nvec, C,
-                                                                            out);
+    return rst::launch_point2<false>(a, b, mb, vb, nvec, C, out, q, scale, amax, blocks, smem,
+                                     stream);
   return (int)cudaGetLastError();
 }

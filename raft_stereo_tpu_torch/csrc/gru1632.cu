@@ -78,15 +78,19 @@ struct UpsampleSrc {
   }
 };
 
+// Q: czrq's element type, bf16 or int8 (RAFT_LANE_PACK8, replacing
+// _gru1632_lane8_kernel): one instantiation each.
+template <typename Q>
 struct Gru1632Params {
   ConvIn gate32, update32, gate16, update16;
-  GateEpi gate32_epi, gate16_epi;
+  GateEpi<Q> gate32_epi, gate16_epi;
   UpdateEpi update32_epi, update16_epi;
   UpsampleSrc up;
   unsigned int* bar;
 };
 
-__global__ void __launch_bounds__(THREADS, 2) gru1632_kernel(Gru1632Params p) {
+template <typename Q>
+__global__ void __launch_bounds__(THREADS, 2) gru1632_kernel(Gru1632Params<Q> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   GridBarrier grid{p.bar};
   conv3x3_stage<64>(p.gate32, p.gate32_epi, smem, p.bar + 1);
@@ -98,47 +102,70 @@ __global__ void __launch_bounds__(THREADS, 2) gru1632_kernel(Gru1632Params p) {
   conv3x3_stage<64>(p.update16, p.update16_epi, smem, p.bar + 4);
 }
 
+template <typename Q>
+int launch_gru1632(const bf16* h16, const bf16* h32, const void* czrq16, const void* czrq32,
+                   const float* s16, const float* s32, const bf16* x0p, int cx0, const bf16* x1p,
+                   int B, int H16, int W16, int H32, int W32, int ch, const bf16* wg16,
+                   const bf16* wq16, const bf16* wg32, const bf16* wq32, const int* yi,
+                   const float* yw, const int* xi, const float* xw, bf16* z16, bf16* rh16,
+                   float* aqx16, bf16* z32, bf16* rh32, float* aqx32, bf16* h16_out,
+                   bf16* h32_out, unsigned int* bar, cudaStream_t stream) {
+  Gru1632Params<Q> p{};
+  const bf16* xs32[1] = {x1p};
+  const int cxs32[1] = {ch};
+  p.gate32 = gru_gate_in(h32, xs32, cxs32, 1, B, H32, W32, ch, wg32);
+  p.gate32_epi = GateEpi<Q>{static_cast<const Q*>(czrq32), s32, H32 * W32, h32, z32, rh32, aqx32,
+                            ch};
+  p.update32 = gru_update_in(rh32, B, H32, W32, ch, wq32);
+  p.update32_epi = UpdateEpi{aqx32, z32, h32, h32_out, ch};
+  const bf16* xs16[2] = {x0p, h32_out};
+  const int cxs16[2] = {cx0, ch};
+  p.gate16 = gru_gate_in(h16, xs16, cxs16, 2, B, H16, W16, ch, wg16);
+  p.gate16_epi = GateEpi<Q>{static_cast<const Q*>(czrq16), s16, H16 * W16, h16, z16, rh16, aqx16,
+                            ch};
+  p.update16 = gru_update_in(rh16, B, H16, W16, ch, wq16);
+  p.update16_epi = UpdateEpi{aqx16, z16, h16, h16_out, ch};
+  p.up = UpsampleSrc{p.gate16.nparts - 1, h32_out, H32, W32, ch, yi, yw, xi, xw};
+  p.bar = bar;
+  const ConvIn* stages[4] = {&p.gate32, &p.update32, &p.gate16, &p.update16};
+  int tiles = 0;
+  for (const ConvIn* a : stages) {
+    const int t = conv3x3_tiles(*a, 64);
+    if (t > tiles) tiles = t;
+  }
+  return launch_persistent(gru1632_kernel<Q>, p, bar, tiles, TileSmem<64>::BYTES, THREADS,
+                           stream);
+}
+
 }  // namespace rst
 
 using rst::bf16;
 
 // h16: [B][H16][W16][ch], h32: [B][H32][W32][ch] with H16 = 2 H32 and
-// W16 = 2 W32; czrq16/32: [..][3ch]; x0p: pool2x of the gru08 state,
+// W16 = 2 W32; czrq16/32: [..][3ch], bf16, or int8 with lane8 != 0 and
+// s16/s32: [B] fp32 scales; x0p: pool2x of the gru08 state,
 // [B][H16][W16][cx0]; x1p: pool2x(h16), [B][H32][W32][ch]. wg16:
 // [9][ch + cx0 + ch][pad64(3ch)] over [h16; x0p; up], wq16: [9][ch][pad64(ch)];
 // wg32: [9][2ch][pad64(3ch)], wq32 likewise. yi/yw: [H16][2] source rows and
 // weights of the upsample, xi/xw: [W16][2] columns. z*/rh*/aqx*: scratch
 // of each level's shape; bar: rst::kCounters counters. Returns the first
 // non-zero cudaError_t.
-extern "C" int rst_gru1632(const bf16* h16, const bf16* h32, const bf16* czrq16,
-                           const bf16* czrq32, const bf16* x0p, int cx0, const bf16* x1p, int B,
+extern "C" int rst_gru1632(const bf16* h16, const bf16* h32, const void* czrq16,
+                           const void* czrq32, int lane8, const float* s16, const float* s32,
+                           const bf16* x0p, int cx0, const bf16* x1p, int B,
                            int H16, int W16, int H32, int W32, int ch, const bf16* wg16,
                            const bf16* wq16, const bf16* wg32, const bf16* wq32, const int* yi,
                            const float* yw, const int* xi, const float* xw, bf16* z16,
                            bf16* rh16, float* aqx16, bf16* z32, bf16* rh32, float* aqx32,
                            bf16* h16_out, bf16* h32_out, unsigned int* bar,
                            cudaStream_t stream) {
-  rst::Gru1632Params p{};
-  const bf16* xs32[1] = {x1p};
-  const int cxs32[1] = {ch};
-  p.gate32 = rst::gru_gate_in(h32, xs32, cxs32, 1, B, H32, W32, ch, wg32);
-  p.gate32_epi = rst::GateEpi{czrq32, h32, z32, rh32, aqx32, ch};
-  p.update32 = rst::gru_update_in(rh32, B, H32, W32, ch, wq32);
-  p.update32_epi = rst::UpdateEpi{aqx32, z32, h32, h32_out, ch};
-  const bf16* xs16[2] = {x0p, h32_out};
-  const int cxs16[2] = {cx0, ch};
-  p.gate16 = rst::gru_gate_in(h16, xs16, cxs16, 2, B, H16, W16, ch, wg16);
-  p.gate16_epi = rst::GateEpi{czrq16, h16, z16, rh16, aqx16, ch};
-  p.update16 = rst::gru_update_in(rh16, B, H16, W16, ch, wq16);
-  p.update16_epi = rst::UpdateEpi{aqx16, z16, h16, h16_out, ch};
-  p.up = rst::UpsampleSrc{p.gate16.nparts - 1, h32_out, H32, W32, ch, yi, yw, xi, xw};
-  p.bar = bar;
-  const rst::ConvIn* stages[4] = {&p.gate32, &p.update32, &p.gate16, &p.update16};
-  int tiles = 0;
-  for (const rst::ConvIn* a : stages) {
-    const int t = rst::conv3x3_tiles(*a, 64);
-    if (t > tiles) tiles = t;
-  }
-  return rst::launch_persistent(rst::gru1632_kernel, p, bar, tiles, rst::TileSmem<64>::BYTES,
-                                rst::THREADS, stream);
+  if (lane8 && (s16 == nullptr || s32 == nullptr)) return (int)cudaErrorInvalidValue;
+  if (lane8)
+    return rst::launch_gru1632<int8_t>(h16, h32, czrq16, czrq32, s16, s32, x0p, cx0, x1p, B, H16,
+                                       W16, H32, W32, ch, wg16, wq16, wg32, wq32, yi, yw, xi, xw,
+                                       z16, rh16, aqx16, z32, rh32, aqx32, h16_out, h32_out, bar,
+                                       stream);
+  return rst::launch_gru1632<bf16>(h16, h32, czrq16, czrq32, s16, s32, x0p, cx0, x1p, B, H16, W16,
+                                   H32, W32, ch, wg16, wq16, wg32, wq32, yi, yw, xi, xw, z16,
+                                   rh16, aqx16, z32, rh32, aqx32, h16_out, h32_out, bar, stream);
 }

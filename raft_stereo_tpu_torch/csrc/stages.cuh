@@ -7,7 +7,7 @@
 // built by the same function here, so the two routes cannot drift apart.
 //
 // ConvGRU step (raft_stereo_tpu/ops/pallas_stream.py:_gru_kernel), with
-// its rounding points:
+// its rounding points (czrq: bf16, or int8 q times the sample's scale):
 //   acc  = conv3x3([h; x parts], [wz | wr]) + czrq[:2ch]         (fp32)
 //   z    = bf16(sigmoid(acc_z)),  r = bf16(sigmoid(acc_r)),  rh = bf16(r * h)
 //   aqx  = conv3x3(x parts, wq[x rows]) + czrq[2ch:]               (fp32)
@@ -24,21 +24,38 @@
 // -fmad=false besides.
 #pragma once
 
+#include <cstdint>
+#include <type_traits>
+
 #include "conv3x3.cuh"
 
 namespace rst {
 
+// The gate stage's epilogue. Q is czrq's element type: bf16, or int8 under
+// RAFT_LANE_PACK8 (pallas_stream.py:_gru_lane8_kernel), where the context is
+// q * scale[sample] in fp32, the product rounded before the add.
+template <typename Q>
 struct GateEpi {
-  const bf16* czrq;  // [P][3ch]
-  const bf16* h;     // [P][ch]
-  bf16* z;           // [P][ch]
-  bf16* rh;          // [P][ch]
-  float* aqx;        // [P][ch]
+  const Q* czrq;       // [P][3ch]
+  const float* scale;  // [B], int8 czrq only
+  int sample_pixels;   // H * W: p / sample_pixels is the sample
+  const bf16* h;       // [P][ch]
+  bf16* z;             // [P][ch]
+  bf16* rh;            // [P][ch]
+  float* aqx;          // [P][ch]
   int ch;
+  __device__ float context(int p, int n) const {
+    const Q c = czrq[(size_t)p * 3 * ch + n];
+    if constexpr (std::is_same_v<Q, int8_t>) {
+      return __fmul_rn((float)c, scale[p / sample_pixels]);
+    } else {
+      return __bfloat162float(c);
+    }
+  }
   __device__ void operator()(int p, int n, float acc) const {
     if (n >= 3 * ch) return;
     const size_t base = (size_t)p * ch;
-    const float v = acc + __bfloat162float(czrq[(size_t)p * 3 * ch + n]);
+    const float v = acc + context(p, n);
     if (n < ch) {
       z[base + n] = __float2bfloat16(1.0f / (1.0f + expf(-v)));
     } else if (n < 2 * ch) {

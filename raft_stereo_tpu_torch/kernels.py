@@ -31,8 +31,10 @@ SOURCES = ("corr_lookup", "corr_alt", "conv_gru", "motion", "gru1632", "resident
 # -fmad=false: no multiply and add is contracted into a fused multiply-add
 # behind the source's back, so the serial kernels and the persistent ones
 # that inline the same stages round the same way (fmaf stays explicit).
+# -Xptxas=-v: each kernel's registers and spills, kept in the build log
+# beside the library (:func:`build_log`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,21 +48,21 @@ _SIGNATURES = {
                  [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _I, _F,
                   _I, _P, _P]),
     "conv_gru": ("rst_conv_gru",
-                 [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                  _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
+                 [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
     "motion": ("rst_motion",
                [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                 _P, _P, _P, _P]),
     "gru1632": ("rst_gru1632",
-                [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 18),
+                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 18),
     "resident": ("rst_resident",
                  [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _P, _P, _P, _P,
-                  _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                  _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                   _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11),
     "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "enc_pass": ("rst_enc_pass",
-                 [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
-    "enc_point": ("rst_enc_point", [_I, _I] + [_P] * 9 + [_I, _I, _P, _P]),
+                 [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I] + [_P] * 7),
+    "enc_point": ("rst_enc_point", [_I, _I] + [_P] * 9 + [_I, _I] + [_P] * 5),
 }
 
 _lock = threading.Lock()
@@ -76,9 +78,13 @@ launches: Counter = Counter()
 # launch applies ("bn": BatchNorm folded, no statistics; "instance":
 # statistics taken and applied), the pass kind and the channels, as
 # "enc_stem:instance", "enc_pass:mid1/bn/64", "enc_point2:instance/128"; it
-# tells the context net's launches from the feature net's. The lookup's and
-# the resident kernel's on int8 levels (RAFT_CORR_PACK8): "corr_lookup:pack8",
-# "fused_iter:pack8". Added to beside ``launches``, at the same place.
+# tells the context net's launches from the feature net's, and "/q8" ends the
+# quantize-on-exit ones ("enc_pass:raw1/bn/128/q8"). The lookup's and the
+# resident kernel's on int8 levels (RAFT_CORR_PACK8): "corr_lookup:pack8",
+# "fused_iter:pack8"; the GRU kernels' on int8 czrq (RAFT_LANE_PACK8):
+# "conv_gru:gru08:lane8", "gru1632:lane8", "fused_iter:lane8", and
+# "fused_iter:pack8+lane8" under both. Added to beside ``launches``, at the
+# same place.
 variants: Counter = Counter()
 
 
@@ -141,10 +147,18 @@ def build(names: Iterable[str] = SOURCES) -> float:
                             f"{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the build of ``csrc/<name>.cu`` (ptxas's
+    resource lines among it), empty if there is none."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def entry(name: str):

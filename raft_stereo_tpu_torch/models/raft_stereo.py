@@ -23,6 +23,16 @@ gives the serial kernels, with the same bits). With ``alt_cuda`` there is
 no pyramid for the resident kernel to gather from, so the loop runs the
 gru16+32 kernel, the alt kernel, then the motion and gru08+head kernels.
 Train mode waits for the training slice.
+
+Under ``RAFT_LANE_PACK8`` (the JAX package's narrow lanes): the prepare step
+quantizes each zqr level's output (the quantize-on-exit pass where its gate
+holds, else the conv's output rounded to the compute dtype, on the host) and
+both feature maps into int8 containers (``corr/reg_cuda.py:Lane8``), which
+ride the carry; ``net`` stays in the compute dtype. A segment dequantizes
+what the carry holds once, before its loop, whatever the switch says then,
+and with the kernels in use folds the biases into czrq and quantizes that
+again (``ops/stream.py:prepare_gru_context_any``). The forward is prepare,
+segment and epilogue, so it goes through the same two quantizations.
 """
 
 from __future__ import annotations
@@ -32,12 +42,15 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from raft_stereo_tpu_torch.config import RAFTStereoConfig, fuse_iter_on, resolve_device
+from raft_stereo_tpu_torch.config import (
+    RAFTStereoConfig, fuse_iter_on, lane_pack8_on, resolve_device)
 from raft_stereo_tpu_torch.corr import make_corr
+from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quantize_feature8
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import Conv2d, ResidualBlock, init_weights
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.ops.coords import coords_grid
+from raft_stereo_tpu_torch.ops.encoder import head_conv_q8_streamable, stream_head_conv_q8
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
 
 # From this many pixels up, the two images go through the feature net one
@@ -84,8 +97,17 @@ def init_raft_stereo(cfg: RAFTStereoConfig, *, seed: int = 0,
     return model.to(dev).eval()
 
 
+def _packed_context_level(conv, x: torch.Tensor, dtype: torch.dtype) -> Lane8:
+    """One zqr level as an int8 container: the quantize-on-exit pass where
+    its gate holds, else the conv's output rounded to ``dtype`` and
+    quantized on the host."""
+    if head_conv_q8_streamable(conv, x):
+        return stream_head_conv_q8(conv, x)
+    return quantize_feature8(conv(x).to(dtype))
+
+
 def _context_and_features(model: RAFTStereo, image1: torch.Tensor,
-                          image2: torch.Tensor):
+                          image2: torch.Tensor, pack: bool):
     cfg = model.cfg
     dt = cfg.compute_dtype
     image1 = (2 * (image1.float() / 255.0) - 1.0).to(dt)
@@ -104,8 +126,12 @@ def _context_and_features(model: RAFTStereo, image1: torch.Tensor,
             fmaps = model.fnet(torch.cat([image1, image2]))
             fmap1, fmap2 = fmaps[:b], fmaps[b:]
     net = tuple(torch.tanh(x[0]) for x in cnet_list)
-    inp = tuple(tuple(conv(torch.relu(x[1])).chunk(3, dim=-1))
-                for x, conv in zip(cnet_list, model.context_zqr_convs))
+    if pack:
+        inp = tuple(_packed_context_level(conv, torch.relu(x[1]), dt)
+                    for x, conv in zip(cnet_list, model.context_zqr_convs))
+    else:
+        inp = tuple(tuple(conv(torch.relu(x[1])).chunk(3, dim=-1))
+                    for x, conv in zip(cnet_list, model.context_zqr_convs))
     return net, inp, fmap1, fmap2
 
 
@@ -114,12 +140,17 @@ def raft_stereo_prepare(model: RAFTStereo, image1: torch.Tensor, image2: torch.T
                         *, flow_init: Optional[torch.Tensor] = None) -> dict:
     """Everything outside the refinement loop: the encoders and the zqr
     context convs. Returns the carry ``{net, inp, fmap1, fmap2, coords1}``;
-    ``flow_init`` seeds ``coords1 = coords0 + flow_init``."""
-    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2)
+    ``flow_init`` seeds ``coords1 = coords0 + flow_init``. Under
+    ``RAFT_LANE_PACK8`` each ``inp`` level (all 3ch channels) and the two
+    fmaps are int8 containers."""
+    pack = lane_pack8_on()
+    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack)
     b, h, w, _ = fmap1.shape
     coords1 = coords_grid(b, h, w, device=fmap1.device).clone()
     if flow_init is not None:
         coords1 = coords1 + flow_init
+    if pack:
+        fmap1, fmap2 = quantize_feature8(fmap1), quantize_feature8(fmap2)
     return {"net": net, "inp": inp, "fmap1": fmap1, "fmap2": fmap2,
             "coords1": coords1}
 
@@ -135,16 +166,22 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
+    # A packed carry (RAFT_LANE_PACK8) is dequantized here, once a segment,
+    # keyed on what the carry holds rather than on the switch.
+    inp = [tuple(dequantize_feature8(lvl, dt).chunk(3, dim=-1))
+           if isinstance(lvl, Lane8) else lvl for lvl in state["inp"]]
+    fmap1, fmap2 = (dequantize_feature8(f, dt) if isinstance(f, Lane8) else f
+                    for f in (state["fmap1"], state["fmap2"]))
     # The plain correlations stay fp32 under bf16, as in the JAX package;
     # the kernel-backed ones take the feature maps in the compute dtype.
     corr_dtype = torch.float32 if cfg.corr_kind in ("reg", "alt") else dt
-    corr_fn, corr_ops = make_corr(cfg.corr_kind, state["fmap1"].to(corr_dtype),
-                                  state["fmap2"].to(corr_dtype), num_levels=cfg.corr_levels,
-                                  radius=cfg.corr_radius, out_dtype=dt)
+    corr_fn, corr_ops = make_corr(cfg.corr_kind, fmap1.to(corr_dtype), fmap2.to(corr_dtype),
+                                  num_levels=cfg.corr_levels, radius=cfg.corr_radius,
+                                  out_dtype=dt)
+    del fmap1, fmap2  # the loop reads the operands: a packed carry's dequantized maps go
     coords_in = state["coords1"]
     b, h, w = coords_in.shape[:3]
     coords0 = coords_grid(b, h, w, device=coords_in.device)
-    inp = state["inp"]
     fused = ub.prepare_fused(inp, dt) if dt == torch.bfloat16 else None
     # The resident iteration, as in the JAX package: with the kernels in
     # use, reg_cuda's operands, RAFT_FUSE_ITER on and no warm start (the

@@ -8,8 +8,10 @@ the FlowHead and the motion encoder through the hand-written kernels of
 :mod:`raft_stereo_tpu_torch.ops.stream` and :mod:`~raft_stereo_tpu_torch.
 ops.resident`, which round where the JAX package's Pallas kernels do; the
 loop-invariant inputs those take are built once per frame by
-:meth:`BasicMultiUpdateBlock.prepare_fused`. As in the JAX package, gru32
-and gru16 then run as one kernel (``RAFT_FUSE_GRU1632``), and the caller
+:meth:`BasicMultiUpdateBlock.prepare_fused` (under ``RAFT_LANE_PACK8`` the
+czrq context as int8 containers, which every step passes through as is).
+As in the JAX package, gru32 and gru16 then run as one kernel
+(``RAFT_FUSE_GRU1632``), and the caller
 may take the resident iteration (:meth:`BasicMultiUpdateBlock.
 step_resident`, ``RAFT_FUSE_ITER``); both give the serial kernels' bits.
 
@@ -95,7 +97,7 @@ class BasicMotionEncoder(nn.Module):
 class FusedInputs(NamedTuple):
     """Loop-invariant inputs of the kernels, built once per frame."""
 
-    czrq: List[torch.Tensor]             # per level, prepare_gru_context
+    czrq: List[stream.Czrq]              # per level, prepare_gru_context_any
     gru: List[stream.GruWeights]         # per level
     head: stream.HeadWeights
     motion: stream.MotionWeights
@@ -129,7 +131,7 @@ class BasicMultiUpdateBlock(nn.Module):
                       dtype: torch.dtype) -> FusedInputs:
         grus = self.grus[:self.n_gru_layers]
         return FusedInputs(
-            czrq=[stream.prepare_gru_context(g, c, dtype) for g, c in zip(grus, inp)],
+            czrq=[stream.prepare_gru_context_any(g, c, dtype) for g, c in zip(grus, inp)],
             gru=[stream.gru_weights(g, dtype, name)
                  for g, name in zip(grus, ("gru08", "gru16", "gru32"))],
             head=stream.head_weights(self.flow_head, dtype),

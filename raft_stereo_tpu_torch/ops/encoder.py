@@ -25,6 +25,12 @@ kernels', not those of the plain modules in ``models/layers.py``:
 - ``mid2`` rounds the sum of two transformed maps to ``dtype``; ``point3``
   keeps the same sum in fp32 under instance norm.
 
+Under ``RAFT_LANE_PACK8`` the raw1 pass (the zqr context convs) and the
+point2 exit have a quantize-on-exit variant (``quant=True``; the JAX
+package's ``_pass_q8_kernel`` and ``_point2_q8_kernel``): they return the
+int8 container of their bf16 output (``corr/reg_cuda.py:quantize_feature8``,
+bit for bit) instead of the map, and the kernels never write the map.
+
 Maps are ``(1, H, W, C)``; a transformed input is a ``(raw, mean, inv)``
 triple with ``mean``/``inv`` ``(C,)`` fp32, or ``None`` where no statistics
 apply. Conv weights come in as OIHW fp32 (BatchNorm already folded) and are
@@ -40,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch import kernels
-from raft_stereo_tpu_torch.config import fused_encoders_on, stream_tail_on
+from raft_stereo_tpu_torch.config import fused_encoders_on, lane_pack8_on, stream_tail_on
+from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, quantize_feature8
 from raft_stereo_tpu_torch.ops.stream import _check_nhwc as _check
 
 Stats = Optional[torch.Tensor]  # (2, C) fp32: sum, sum of squares
@@ -116,9 +123,12 @@ def _pass_input(kind: str, inputs: Sequence[Normed], stats: bool) -> torch.Tenso
 
 
 def conv_pass_plain(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
-                    bias: Optional[torch.Tensor], *, stats: bool) -> Tuple[torch.Tensor, Stats]:
+                    bias: Optional[torch.Tensor], *, stats: bool, quant: bool = False
+                    ) -> Tuple[torch.Tensor | Lane8, Stats]:
     """Plain torch version of :func:`conv_pass`."""
-    return _conv_out(_pass_input(kind, inputs, stats), w, bias, 1, stats)
+    _check_quant(kind, stats, quant)
+    out, st = _conv_out(_pass_input(kind, inputs, stats), w, bias, 1, stats)
+    return (quantize_feature8(out) if quant else out), st
 
 
 def point3_plain(s: Normed, y2: Normed, y4: Normed, *, norm: bool) -> torch.Tensor:
@@ -130,13 +140,32 @@ def point3_plain(s: Normed, y2: Normed, y4: Normed, *, norm: bool) -> torch.Tens
     return torch.relu(o1 + torch.relu(y4[0]))
 
 
-def point2_plain(x: torch.Tensor, y: Normed, *, norm: bool) -> torch.Tensor:
+def point2_plain(x: torch.Tensor, y: Normed, *, norm: bool,
+                 quant: bool = False) -> torch.Tensor | Lane8:
     """Plain torch version of :func:`point2`."""
     t = _normed(*y) if norm else torch.relu(y[0].float())
-    return torch.relu(x.float() + t).to(x.dtype)
+    out = torch.relu(x.float() + t).to(x.dtype)
+    return quantize_feature8(out) if quant else out
 
 
 # -- wrappers -------------------------------------------------------------------
+
+
+def _check_quant(kind: str, stats: bool, quant: bool) -> None:
+    if quant and (kind != "raw1" or stats):
+        raise ValueError("the quantize-on-exit pass is a raw1 pass without statistics")
+
+
+def _ptrs(*tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _q8_outputs(shape, device):
+    """int8 q, its fp32 scale and the amax scratch word of a quantize-on-exit
+    launch."""
+    return (torch.empty(shape, dtype=torch.int8, device=device),
+            torch.empty(1, dtype=torch.float32, device=device),
+            torch.empty(1, dtype=torch.int32, device=device))
 
 
 def _check_map(name: str, t: torch.Tensor, device) -> Tuple[int, int, int]:
@@ -201,7 +230,8 @@ def stem(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
 
 
 def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
-              bias: Optional[torch.Tensor], *, stats: bool) -> Tuple[torch.Tensor, Stats]:
+              bias: Optional[torch.Tensor], *, stats: bool, quant: bool = False
+              ) -> Tuple[torch.Tensor | Lane8, Stats]:
     """One 3x3 pad-1 conv pass with its input transform (the JAX package's
     ``_run_pass`` for the conv kinds): ``(out, statistics)``.
 
@@ -210,14 +240,17 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
     means instance norm: the mid kinds normalize with the triples' mean and
     inv, and the pass returns the statistics of its own fp32 outputs;
     without it (BatchNorm folded into ``w`` and ``bias``) the transform is a
-    relu and the statistics are ``None``. w: (Cout, Cin, 3, 3)."""
+    relu and the statistics are ``None``. w: (Cout, Cin, 3, 3). ``quant``
+    (raw1 without statistics only): the output's int8 container in place
+    of the map."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
     if len(inputs) != (2 if kind == "mid2" else 1):
         raise ValueError(f"{kind} takes {2 if kind == 'mid2' else 1} input(s), got {len(inputs)}")
     a = inputs[0][0]
     if a.device.type == "cpu":
-        return conv_pass_plain(kind, inputs, w, bias, stats=stats)
+        return conv_pass_plain(kind, inputs, w, bias, stats=stats, quant=quant)
+    _check_quant(kind, stats, quant)
     dev = a.device
     hh, ww, cin = _check_map("inputs[0]", a, dev)
     cout = w.shape[0]
@@ -236,23 +269,25 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
                (0, npad - cout)).contiguous()
     b = _bias_f32(bias, cout, dev)
     _check("bias", b, (cout,), torch.float32, dev)
-    out = torch.empty((1, hh, ww, cout), dtype=torch.bfloat16, device=dev)
-    partial = st = None
+    out = q = scale = amax = partial = st = None
+    if quant:
+        q, scale, amax = _q8_outputs((1, hh, ww, cout), dev)
+    else:
+        out = torch.empty((1, hh, ww, cout), dtype=torch.bfloat16, device=dev)
     if stats:
         partial = torch.empty((-(-hh * ww // _PASS_BM), 2, npad), dtype=torch.float32, device=dev)
         st = torch.empty((2, cout), dtype=torch.float32, device=dev)
     fn = kernels.entry("enc_pass")
     kernels.check("enc_pass", fn(
         _KINDS[kind], int(norm), a.data_ptr(), ma, va, b_ptr, mb, vb, hh, ww, cin,
-        wk.data_ptr(), b.data_ptr(), cout, out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        None if st is None else st.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    kernels.count_launch("enc_pass", f"{kind}/{_norm_name(stats)}/{cin}")
-    return out, st
+        wk.data_ptr(), b.data_ptr(), cout, *_ptrs(out, partial, st, q, scale, amax),
+        torch.cuda.current_stream(dev).cuda_stream))
+    kernels.count_launch("enc_pass", f"{kind}/{_norm_name(stats)}/{cin}{'/q8' if quant else ''}")
+    return (Lane8(q, scale) if quant else out), st
 
 
-def _launch_point(kind: int, norm: bool, triples: Sequence[Normed], out_like: torch.Tensor
-                  ) -> torch.Tensor:
+def _launch_point(kind: int, norm: bool, triples: Sequence[Normed], out_like: torch.Tensor,
+                  quant: bool = False) -> torch.Tensor | Lane8:
     dev = out_like.device
     hh, ww, c = _check_map("inputs[0]", out_like, dev)
     if c % 8:
@@ -262,11 +297,16 @@ def _launch_point(kind: int, norm: bool, triples: Sequence[Normed], out_like: to
         _check(f"inputs[{i}]", t[0], out_like.shape, torch.bfloat16, dev)
         args += [t[0].data_ptr(), *_mv_ptrs(f"inputs[{i}]", t, c, dev, norm and t[1] is not None)]
     args += [None] * (9 - len(args))
-    out = torch.empty_like(out_like)
+    out = q = scale = amax = None
+    if quant:
+        q, scale, amax = _q8_outputs(out_like.shape, dev)
+    else:
+        out = torch.empty_like(out_like)
     fn = kernels.entry("enc_point")
-    kernels.check("enc_point", fn(kind, int(norm), *args, hh * ww, c, out.data_ptr(),
+    kernels.check("enc_point", fn(kind, int(norm), *args, hh * ww, c,
+                                  *_ptrs(out, q, scale, amax),
                                   torch.cuda.current_stream(dev).cuda_stream))
-    return out
+    return Lane8(q, scale) if quant else out
 
 
 def point3(s: Normed, y2: Normed, y4: Normed, *, norm: bool) -> torch.Tensor:
@@ -283,16 +323,18 @@ def point3(s: Normed, y2: Normed, y4: Normed, *, norm: bool) -> torch.Tensor:
     return out
 
 
-def point2(x: torch.Tensor, y: Normed, *, norm: bool) -> torch.Tensor:
+def point2(x: torch.Tensor, y: Normed, *, norm: bool,
+           quant: bool = False) -> torch.Tensor | Lane8:
     """A residual block's exit (the JAX package's ``_point2_kernel``):
     ``relu(x + t(y))`` with ``x`` the block's input, an activation, and ``y``
-    the raw conv2 output; the sum in fp32, one rounding."""
+    the raw conv2 output; the sum in fp32, one rounding. ``quant``: the
+    output's int8 container in place of the map (``_point2_q8_kernel``)."""
     if x.device.type == "cpu":
-        return point2_plain(x, y, norm=norm)
+        return point2_plain(x, y, norm=norm, quant=quant)
     if norm and y[1] is None:
         raise ValueError("point2 needs y's mean and inv under instance norm")
-    out = _launch_point(2, norm, ((x, None, None), y), x)
-    kernels.count_launch("enc_point2", f"{_norm_name(norm)}/{x.shape[-1]}")
+    out = _launch_point(2, norm, ((x, None, None), y), x, quant)
+    kernels.count_launch("enc_point2", f"{_norm_name(norm)}/{x.shape[-1]}{'/q8' if quant else ''}")
     return out
 
 
@@ -339,6 +381,16 @@ def fused_in_stem_layer1(trunk, x: torch.Tensor) -> torch.Tensor:
 def stream_resblock(block, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
     """A stride-1 identity-shortcut residual block as raw1 -> mid1 -> point2
     (the JAX package's ``stream_resblock``)."""
+    return _resblock(block, x, norm_fn, quant=False)
+
+
+def stream_resblock_q8(block, x: torch.Tensor, norm_fn: str) -> Lane8:
+    """:func:`stream_resblock` whose point2 exit writes the int8 container
+    (the JAX package's ``stream_resblock_q8``)."""
+    return _resblock(block, x, norm_fn, quant=True)
+
+
+def _resblock(block, x: torch.Tensor, norm_fn: str, quant: bool):
     instance = norm_fn == "instance"
     if instance:
         (w1, b1), (w2, b2) = _conv_wb(block.conv1), _conv_wb(block.conv2)
@@ -351,13 +403,19 @@ def stream_resblock(block, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
 
     raw, st = conv_pass("raw1", [(x, None, None)], w1, b1, stats=instance)
     raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, b2, stats=instance)
-    return point2(x, (raw, *mv(st)), norm=instance)
+    return point2(x, (raw, *mv(st)), norm=instance, quant=quant)
 
 
 def stream_head_conv(conv, x: torch.Tensor) -> torch.Tensor:
     """A 3x3 pad-1 output-head conv as one raw1 pass (the JAX package's
     ``stream_head_conv``)."""
     return conv_pass("raw1", [(x, None, None)], *_conv_wb(conv), stats=False)[0]
+
+
+def stream_head_conv_q8(conv, x: torch.Tensor) -> Lane8:
+    """:func:`stream_head_conv` with the quantize-on-exit pass: the conv
+    output's int8 container (the JAX package's ``stream_head_conv_q8``)."""
+    return conv_pass("raw1", [(x, None, None)], *_conv_wb(conv), stats=False, quant=True)[0]
 
 
 # -- gates ------------------------------------------------------------------------
@@ -398,3 +456,15 @@ def head_conv_streamable(conv, x: torch.Tensor) -> bool:
     return (fused_encoders_on() and stream_tail_on() and _map_ok(x)
             and tuple(conv.weight.shape[1:]) == (x.shape[-1], 3, 3)
             and tuple(conv.stride) == (1, 1) and tuple(conv.padding) == (1, 1))
+
+
+def resblock_q8_streamable(block, x: torch.Tensor, norm_fn: str) -> bool:
+    """:func:`resblock_streamable` with ``RAFT_LANE_PACK8`` on. The JAX
+    package's single-strip and ``W % 4`` rules are its container layout's
+    and are not carried over."""
+    return lane_pack8_on() and resblock_streamable(block, x, norm_fn)
+
+
+def head_conv_q8_streamable(conv, x: torch.Tensor) -> bool:
+    """:func:`head_conv_streamable` with ``RAFT_LANE_PACK8`` on."""
+    return lane_pack8_on() and head_conv_streamable(conv, x)

@@ -14,7 +14,13 @@ Inference only, for the default zero-initialised flow: like the motion
 kernel it drops convf1's flow-y weights, so a caller-supplied flow_init
 keeps the serial path. Under ``RAFT_CORR_PACK8`` the kernel gathers from the
 operands' int8 levels, with the lookup's dequantization (the JAX package's
-``packed8`` ``_corr_rows``).
+``packed8`` ``_corr_rows``). Under ``RAFT_LANE_PACK8`` czrq is an int8 lane
+container and the gate stage adds ``q * scale`` (the JAX package's
+``_resident_lane8_kernel``); a container that arrives while the switch is
+off raises, as in the JAX package, so stale quantization never serves. A
+launch counts under ``fused_iter`` and, in an int8 mode, once more as the
+variant ``fused_iter:pack8``, ``fused_iter:lane8`` or
+``fused_iter:pack8+lane8``.
 """
 
 from __future__ import annotations
@@ -24,16 +30,17 @@ from typing import Tuple
 import torch
 
 from raft_stereo_tpu_torch import kernels
-from raft_stereo_tpu_torch.corr.reg_cuda import CorrOperands, kernel_levels, lookup_plain
+from raft_stereo_tpu_torch.config import lane_pack8_on
+from raft_stereo_tpu_torch.corr.reg_cuda import CorrOperands, Lane8, kernel_levels, lookup_plain
 from raft_stereo_tpu_torch.ops.stream import (
-    _COUNTERS, _HEAD2_COLS, GruWeights, HeadWeights, MotionWeights, _check_nhwc, _pad64,
-    conv_gru_plain, motion_plain)
+    _COUNTERS, _HEAD2_COLS, Czrq, GruWeights, HeadWeights, MotionWeights, _check_nhwc,
+    _czrq_args, _pad64, conv_gru_plain, motion_plain)
 
 _MAX_X2 = 2  # gru08 x parts after the motion features (csrc/conv3x3.cuh kMaxParts - 2)
 
 
 def fused_iter_plain(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
-                     corr_ops: CorrOperands, h: torch.Tensor, czrq: torch.Tensor,
+                     corr_ops: CorrOperands, h: torch.Tensor, czrq: Czrq,
                      coords_x: torch.Tensor, flow: torch.Tensor, *x2: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`fused_iter`: lookup, motion encoder,
@@ -44,7 +51,7 @@ def fused_iter_plain(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWei
 
 
 def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
-               corr_ops: CorrOperands, h: torch.Tensor, czrq: torch.Tensor,
+               corr_ops: CorrOperands, h: torch.Tensor, czrq: Czrq,
                coords_x: torch.Tensor, flow: torch.Tensor, *x2: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One iteration at the finest scale (the JAX package's
@@ -54,10 +61,15 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
 
     corr_ops: the frame's pyramid (:func:`~raft_stereo_tpu_torch.corr.
     reg_cuda.build_corr_operands`); h: (B, H, W, ch); czrq: from
-    ``prepare_gru_context``; coords_x: (B, H, W) fp32 x positions; flow:
-    (B, H, W, 2) with y == 0; x2: gru08's x parts after the motion features
-    (the upsampled gru16 state).
+    ``prepare_gru_context_any`` (bf16, or an int8 container under
+    ``RAFT_LANE_PACK8``, which must still be on); coords_x: (B, H, W) fp32 x
+    positions; flow: (B, H, W, 2) with y == 0; x2: gru08's x parts after the
+    motion features (the upsampled gru16 state).
     """
+    if isinstance(czrq, Lane8) and not lane_pack8_on():
+        raise RuntimeError(
+            "fused_iter: an int8 czrq container arrived with RAFT_LANE_PACK8 off; the "
+            "switch must stay on for the lifetime of a packed state")
     if h.device.type == "cpu":
         return fused_iter_plain(motion_w, gru_w, head_w, corr_ops, h, czrq, coords_x, flow,
                                 *x2)
@@ -86,9 +98,9 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         raise ValueError(f"resident kernel widths: motion branches {m.n1}, {m.nf} "
                          f"(multiples of 64), head {head_w.nh} (of 32)")
     ns = m.n1 + m.nf
+    czrq_ptr, lane8, scale_ptr = _czrq_args("czrq", czrq, (b, hh, ww, 3 * ch), dev)
     for name, t, shape, tdt in (
-            ("h", h, (b, hh, ww, ch), dt), ("czrq", czrq, (b, hh, ww, 3 * ch), dt),
-            ("flow", flow, (b, hh, ww, 2), dt),
+            ("h", h, (b, hh, ww, ch), dt), ("flow", flow, (b, hh, ww, 2), dt),
             ("wc1", m.wc1, (ccorr, m.n1), dt), ("wf1", m.wf1, (49, m.nf), dt),
             ("b1", m.b1, (ns,), torch.float32), ("w2", m.w2, (9, ns, _pad64(ns)), dt),
             ("b2", m.b2, (ns,), torch.float32), ("wf", m.wf, (9, ns, _pad64(cm)), dt),
@@ -114,7 +126,8 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
     kernels.check("resident", fn(
         coords.data_ptr(), rows, widths, nlev, corr_ops.radius, int(mode == 2), scales,
         flow.data_ptr(),
-        h.data_ptr(), czrq.data_ptr(), parts[0][0], parts[0][1], parts[1][0], parts[1][1],
+        h.data_ptr(), czrq_ptr, lane8, scale_ptr, parts[0][0], parts[0][1], parts[1][0],
+        parts[1][1],
         b, hh, ww, ch, m.wc1.data_ptr(), m.wf1.data_ptr(), m.b1.data_ptr(), m.n1, m.nf,
         m.w2.data_ptr(), m.b2.data_ptr(), m.wf.data_ptr(), m.bf.data_ptr(), m.cf,
         gru_w.w_gate.data_ptr(), gru_w.w_q.data_ptr(), head_w.w1.data_ptr(),
@@ -122,7 +135,9 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         s2.data_ptr(), mot.data_ptr(), z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
         f1.data_ptr(), h_out.data_ptr(), dx.data_ptr(), bar.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
-    kernels.launches["fused_iter"] += 1
-    if corr_ops.pack8:
-        kernels.variants["fused_iter:pack8"] += 1
+    modes = "+".join(m for m, on in (("pack8", corr_ops.pack8), ("lane8", lane8)) if on)
+    if modes:
+        kernels.count_launch("fused_iter", modes)
+    else:
+        kernels.launches["fused_iter"] += 1
     return h_out, dx

@@ -23,17 +23,28 @@ Weights are converted once per frame into the kernels' layout: tap-major
 ``(9, Cin, Cout)`` matrices in the compute dtype, output columns zero-padded
 to a multiple of 64 (:func:`gru_weights`, :func:`head_weights`,
 :func:`motion_weights`).
+
+Under ``RAFT_LANE_PACK8`` the czrq context is an int8 lane container
+(:func:`prepare_gru_context_any`, ``corr/reg_cuda.py:Lane8``): the GRU
+kernels and their plain versions add ``q * scale`` (the product rounded to
+fp32 first, then added to the fp32 accumulator) where they add the bf16
+czrq otherwise, and the launches count as the ``lane8`` variant
+(``conv_gru:<level>:lane8``, ``gru1632:lane8``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch import kernels
+from raft_stereo_tpu_torch.config import lane_pack8_on
+from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quantize_feature8
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners, lerp_taps
+
+Czrq = Union[torch.Tensor, Lane8]  # the folded context, or its int8 container
 
 _COL = 64  # csrc/conv3x3.cuh pad64: output-column multiple of weight matrices
 _HEAD2_COLS = 16  # columns of the FlowHead conv2 matrix (one used)
@@ -136,16 +147,46 @@ def prepare_gru_context(gru, context: Sequence[torch.Tensor],
     return (torch.cat(list(context), dim=-1).float() + bias).to(dtype).contiguous()
 
 
+def prepare_gru_context_any(gru, context: Sequence[torch.Tensor], dtype: torch.dtype) -> Czrq:
+    """:func:`prepare_gru_context`, and under ``RAFT_LANE_PACK8`` its
+    result quantized once to an int8 container (per-sample scale)."""
+    czrq = prepare_gru_context(gru, context, dtype)
+    return quantize_feature8(czrq) if lane_pack8_on() else czrq
+
+
+def _czrq_f32(czrq: Czrq) -> torch.Tensor:
+    """The context the gates add, in fp32."""
+    return dequantize_feature8(czrq, torch.float32) if isinstance(czrq, Lane8) else czrq.float()
+
+
+def _czrq_args(name: str, czrq: Czrq, shape, device):
+    """A czrq operand as the kernels take it, checked: its pointer, 1 for
+    an int8 container (0 for bf16) and the container's scale pointer."""
+    if isinstance(czrq, Lane8):
+        _check_nhwc(name, czrq.q, shape, torch.int8, device)
+        _check_nhwc(f"{name}.scale", czrq.scale, shape[:1], torch.float32, device)
+        return czrq.q.data_ptr(), 1, czrq.scale.data_ptr()
+    _check_nhwc(name, czrq, shape, torch.bfloat16, device)
+    return czrq.data_ptr(), 0, None
+
+
+def _count(kernel: str, lane8: int) -> None:
+    if lane8:
+        kernels.count_launch(kernel, "lane8")
+    else:
+        kernels.launches[kernel] += 1
+
+
 # -- ConvGRU (+ FlowHead): kernel 2 ------------------------------------------
 
 
-def conv_gru_plain(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
+def conv_gru_plain(w: GruWeights, h: torch.Tensor, czrq: Czrq,
                    *x_list: torch.Tensor, head: Optional[HeadWeights] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain torch version of :func:`fused_conv_gru`."""
     ch, dt = w.ch, h.dtype
     x = torch.cat(x_list, dim=-1)
-    ctx = czrq.float()
+    ctx = _czrq_f32(czrq)
     zr = _conv9(torch.cat([h, x], dim=-1), w.w_gate[..., :2 * ch]) + ctx[..., :2 * ch]
     z = torch.sigmoid(zr[..., :ch]).to(dt)
     r = torch.sigmoid(zr[..., ch:]).to(dt)
@@ -170,7 +211,7 @@ def _check_nhwc(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
+def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: Czrq,
                    *x_list: torch.Tensor, head: Optional[HeadWeights] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One ConvGRU step on NHWC tensors; with ``head``, the FlowHead's x
@@ -178,8 +219,9 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
     Returns ``(h', dx)`` with ``dx`` (B, H, W, 1) fp32 without
     ``conv2.b[0]``, or ``None`` without the head.
 
-    h: (B, H, W, ch); czrq: (B, H, W, 3ch) from :func:`prepare_gru_context`;
-    x_list: one to three (B, H, W, c_i) inputs, never concatenated.
+    h: (B, H, W, ch); czrq: (B, H, W, 3ch) from :func:`prepare_gru_context`,
+    or its int8 container from :func:`prepare_gru_context_any`; x_list: one
+    to three (B, H, W, c_i) inputs, never concatenated.
     """
     if h.device.type == "cpu":
         return conv_gru_plain(w, h, czrq, *x_list, head=head)
@@ -191,7 +233,7 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
     if ch != w.ch or any(c % 32 for c in [ch, *cxs]):
         raise ValueError(f"GRU kernel channels must be multiples of 32: ch={ch}, x={cxs}")
     _check_nhwc("h", h, (b, hh, ww, ch), dt, dev)
-    _check_nhwc("czrq", czrq, (b, hh, ww, 3 * ch), dt, dev)
+    czrq_ptr, lane8, scale_ptr = _czrq_args("czrq", czrq, (b, hh, ww, 3 * ch), dev)
     for i, (x, c) in enumerate(zip(x_list, cxs)):
         _check_nhwc(f"x_list[{i}]", x, (b, hh, ww, c), dt, dev)
     _check_nhwc("w_gate", w.w_gate, (9, ch + sum(cxs), _pad64(3 * ch)), dt, dev)
@@ -215,13 +257,13 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: torch.Tensor,
         w1, b1, w2 = head.w1.data_ptr(), head.b1.data_ptr(), head.w2.data_ptr()
     fn = kernels.entry("conv_gru")
     kernels.check("conv_gru", fn(
-        h.data_ptr(), czrq.data_ptr(), parts[0][0], parts[0][1], parts[1][0],
+        h.data_ptr(), czrq_ptr, lane8, scale_ptr, parts[0][0], parts[0][1], parts[1][0],
         parts[1][1], parts[2][0], parts[2][1], b, hh, ww, ch, w.w_gate.data_ptr(),
         w.w_q.data_ptr(), z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
         h_out.data_ptr(), w1, b1, w2, nh, None if f1 is None else f1.data_ptr(),
         None if dx is None else dx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
-    kernels.launches[f"conv_gru:{w.level}"] += 1
+    _count(f"conv_gru:{w.level}", lane8)
     return h_out, dx
 
 
@@ -281,7 +323,7 @@ def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> to
 
 
 def gru1632_plain(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
-                  h32: torch.Tensor, czrq16: torch.Tensor, czrq32: torch.Tensor,
+                  h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
                   x0p: torch.Tensor, x1p: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of :func:`fused_gru1632`: the gru32 step, the
@@ -294,7 +336,7 @@ def gru1632_plain(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
 
 
 def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
-                  h32: torch.Tensor, czrq16: torch.Tensor, czrq32: torch.Tensor,
+                  h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
                   x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two coarse GRU steps in one launch (the JAX package's
     ``fused_gru1632``): ``(h16', h32')`` with
@@ -304,7 +346,8 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     :func:`fused_conv_gru` twice with the resize between.
 
     h16: (B, H16, W16, ch); h32: (B, H32, W32, ch); x0p: (B, H16, W16, cx0),
-    pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16).
+    pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16). The two
+    czrq are both bf16 or both int8 containers.
     """
     if h16.device.type == "cpu":
         return gru1632_plain(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
@@ -315,9 +358,11 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     if ch != w16.ch or ch != w32.ch or ch % 32 or cx0 % 32:
         raise ValueError(f"gru1632 kernel: both levels need one hidden width, a "
                          f"multiple of 32: gru16 {w16.ch}, gru32 {w32.ch}, h {ch}, x0 {cx0}")
+    c16, lane8, s16 = _czrq_args("czrq16", czrq16, (b, hh16, ww16, 3 * ch), dev)
+    c32, lane8_32, s32 = _czrq_args("czrq32", czrq32, (b, hh32, ww32, 3 * ch), dev)
+    if lane8 != lane8_32:
+        raise TypeError("gru1632 kernel: czrq16 and czrq32 must both be bf16 or both int8")
     for name, t, shape in (("h16", h16, (b, hh16, ww16, ch)), ("h32", h32, (b, hh32, ww32, ch)),
-                           ("czrq16", czrq16, (b, hh16, ww16, 3 * ch)),
-                           ("czrq32", czrq32, (b, hh32, ww32, 3 * ch)),
                            ("x0p", x0p, (b, hh16, ww16, cx0)), ("x1p", x1p, (b, hh32, ww32, ch)),
                            ("w16.w_gate", w16.w_gate, (9, 2 * ch + cx0, _pad64(3 * ch))),
                            ("w16.w_q", w16.w_q, (9, ch, _pad64(ch))),
@@ -333,12 +378,12 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     bar = torch.empty(_COUNTERS, dtype=torch.int32, device=dev)
     fn = kernels.entry("gru1632")
     kernels.check("gru1632", fn(
-        h16.data_ptr(), h32.data_ptr(), czrq16.data_ptr(), czrq32.data_ptr(),
-        x0p.data_ptr(), cx0, x1p.data_ptr(), b, hh16, ww16, hh32, ww32, ch,
+        h16.data_ptr(), h32.data_ptr(), c16, c32, lane8, s16, s32, x0p.data_ptr(), cx0,
+        x1p.data_ptr(), b, hh16, ww16, hh32, ww32, ch,
         w16.w_gate.data_ptr(), w16.w_q.data_ptr(), w32.w_gate.data_ptr(),
         w32.w_q.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(),
         z16.data_ptr(), rh16.data_ptr(), aqx16.data_ptr(), z32.data_ptr(),
         rh32.data_ptr(), aqx32.data_ptr(), h16_out.data_ptr(), h32_out.data_ptr(),
         bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    kernels.launches["gru1632"] += 1
+    _count("gru1632", lane8)
     return h16_out, h32_out

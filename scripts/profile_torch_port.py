@@ -6,9 +6,9 @@
 Runs chip_smoke.py's main path (the seeded full-width model, bf16,
 reg_cuda, one random 375x1242 pair padded to 384x1248, 32 iterations) twice
 to warm up, then once under torch.profiler, first on the default path,
-then with the plain encoders (RAFT_FUSED_ENCODERS=0), then with
-``alt_cuda`` (the same weights), and prints JSON lines, for each of the
-three:
+then with the plain encoders (RAFT_FUSED_ENCODERS=0), then with the int8
+context lanes (RAFT_LANE_PACK8=1), then with ``alt_cuda`` (the same
+weights), and prints JSON lines, for each of the four:
 - the card (nvidia-smi name and power limit), once;
 - the frame's host wall ms, the device-busy ms (union of kernel intervals)
   and the idle share of the frame's window;
@@ -20,7 +20,10 @@ three:
 - device ms of the prepare step alone (encoders and zqr convs), by group;
 and once, device ms per call of the corr volume and pyramid, of the alt
 path's pooled fmap2 pyramid and of the two per-iteration resizes, each run
-alone.
+alone. Then chip_smoke.py's Middlebury-F pair (2016x2976) with and without
+RAFT_LANE_PACK8=1: the same records for one frame of each, and the host
+wall ms of eight frames taken in turns (bf16, lane8, lane8, bf16, twice),
+so the two are compared inside one call.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -55,9 +58,10 @@ def _group(name: str) -> str:
         return "port:gru1632 (gru32 + gru16)"
     if "resident_kernel" in n:
         return "port:resident (lookup + motion + gru08 + head)"
-    if any(s in n for s in ("enc_stem_kernel", "enc_pass_kernel", "point3_kernel",
+    if any(s in n for s in ("enc_stem_kernel", "enc_pass_", "point3_kernel",
                             "point2_kernel", "stats_reduce_kernel")):
-        return "port:encoder kernels (stem, 3x3 pass, point3/point2, statistics)"
+        return ("port:encoder kernels (stem, 3x3 pass and its q8 phases, point3/point2, "
+                "statistics)")
     # cuDNN's convolutions are implicit GEMMs ("fprop", "implicit_gemm"), so
     # they are told apart before the matmuls, whose names say gemm too.
     if any(s in n for s in ("conv", "cudnn", "fprop", "implicit")):
@@ -94,7 +98,7 @@ def main() -> int:
     model = chip_smoke.seeded_model("cuda")
     (left, right), = chip_smoke.random_pairs(1, chip_smoke.KITTI, seed=9)
     for route, env in (("default", {}), ("plain encoders", {"RAFT_FUSED_ENCODERS": "0"}),
-                       ("alt_cuda", {})):
+                       ("lane8", {"RAFT_LANE_PACK8": "1"}), ("alt_cuda", {})):
         if route == "alt_cuda":
             model = chip_smoke.seeded_model("cuda", "alt_cuda")
         os.environ.update(env)
@@ -104,7 +108,33 @@ def main() -> int:
             for knob in env:
                 os.environ.pop(knob, None)
     print(json.dumps({"alone": _alone()}))
+    model = chip_smoke.seeded_model("cuda")
+    (left, right), = chip_smoke.random_pairs(1, chip_smoke.MIDDLEBURY_F, seed=12)
+    lane = {"RAFT_LANE_PACK8": "1"}
+    for route, env in (("Middlebury-F", {}), ("Middlebury-F lane8", lane)):
+        chip_smoke._with_env(env, lambda: _profile_frame(route, model, left, right))
+    print(json.dumps({"route": "Middlebury-F, bf16 and lane8 in turns",
+                      "frame_wall_ms": _in_turns(model, left, right, lane)}))
     return 0
+
+
+def _in_turns(model, left, right, env: dict) -> dict:
+    """Host wall ms of frames without and with ``env``, in the order
+    off, on, on, off, twice."""
+    import chip_smoke
+    from raft_stereo_tpu_torch.demo import infer_pair
+
+    def frame_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer_pair(model, left, right, iters=chip_smoke.ITERS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"off": [], "on": []}
+    for key in ("off", "on", "on", "off") * 2:
+        out[key].append(chip_smoke._with_env(env if key == "on" else {}, frame_ms))
+    return out
 
 
 def _events(prof):

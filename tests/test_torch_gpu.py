@@ -31,12 +31,23 @@ The alt kernel is held to 1 bf16 ulp (1e-5 of the largest tap in fp32) of
 its plain version, whose fp32 row product sums in another order; the
 lookup's int8 mode (RAFT_CORR_PACK8) to equality, and the resident kernel
 on int8 levels bit for bit to the serial int8 chain.
+
+The int8 context lanes (RAFT_LANE_PACK8): the three GRU kernels on an int8
+czrq container are held to their plain versions with the bf16 mode's
+tolerances, and the two persistent ones bit for bit to the serial lane8
+chain (the resident kernel in all four instantiations: bf16 or int8 levels
+by bf16 or int8 czrq). The quantize-on-exit pass and point2 must equal, bit
+for bit, the host quantization (``quantize_feature8``) of the same kernel's
+bf16 output, and stay within two quantization steps of the plain version's
+(one bf16 ulp apart in a value or in the amax moves q by about one step
+each).
 """
 
 import pytest
 import torch
 
 from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
+from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, quantize_feature8
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
 from raft_stereo_tpu_torch.ops import encoder as enc
@@ -579,3 +590,160 @@ def test_gpu_resident_pack8_matches_serial_bitwise(cuda, monkeypatch, b, h, w, c
         plain[1].square().mean().sqrt())
     assert kernels.variants["fused_iter:pack8"] == 1
     assert kernels.variants["corr_lookup:pack8"] == 1
+
+
+# -- the int8 context lanes (RAFT_LANE_PACK8) -------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,ch,parts", [(2, 7, 13, 64, (64, 32)), (1, 24, 78, 128, (128,))])
+def test_gpu_conv_gru_lane8_matches_plain(cuda, b, h, w, ch, parts):
+    """The ConvGRU kernel on an int8 czrq, with the head; the per-sample
+    scale (sample 1 at 9x the contrast) picked by the pixel's sample."""
+    from raft_stereo_tpu_torch import kernels
+    gru, head, _ = _modules_on(cuda, ch, sum(parts), 110)
+    g = torch.Generator(device=cuda).manual_seed(111)
+    bf = torch.bfloat16
+    hst = (torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.5).to(bf)
+    xs = [torch.randn((b, h, w, c), generator=g, device=cuda).to(bf) for c in parts]
+    ctx = [(torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.3) for _ in range(3)]
+    ctx[0][-1] *= 9.0
+    with torch.no_grad():
+        wts, hw = stream.gru_weights(gru, bf, "gru08"), stream.head_weights(head, bf)
+        lane = quantize_feature8(stream.prepare_gru_context(gru, [c.to(bf) for c in ctx], bf))
+        kernels.reset_launches()
+        got_h, got_dx = stream.fused_conv_gru(wts, hst, lane, *xs, head=hw)
+        counts = dict(kernels.launches), dict(kernels.variants)
+        ref_h, ref_dx = stream.conv_gru_plain(wts, hst, lane, *xs, head=hw)
+    torch.cuda.synchronize()
+    assert counts == ({"conv_gru:gru08": 1}, {"conv_gru:gru08:lane8": 1})
+    assert float((got_h.float() - ref_h.float()).abs().max()) <= 2.0 ** -5
+    dx_rms = float(ref_dx.square().mean().sqrt())
+    assert float((got_dx - ref_dx).abs().max()) <= 2.0 ** -5 * dx_rms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h16,w16,ch", [(2, 10, 26, 32), (1, 48, 156, 128)])
+def test_gpu_gru1632_lane8_matches_serial_bitwise(cuda, b, h16, w16, ch):
+    from raft_stereo_tpu_torch import kernels
+    args = list(_gru1632_case(cuda, b, h16, w16, ch, 112))
+    args[4], args[5] = quantize_feature8(args[4]), quantize_feature8(args[5])
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = stream.fused_gru1632(*args)
+        serial = _gru1632_serial(*args)
+        plain = stream.gru1632_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.variants == {"gru1632:lane8": 1, "conv_gru:gru16:lane8": 1,
+                                "conv_gru:gru32:lane8": 1}
+    for g_, s_, p_ in zip(got, serial, plain):
+        assert torch.equal(g_, s_)
+        assert float((g_.float() - p_.float()).abs().max()) <= 2.0 ** -5
+    mixed = list(args)
+    mixed[5] = torch.zeros(args[5].q.shape, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):  # one level bf16, the other int8
+        stream.fused_gru1632(*mixed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack8", [False, True])
+@pytest.mark.parametrize("b,h,w,ch", [(2, 7, 13, 32), (1, 96, 312, 128)])
+def test_gpu_resident_lane8_matches_serial_bitwise(cuda, monkeypatch, b, h, w, ch, pack8):
+    """The resident kernel's int8-czrq instantiations, on bf16 and on int8
+    levels: bit for bit the serial lane8 chain, within the tolerance of the
+    plain version, counted as fused_iter:lane8 or fused_iter:pack8+lane8;
+    and a container with the switch off raises."""
+    from raft_stereo_tpu_torch import kernels
+    monkeypatch.setenv("RAFT_CORR_PACK8", "1" if pack8 else "0")
+    monkeypatch.setenv("RAFT_LANE_PACK8", "1")
+    args = list(_resident_case(cuda, b, h, w, ch, 113))
+    assert args[3].pack8 == pack8
+    args[5] = quantize_feature8(args[5])
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = resident.fused_iter(*args)
+        serial = _resident_serial(*args)
+        plain = resident.fused_iter_plain(*args)
+    torch.cuda.synchronize()
+    for g_, s_ in zip(got, serial):
+        assert torch.equal(g_, s_)
+    assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
+    assert float((got[1] - plain[1]).abs().max()) <= 2.0 ** -5 * float(
+        plain[1].square().mean().sqrt())
+    mode = "pack8+lane8" if pack8 else "lane8"
+    assert kernels.variants[f"fused_iter:{mode}"] == 1
+    assert kernels.variants["conv_gru:gru08:lane8"] == 1
+    monkeypatch.setenv("RAFT_LANE_PACK8", "0")
+    with pytest.raises(RuntimeError, match="RAFT_LANE_PACK8"):
+        resident.fused_iter(*args)
+
+
+def _q8_close(lane: Lane8, ref: Lane8) -> bool:
+    """Within two quantization steps of the plain version's container."""
+    d = (lane.q.float() * lane.scale - ref.q.float() * ref.scale).abs().max()
+    return float(d) <= 2.0 * float(torch.maximum(lane.scale, ref.scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,cin,cout", [(7, 13, 64, 64), (5, 131, 128, 384),
+                                          (24, 78, 128, 384), (3, 259, 96, 160)])
+def test_gpu_pass_q8_equals_host_quantization(cuda, h, w, cin, cout):
+    from raft_stereo_tpu_torch import kernels
+    g = torch.Generator(device=cuda).manual_seed(114)
+    inputs = [_enc_triple(cuda, g, (1, h, w, cin), False)]
+    wt, b = _enc_conv(cuda, cin, cout, 3, 115)
+    kernels.reset_launches()
+    lane, st = enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)
+    assert kernels.variants == {f"enc_pass:raw1/bn/{cin}/q8": 1}
+    bf, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False)
+    again, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)
+    ref, _ = enc.conv_pass_plain("raw1", inputs, wt, b, stats=False, quant=True)
+    host = quantize_feature8(bf)
+    torch.cuda.synchronize()
+    assert st is None and lane.q.dtype == torch.int8 and lane.q.shape == (1, h, w, cout)
+    assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+    assert torch.equal(lane.q, again.q) and torch.equal(lane.scale, again.scale)
+    assert _q8_close(lane, ref)
+
+
+@pytest.mark.gpu
+def test_gpu_pass_q8_integer_exact(cuda):
+    """Integer inputs and weights: every sum is exact, so the container
+    equals the plain version's bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(116)
+    inputs = [_enc_triple(cuda, g, (1, 9, 37, 128), False, ints=True)]
+    wt, b = _enc_conv(cuda, 128, 384, 3, 117, ints=True)
+    lane, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)
+    ref, _ = enc.conv_pass_plain("raw1", inputs, wt, b, stats=False, quant=True)
+    torch.cuda.synchronize()
+    assert torch.equal(lane.q, ref.q) and torch.equal(lane.scale, ref.scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("h,w,ch", [(7, 13, 64), (3, 259, 128), (2, 3, 8), (96, 312, 128)])
+def test_gpu_point2_q8_equals_host_quantization(cuda, h, w, ch, norm):
+    from raft_stereo_tpu_torch import kernels
+    g = torch.Generator(device=cuda).manual_seed(118)
+    shape = (1, h, w, ch)
+    y = _enc_triple(cuda, g, shape, True)
+    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    kernels.reset_launches()
+    lane = enc.point2(x, y, norm=norm, quant=True)
+    assert kernels.variants == {f"enc_point2:{'instance' if norm else 'bn'}/{ch}/q8": 1}
+    host = quantize_feature8(enc.point2(x, y, norm=norm))
+    ref = enc.point2_plain(x, y, norm=norm, quant=True)
+    torch.cuda.synchronize()
+    assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+    assert _q8_close(lane, ref)
+
+
+@pytest.mark.gpu
+def test_gpu_q8_exits_reject_what_they_do_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(119)
+    inputs = [_enc_triple(cuda, g, (1, 8, 8, 64), True)]
+    wt, b = _enc_conv(cuda, 64, 64, 3, 120)
+    with pytest.raises(ValueError):  # only raw1 quantizes on exit
+        enc.conv_pass("mid1", inputs, wt, b, stats=False, quant=True)
+    with pytest.raises(ValueError):  # and never with statistics
+        enc.conv_pass("raw1", [(inputs[0][0], None, None)], wt, b, stats=True, quant=True)

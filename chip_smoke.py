@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from raft_stereo_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc per source, all at once, and print the loop kernels'
-   and the q8 exits' registers and spills (ptxas -v);
+   (sm_90a), one nvcc per source, all at once, and print the loop kernels',
+   the pass engine's and the q8 exits' registers and spills (ptxas -v), and
+   the pass engine's dynamic shared memory at each output width;
 3. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (KITTI 375x1242 padded to 384x1248: features at
    96x312, B=1, bf16): max |error| against a stated tolerance; device ms per
@@ -23,7 +24,9 @@ Phases, each fatal on failure:
    the Middlebury-F frame: 2016x2976x64, 1008x1488x96, 504x744x128), with
    ``kernel_ms`` the hand-written kernels' own share of ``ms``; the two
    launches that one library call also computes (the stem and the head
-   conv, ``F.conv2d``) carry its time (``library_ms``); the context net's
+   conv, ``F.conv2d``) carry its time (``library_ms``), and every other
+   pass the time of its conv alone, without the transform, the statistics
+   or the quantization (``library_note`` says which); the context net's
    fused stem + layer1, one streamed residual block and the feature net's
    fused stem + layer1 (at both frame sizes) are held as chains, kernel
    route against plain route. The int8 context lanes (RAFT_LANE_PACK8):
@@ -269,6 +272,16 @@ def phase_build() -> float:
     for name in ("resident", "gru1632", "conv_gru", "enc_pass", "enc_point"):
         print(json.dumps({"phase": "ptxas", "source": name,
                           "kernels": _ptxas_usage(kernels.build_log(name))}))
+    # The pass engine's dynamic shared memory at each pass the main paths
+    # run (pass_sm90_kernel<N>: N the columns a block computes).
+    from raft_stereo_tpu_torch.ops.encoder import pass_plan
+    plans = [(kind, cin, cout, *pass_plan(kind, 96, 312, cin, cout)[1:])
+             for kind, cin, cout in (("mid1", 64, 64), ("mid2", 64, 64), ("raw1", 96, 96),
+                                     ("mid1", 128, 128), ("raw1", 128, 384))]
+    print(json.dumps({"phase": "smem", "source": "enc_pass",
+                      "passes": [{"kind": k, "cin": ci, "cout": co, "block_columns": n,
+                                  "dynamic_smem_bytes": b, "blocks_per_sm": nb}
+                                 for k, ci, co, n, b, nb in plans]}))
     return seconds
 
 
@@ -722,7 +735,7 @@ def _enc_triple(g, shape, stats: bool):
 
 
 OWN_KERNELS = {"enc_stem": ("enc_stem_kernel", "stats_reduce_kernel"),
-               "enc_pass": ("enc_pass_kernel", "stats_reduce_kernel"),
+               "enc_pass": ("pass_sm90_kernel", "stats_reduce_kernel"),
                "enc_point3": ("point3_kernel",), "enc_point2": ("point2_kernel",)}
 
 
@@ -780,9 +793,10 @@ def check_stem(path, h: int, w: int, stats: bool) -> dict:
     g = _gen(20)
     x = (torch.rand((1, h, w, 3), generator=g, device="cuda") * 2 - 1).to(torch.bfloat16)
     wt, b = _enc_weights(3, 64, 7, 21)
-    got, st = enc.stem(x, wt, b, stats=stats)
+    cw = enc.ConvWeights(wt, b)  # prepared once, as the chains' module_weights are
+    got, st = enc.stem(x, cw, None, stats=stats)
     ref, st_ref = enc.stem_plain(x, wt, b, stats=stats)
-    again = enc.stem(x, wt, b, stats=stats)
+    again = enc.stem(x, cw, None, stats=stats)
     npix = h * w
     library = note = None
     if not stats:
@@ -794,14 +808,16 @@ def check_stem(path, h: int, w: int, stats: bool) -> dict:
     return _enc_result(
         f"enc_stem:{_norm_name(stats)}", path, (h, w), f"1x{h}x{w}x3 -> 64, bf16",
         got, ref, st, st_ref, again, npix * (3 + 64) * 2 + 147 * 64 * 2,
-        2.0 * 147 * 64 * npix, PEAK_BF16, lambda: enc.stem(x, wt, b, stats=stats),
+        2.0 * 147 * 64 * npix, PEAK_BF16, lambda: enc.stem(x, cw, None, stats=stats),
         lambda: enc.stem_plain(x, wt, b, stats=stats), library, note)
 
 
 def check_pass(path, h: int, w: int, ch: int, kind: str, stats: bool) -> dict:
-    """One 3x3 pass at a main-path shape. Tolerances as for the stem. The
-    raw1 pass without statistics (the finest heads' conv) is one F.conv2d
-    with bias: ``library_ms``."""
+    """One 3x3 pass at a main-path shape. Tolerances as for the stem.
+    ``library_ms``: one F.conv2d with bias of the same conv over the raw
+    input, which for the raw1 pass without statistics (the finest heads'
+    conv) is the whole function, and for the others the conv only, without
+    the input transform and the statistics."""
     import torch.nn.functional as F
 
     from raft_stereo_tpu_torch.ops import encoder as enc
@@ -809,22 +825,25 @@ def check_pass(path, h: int, w: int, ch: int, kind: str, stats: bool) -> dict:
     n_in = 2 if kind == "mid2" else 1
     inputs = [_enc_triple(g, (1, h, w, ch), stats and kind != "raw1") for _ in range(n_in)]
     wt, b = _enc_weights(ch, ch, 3, 23)
-    got, st = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    cw = enc.ConvWeights(wt, b)  # prepared once, as the chains' module_weights are
+    got, st = enc.conv_pass(kind, inputs, cw, None, stats=stats)
     ref, st_ref = enc.conv_pass_plain(kind, inputs, wt, b, stats=stats)
-    again = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    again = enc.conv_pass(kind, inputs, cw, None, stats=stats)
     npix = h * w
-    library = note = None
-    if kind == "raw1" and not stats:
-        xl = inputs[0][0].permute(0, 3, 1, 2)
-        wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        bl = b.to(torch.bfloat16)
-        library = lambda: F.conv2d(xl, wl, bl, 1, 1)  # noqa: E731
-        note = "F.conv2d 3x3 pad 1 with bias, bf16, channels-last"
+    xl = inputs[0][0].permute(0, 3, 1, 2)
+    wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bl = b.to(torch.bfloat16)
+    note = "F.conv2d 3x3 pad 1 with bias, bf16, channels-last"
+    if kind != "raw1" or stats:
+        note += (": the conv only, over the raw input, without the input transform"
+                 if kind != "raw1" else ": the conv only") + \
+                (" and the statistics" if stats else "")
+    library = lambda: F.conv2d(xl, wl, bl, 1, 1)  # noqa: E731
     return _enc_result(
         f"enc_pass:{kind}/{_norm_name(stats)}/{ch}", path, (h, w), f"1x{h}x{w}x{ch}, bf16",
         got, ref, st, st_ref, again,
         npix * (n_in + 1) * ch * 2 + 9 * ch * ch * 2, 2.0 * 9 * ch * ch * npix, PEAK_BF16,
-        lambda: enc.conv_pass(kind, inputs, wt, b, stats=stats),
+        lambda: enc.conv_pass(kind, inputs, cw, None, stats=stats),
         lambda: enc.conv_pass_plain(kind, inputs, wt, b, stats=stats), library, note)
 
 
@@ -899,15 +918,16 @@ def check_pass_q8(path, h: int, w: int) -> dict:
     g = _gen(26)
     inputs = [(torch.relu(_randn((1, h, w, 128), g)), None, None)]
     wt, b = _enc_weights(128, 384, 3, 27)
+    cw = enc.ConvWeights(wt, b)  # prepared once, as the chains' module_weights are
 
     def kernel():
-        return enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)[0]
+        return enc.conv_pass("raw1", inputs, cw, None, stats=False, quant=True)[0]
 
     def plain():
         return enc.conv_pass_plain("raw1", inputs, wt, b, stats=False, quant=True)[0]
 
     def bf16_kernel():
-        return enc.conv_pass("raw1", inputs, wt, b, stats=False)[0]
+        return enc.conv_pass("raw1", inputs, cw, None, stats=False)[0]
 
     xl = inputs[0][0].permute(0, 3, 1, 2)
     wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -917,7 +937,7 @@ def check_pass_q8(path, h: int, w: int) -> dict:
         Q8_PASS, path, (h, w), f"1x{h}x{w}x128 -> 384, bf16 -> int8", kernel(), kernel(),
         quantize_feature8(bf16_kernel()), plain(),
         npix * (128 * 2 + 384) + 9 * 128 * 384 * 2, 2.0 * 9 * 128 * 384 * npix, PEAK_BF16,
-        kernel, plain, bf16_kernel, ("enc_pass_amax_kernel", "enc_pass_quant_kernel"),
+        kernel, plain, bf16_kernel, ("pass_sm90_kernel", "quant_map_kernel"),
         lambda: F.conv2d(xl, wl, bl, 1, 1),
         "F.conv2d 3x3 pad 1, 128 -> 384, with bias, bf16, channels-last: the conv only, "
         "without the quantization")

@@ -1,7 +1,9 @@
 // The quantize-on-exit epilogue of RAFT_LANE_PACK8, shared by the 3x3 pass
 // (enc_pass.cu) and the point2 exit (enc_point.cu): a map's bf16-rounded
-// exit values become int8 q with one fp32 scale, without the bf16 map ever
-// being written.
+// exit values become int8 q with one fp32 scale. The point2 exit never
+// writes the bf16 map; the pass writes it once, to a scratch map that the
+// L2 cache holds at the KITTI widths, since on this card a second conv costs
+// more than that map (the TPU kernel wrote none for want of VMEM).
 //
 // What the TPU kernels compute (ops/pallas_encoder.py:_pass_q8_kernel,
 // _point2_q8_kernel), and the host quantization of the port
@@ -9,9 +11,11 @@
 //   amax  = max |v| over the map's real pixels and channels (B = 1)
 //   scale = max(amax, 1e-30) / 127                       (IEEE fp32 division)
 //   q     = clip(round_half_even(v / scale), -127, 127)  (IEEE fp32 division)
-// Two launches of the producing kernel, as the TPU kernel's two phases:
-// phase 0 folds |v| into one maximum (amax_fold), phase 1 recomputes v and
-// quantizes it. The maximum is an atomicMax on the bit pattern of |v|:
+// Two phases, as the TPU kernel's: phase 0 folds |v| into one maximum
+// (amax_fold; the pass folds its block's first), phase 1 quantizes v with
+// the maximum's scale (point2: a
+// second launch that recomputes v; the pass: a light kernel over its
+// scratch map). The maximum is an atomicMax on the bit pattern of |v|:
 // non-negative floats order as their unsigned bit patterns, and a maximum
 // does not depend on the order it is taken in, so it is exact.
 #pragma once

@@ -16,9 +16,12 @@ __device__ __forceinline__ float bf16r(float v) {
 }
 
 // Instance norm and relu of a raw conv output: (x - mean) * inv in fp32, relu,
-// one rounding.
+// one rounding (normed_f: before it, for callers that round two at a time).
+__device__ __forceinline__ float normed_f(float x, float m, float inv) {
+  return fmaxf(__fmul_rn(__fsub_rn(x, m), inv), 0.0f);
+}
 __device__ __forceinline__ float normed(bf16 x, float m, float inv) {
-  return bf16r(fmaxf(__fmul_rn(__fsub_rn(__bfloat162float(x), m), inv), 0.0f));
+  return bf16r(normed_f(__bfloat162float(x), m, inv));
 }
 
 // The transform where frozen BatchNorm is folded into the conv: relu alone.

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of each library's one C entry point (csrc/<name>.cu).
+# argtypes of each library's C entry point (csrc/<name>.cu), and of a second
+# symbol of one of them (a third element names its source).
 _SIGNATURES = {
     "corr_lookup": ("rst_corr_lookup",
                     [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I,
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "enc_pass": ("rst_enc_pass",
                  [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I] + [_P] * 7),
+    # A second symbol of csrc/enc_pass.cu: the pass's launch plan.
+    "enc_pass_plan": ("rst_enc_pass_plan", [_I] * 5 + [ctypes.POINTER(_I)], "enc_pass"),
     "enc_point": ("rst_enc_point", [_I, _I] + [_P] * 9 + [_I, _I] + [_P] * 5),
 }
 
@@ -162,13 +165,16 @@ def build_log(name: str) -> str:
 
 
 def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``, building it if needed."""
+    """The C entry point ``name`` of ``_SIGNATURES``, from the library of
+    ``csrc/<name>.cu`` or of the source the entry names, building it if
+    needed."""
     with _lock:
         fn = _entries.get(name)
         if fn is None:
-            build([name])
-            symbol, argtypes = _SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            symbol, argtypes, *source = _SIGNATURES[name]
+            source = source[0] if source else name
+            build([source])
+            fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entries[name] = fn

@@ -29,17 +29,24 @@ Under ``RAFT_LANE_PACK8`` the raw1 pass (the zqr context convs) and the
 point2 exit have a quantize-on-exit variant (``quant=True``; the JAX
 package's ``_pass_q8_kernel`` and ``_point2_q8_kernel``): they return the
 int8 container of their bf16 output (``corr/reg_cuda.py:quantize_feature8``,
-bit for bit) instead of the map, and the kernels never write the map.
+bit for bit) instead of the map. The point2 kernel never writes the map;
+the pass writes it once to a scratch map that the L2 cache holds at the
+KITTI widths and frees it after the call (the TPU kernel wrote no map for
+want of VMEM; here a map in L2 costs less than running the conv twice).
 
 Maps are ``(1, H, W, C)``; a transformed input is a ``(raw, mean, inv)``
 triple with ``mean``/``inv`` ``(C,)`` fp32, or ``None`` where no statistics
 apply. Conv weights come in as OIHW fp32 (BatchNorm already folded) and are
 cast to the map's dtype here; biases stay fp32. The plain versions take any
-float dtype, so the CPU tests also run them in fp32.
+float dtype, so the CPU tests also run them in fp32. The chains take their
+weights from :func:`module_weights`: folded and cast once per model, laid
+out for the kernels once per device, rebuilt when a parameter or buffer
+changes.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -55,8 +62,6 @@ Normed = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 ConvWB = Tuple[torch.Tensor, Optional[torch.Tensor]]  # OIHW fp32 weight, fp32 bias
 
 _KINDS = {"raw1": 0, "mid1": 1, "mid2": 2}
-_COL = 64          # csrc/conv3x3.cuh pad64: output-column multiple of weight matrices
-_PASS_BM = 128     # csrc/conv3x3.cuh BM: pixels a tile, a row of partial sums each
 _STEM_BM = 64      # csrc/enc_stem.cu kStemBM
 _STEM_BLOCKS = 528  # csrc/enc_stem.cu kStemBlocks: rows of its partial sums
 _STEM_K = 160      # csrc/enc_stem.cu kStemK: 147 taps padded
@@ -73,6 +78,54 @@ def fold_bn(conv, bn) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _conv_wb(conv) -> ConvWB:
     return conv.weight.float(), None if conv.bias is None else conv.bias.float()
+
+
+class ConvWeights:
+    """A conv's weight (OIHW fp32, BatchNorm folded where it applies) and
+    fp32 bias, with the kernels' device layouts of them, each made at its
+    first use and kept (``layout``)."""
+
+    def __init__(self, w: torch.Tensor, b: Optional[torch.Tensor]):
+        self.w, self.b = w, b
+        self._layouts = {}
+
+    def layout(self, kernel: str, device, make):
+        """``make(w, b, device)``, made once per kernel and device."""
+        key = (kernel, device)
+        if key not in self._layouts:
+            self._layouts[key] = make(self.w, self.b, device)
+        return self._layouts[key]
+
+
+def _weights(w, bias) -> ConvWeights:
+    return w if isinstance(w, ConvWeights) else ConvWeights(w, bias)
+
+
+def _tensor_key(t: Optional[torch.Tensor]):
+    """What identifies a tensor's current values: the object, its storage
+    and its version counter (bumped by every in-place change, which
+    ``load_state_dict``'s copies are)."""
+    if t is None:
+        return None
+    return id(t), t.data_ptr(), t._version, t.device, t.dtype
+
+
+def module_weights(conv, bn=None) -> ConvWeights:
+    """``conv``'s weights for the chains, BatchNorm ``bn`` folded into them
+    where given, kept on the module and rebuilt when one of the tensors
+    they come from changes (a new parameter or buffer, an in-place update,
+    ``load_state_dict``, a move to another device)."""
+    tensors = [conv.weight, conv.bias]
+    if bn is not None:
+        tensors += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+    key = tuple(_tensor_key(t) for t in tensors)
+    cached = conv.__dict__.get("_rst_weights")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        cw = ConvWeights(*(fold_bn(conv, bn) if bn is not None else _conv_wb(conv)))
+    conv.__dict__["_rst_weights"] = (key, cw)
+    return cw
 
 
 def stats_to_mv(stats: torch.Tensor, n: int, eps: float = 1e-5
@@ -104,10 +157,11 @@ def _conv_out(v: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     return out.to(v.dtype).contiguous(), st
 
 
-def stem_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
+def stem_plain(x: torch.Tensor, w, bias: Optional[torch.Tensor], *,
                stats: bool) -> Tuple[torch.Tensor, Stats]:
     """Plain torch version of :func:`stem`."""
-    return _conv_out(x, w, bias, 3, stats)
+    cw = _weights(w, bias)
+    return _conv_out(x, cw.w, cw.b, 3, stats)
 
 
 def _pass_input(kind: str, inputs: Sequence[Normed], stats: bool) -> torch.Tensor:
@@ -122,12 +176,13 @@ def _pass_input(kind: str, inputs: Sequence[Normed], stats: bool) -> torch.Tenso
     return torch.relu(torch.relu(a) + torch.relu(b))
 
 
-def conv_pass_plain(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
+def conv_pass_plain(kind: str, inputs: Sequence[Normed], w,
                     bias: Optional[torch.Tensor], *, stats: bool, quant: bool = False
                     ) -> Tuple[torch.Tensor | Lane8, Stats]:
     """Plain torch version of :func:`conv_pass`."""
     _check_quant(kind, stats, quant)
-    out, st = _conv_out(_pass_input(kind, inputs, stats), w, bias, 1, stats)
+    cw = _weights(w, bias)
+    out, st = _conv_out(_pass_input(kind, inputs, stats), cw.w, cw.b, 1, stats)
     return (quantize_feature8(out) if quant else out), st
 
 
@@ -198,21 +253,29 @@ def _bias_f32(bias: Optional[torch.Tensor], cout: int, device) -> torch.Tensor:
     return bias.float().contiguous()
 
 
-def stem(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
+def _stem_layout(w: torch.Tensor, bias, dev):
+    """The stem kernel's weights, [160][64] bf16 (147 taps, zero rows
+    after), and its fp32 bias."""
+    wk = torch.zeros((_STEM_K, 64), dtype=torch.bfloat16, device=dev)
+    wk[:147] = w.permute(2, 3, 1, 0).reshape(147, 64)
+    return wk, _bias_f32(bias, 64, dev)
+
+
+def stem(x: torch.Tensor, w, bias: Optional[torch.Tensor], *,
          stats: bool) -> Tuple[torch.Tensor, Stats]:
     """The 7x7 stride-1 pad-3 stem conv of a ``(1, H, W, 3)`` image into 64
     channels (the JAX package's ``_run_stem``): ``(out, statistics)``, the
-    statistics ``None`` without ``stats``. w: (64, 3, 7, 7)."""
+    statistics ``None`` without ``stats``. w: (64, 3, 7, 7), or the
+    :class:`ConvWeights` of the conv (which then carry the bias)."""
     if x.device.type == "cpu":
         return stem_plain(x, w, bias, stats=stats)
+    cw = _weights(w, bias)
     dev = x.device
     hh, ww, cin = _check_map("x", x, dev)
-    if cin != 3 or tuple(w.shape) != (64, 3, 7, 7):
+    if cin != 3 or tuple(cw.w.shape) != (64, 3, 7, 7):
         raise ValueError(f"the stem kernel takes 3 -> 64 channels, 7x7: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
-    wk = torch.zeros((_STEM_K, 64), dtype=torch.bfloat16, device=dev)
-    wk[:147] = w.permute(2, 3, 1, 0).reshape(147, 64)
-    b = _bias_f32(bias, 64, dev)
+                         f"w {tuple(cw.w.shape)}")
+    wk, b = cw.layout("enc_stem", dev, _stem_layout)
     _check("bias", b, (64,), torch.float32, dev)
     out = torch.empty((1, hh, ww, 64), dtype=torch.bfloat16, device=dev)
     partial = st = None
@@ -229,7 +292,28 @@ def stem(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
     return out, st
 
 
-def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
+def _pass_layout(w: torch.Tensor, bias, dev):
+    """The pass kernel's weights, [9][cout][cin] bf16 (tap-major, input
+    channels contiguous: the K-major tiles its TMA loads), and its fp32
+    bias."""
+    cout, cin = w.shape[:2]
+    wk = w.permute(2, 3, 0, 1).reshape(9, cout, cin).to(device=dev, dtype=torch.bfloat16)
+    return wk.contiguous(), _bias_f32(bias, cout, dev)
+
+
+def pass_plan(kind: str, h: int, w: int, cin: int, cout: int) -> Tuple[int, int, int, int]:
+    """The pass kernel's launch plan for a ``kind`` pass over an ``h x w x
+    cin`` map into ``cout`` channels, from the kernel: the rows of its
+    partial statistics (one per output patch, then the fp64 reduction's
+    scratch), the output columns a block computes, its dynamic shared
+    memory in bytes and the blocks an SM holds."""
+    plan = (ctypes.c_int * 4)()
+    kernels.check("enc_pass_plan", kernels.entry("enc_pass_plan")(_KINDS[kind], h, w, cin, cout,
+                                                                  plan))
+    return plan[0], plan[1], plan[2], plan[3]
+
+
+def conv_pass(kind: str, inputs: Sequence[Normed], w,
               bias: Optional[torch.Tensor], *, stats: bool, quant: bool = False
               ) -> Tuple[torch.Tensor | Lane8, Stats]:
     """One 3x3 pad-1 conv pass with its input transform (the JAX package's
@@ -240,9 +324,11 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
     means instance norm: the mid kinds normalize with the triples' mean and
     inv, and the pass returns the statistics of its own fp32 outputs;
     without it (BatchNorm folded into ``w`` and ``bias``) the transform is a
-    relu and the statistics are ``None``. w: (Cout, Cin, 3, 3). ``quant``
-    (raw1 without statistics only): the output's int8 container in place
-    of the map."""
+    relu and the statistics are ``None``. w: (Cout, Cin, 3, 3), or the
+    :class:`ConvWeights` of the conv (which then carry the bias); the kernel
+    takes Cin in multiples of 32 and Cout in multiples of 8. ``quant`` (raw1
+    without statistics only): the output's int8 container in place of the
+    map."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
     if len(inputs) != (2 if kind == "mid2" else 1):
@@ -251,12 +337,14 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
     if a.device.type == "cpu":
         return conv_pass_plain(kind, inputs, w, bias, stats=stats, quant=quant)
     _check_quant(kind, stats, quant)
+    cw = _weights(w, bias)
     dev = a.device
     hh, ww, cin = _check_map("inputs[0]", a, dev)
-    cout = w.shape[0]
-    if tuple(w.shape) != (cout, cin, 3, 3) or cin % 32:
-        raise ValueError(f"the pass kernel takes a (Cout, {cin}, 3, 3) weight and input "
-                         f"channels in multiples of 32, got w {tuple(w.shape)}")
+    cout = cw.w.shape[0]
+    if tuple(cw.w.shape) != (cout, cin, 3, 3) or cin % 32 or cout % 8:
+        raise ValueError(f"the pass kernel takes a (Cout, {cin}, 3, 3) weight, input channels "
+                         f"in multiples of 32 and output channels in multiples of 8, got w "
+                         f"{tuple(cw.w.shape)}")
     norm = stats and kind != "raw1"
     ma, va = _mv_ptrs("inputs[0]", inputs[0], cin, dev, norm)
     b_ptr = mb = vb = None
@@ -264,18 +352,17 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
         _check("inputs[1]", inputs[1][0], a.shape, torch.bfloat16, dev)
         b_ptr = inputs[1][0].data_ptr()
         mb, vb = _mv_ptrs("inputs[1]", inputs[1], cin, dev, norm)
-    npad = -(-cout // _COL) * _COL
-    wk = F.pad(w.permute(2, 3, 1, 0).reshape(9, cin, cout).to(torch.bfloat16),
-               (0, npad - cout)).contiguous()
-    b = _bias_f32(bias, cout, dev)
+    wk, b = cw.layout("enc_pass", dev, _pass_layout)
     _check("bias", b, (cout,), torch.float32, dev)
-    out = q = scale = amax = partial = st = None
+    q = scale = amax = partial = st = None
+    # Under quant, `out` is the bf16 scratch map the kernel quantizes from,
+    # freed when this call returns.
+    out = torch.empty((1, hh, ww, cout), dtype=torch.bfloat16, device=dev)
     if quant:
         q, scale, amax = _q8_outputs((1, hh, ww, cout), dev)
-    else:
-        out = torch.empty((1, hh, ww, cout), dtype=torch.bfloat16, device=dev)
     if stats:
-        partial = torch.empty((-(-hh * ww // _PASS_BM), 2, npad), dtype=torch.float32, device=dev)
+        partial = torch.empty((pass_plan(kind, hh, ww, cin, cout)[0], 2, cout),
+                              dtype=torch.float32, device=dev)
         st = torch.empty((2, cout), dtype=torch.float32, device=dev)
     fn = kernels.entry("enc_pass")
     kernels.check("enc_pass", fn(
@@ -283,7 +370,10 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w: torch.Tensor,
         wk.data_ptr(), b.data_ptr(), cout, *_ptrs(out, partial, st, q, scale, amax),
         torch.cuda.current_stream(dev).cuda_stream))
     kernels.count_launch("enc_pass", f"{kind}/{_norm_name(stats)}/{cin}{'/q8' if quant else ''}")
-    return (Lane8(q, scale) if quant else out), st
+    if quant:
+        del out  # the scratch map, once the stream is past its last reader
+        return Lane8(q, scale), st
+    return out, st
 
 
 def _launch_point(kind: int, norm: bool, triples: Sequence[Normed], out_like: torch.Tensor,
@@ -341,22 +431,22 @@ def point2(x: torch.Tensor, y: Normed, *, norm: bool,
 # -- chains ---------------------------------------------------------------------
 
 
-def _trunk_passes(x: torch.Tensor, convs: List[ConvWB], instance: bool) -> torch.Tensor:
+def _trunk_passes(x: torch.Tensor, convs: List[ConvWeights], instance: bool) -> torch.Tensor:
     """Stem + layer1 over a ``(1, H, W, 3)`` image. convs: the stem's
-    ``(w, b)`` and layer1's four, BatchNorm folded for the frozen-BN trunk."""
+    weights and layer1's four, BatchNorm folded for the frozen-BN trunk."""
     n = x.shape[1] * x.shape[2]
 
     def mv(st):
         return stats_to_mv(st, n) if instance else (None, None)
 
-    (ws, bs), (w1, b1), (w2, b2), (w3, b3), (w4, b4) = convs
-    raw, st = stem(x, ws, bs, stats=instance)
+    ws, w1, w2, w3, w4 = convs
+    raw, st = stem(x, ws, None, stats=instance)
     s = (raw, *mv(st))
-    raw, st = conv_pass("mid1", [s], w1, b1, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, b2, stats=instance)
+    raw, st = conv_pass("mid1", [s], w1, None, stats=instance)
+    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, None, stats=instance)
     y2 = (raw, *mv(st))
-    raw, st = conv_pass("mid2", [s, y2], w3, b3, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w4, b4, stats=instance)
+    raw, st = conv_pass("mid2", [s, y2], w3, None, stats=instance)
+    raw, st = conv_pass("mid1", [(raw, *mv(st))], w4, None, stats=instance)
     return point3(s, y2, (raw, *mv(st)), norm=instance)
 
 
@@ -369,13 +459,15 @@ def _layer1_convs(trunk):
 def fused_stem_layer1(trunk, x: torch.Tensor) -> torch.Tensor:
     """The frozen-BN (context net) stem + layer1 of an encoder module, the
     BatchNorms folded into the conv weights: ``(1, H, W, 64)``."""
-    return _trunk_passes(x, [fold_bn(c, n) for c, n in _layer1_convs(trunk)], instance=False)
+    return _trunk_passes(x, [module_weights(c, n) for c, n in _layer1_convs(trunk)],
+                         instance=False)
 
 
 def fused_in_stem_layer1(trunk, x: torch.Tensor) -> torch.Tensor:
     """The instance-norm (feature net) stem + layer1 of an encoder module
     for one ``(1, H, W, 3)`` image."""
-    return _trunk_passes(x, [_conv_wb(c) for c, _ in _layer1_convs(trunk)], instance=True)
+    return _trunk_passes(x, [module_weights(c) for c, _ in _layer1_convs(trunk)],
+                         instance=True)
 
 
 def stream_resblock(block, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
@@ -393,29 +485,30 @@ def stream_resblock_q8(block, x: torch.Tensor, norm_fn: str) -> Lane8:
 def _resblock(block, x: torch.Tensor, norm_fn: str, quant: bool):
     instance = norm_fn == "instance"
     if instance:
-        (w1, b1), (w2, b2) = _conv_wb(block.conv1), _conv_wb(block.conv2)
+        w1, w2 = module_weights(block.conv1), module_weights(block.conv2)
     else:
-        (w1, b1), (w2, b2) = fold_bn(block.conv1, block.norm1), fold_bn(block.conv2, block.norm2)
+        w1, w2 = module_weights(block.conv1, block.norm1), module_weights(block.conv2, block.norm2)
     n = x.shape[1] * x.shape[2]
 
     def mv(st):
         return stats_to_mv(st, n) if instance else (None, None)
 
-    raw, st = conv_pass("raw1", [(x, None, None)], w1, b1, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, b2, stats=instance)
+    raw, st = conv_pass("raw1", [(x, None, None)], w1, None, stats=instance)
+    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, None, stats=instance)
     return point2(x, (raw, *mv(st)), norm=instance, quant=quant)
 
 
 def stream_head_conv(conv, x: torch.Tensor) -> torch.Tensor:
     """A 3x3 pad-1 output-head conv as one raw1 pass (the JAX package's
     ``stream_head_conv``)."""
-    return conv_pass("raw1", [(x, None, None)], *_conv_wb(conv), stats=False)[0]
+    return conv_pass("raw1", [(x, None, None)], module_weights(conv), None, stats=False)[0]
 
 
 def stream_head_conv_q8(conv, x: torch.Tensor) -> Lane8:
     """:func:`stream_head_conv` with the quantize-on-exit pass: the conv
     output's int8 container (the JAX package's ``stream_head_conv_q8``)."""
-    return conv_pass("raw1", [(x, None, None)], *_conv_wb(conv), stats=False, quant=True)[0]
+    return conv_pass("raw1", [(x, None, None)], module_weights(conv), None, stats=False,
+                     quant=True)[0]
 
 
 # -- gates ------------------------------------------------------------------------

@@ -58,10 +58,10 @@ def _group(name: str) -> str:
         return "port:gru1632 (gru32 + gru16)"
     if "resident_kernel" in n:
         return "port:resident (lookup + motion + gru08 + head)"
-    if any(s in n for s in ("enc_stem_kernel", "enc_pass_", "point3_kernel",
-                            "point2_kernel", "stats_reduce_kernel")):
-        return ("port:encoder kernels (stem, 3x3 pass and its q8 phases, point3/point2, "
-                "statistics)")
+    if any(s in n for s in ("enc_stem_kernel", "pass_sm90_kernel", "quant_map_kernel",
+                            "point3_kernel", "point2_kernel", "stats_reduce")):
+        return ("port:encoder kernels (stem, 3x3 pass and its q8 quantize pass, "
+                "point3/point2, statistics)")
     # cuDNN's convolutions are implicit GEMMs ("fprop", "implicit_gemm"), so
     # they are told apart before the matmuls, whose names say gemm too.
     if any(s in n for s in ("conv", "cudnn", "fprop", "implicit")):

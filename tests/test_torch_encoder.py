@@ -24,6 +24,8 @@ tests/test_torch_gpu.py holds the CUDA kernels against the plain versions on
 the card.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -531,6 +533,39 @@ def test_a_reloaded_state_dict_leaves_no_stale_fold(rng):
         model.load_state_dict(other.state_dict())
         after, want = model(tx)[0][0], other(tx)[0][0]
     assert torch.equal(after, want) and not torch.equal(after, before)
+
+
+def test_encoder_weights_are_prepared_once_and_follow_changes(rng):
+    """The chains fold and cast a conv's weights once per model and lay them
+    out once per kernel and device: a second call reuses the prepared
+    tensors. Changing a BatchNorm buffer in place or loading a state dict
+    prepares them again, and the fused route's output follows, as the plain
+    modules' does."""
+    _, model = _cnet(rng)
+    _, other = _cnet(np.random.default_rng(1))
+    conv, bn = model.layer1[0].conv1, model.layer1[0].norm1
+    first = enc.module_weights(conv, bn)
+    assert enc.module_weights(conv, bn) is first
+    made = []
+    for _ in range(2):
+        first.layout("probe", torch.device("cpu"), lambda w, b, dev: made.append(1) or w)
+    assert made == [1]
+    _, tx = _both("bf16", rng.uniform(-1, 1, (1, 16, 16, 3)))
+    with torch.no_grad():
+        before, plain_before = model(tx)[0][0], _unfused_context(model, tx)[0][0]
+        assert torch.equal(model(tx)[0][0], before)
+        bn.running_mean.add_(0.25)
+        moved = enc.module_weights(conv, bn)
+        assert moved is not first
+        for got, want in zip((moved.w, moved.b), enc.fold_bn(conv, bn)):
+            assert torch.equal(got, want)
+        after = model(tx)[0][0]
+        assert not torch.equal(after, before)
+        assert not torch.equal(_unfused_context(model, tx)[0][0], plain_before)
+        assert torch.equal(after, copy.deepcopy(model)(tx)[0][0])  # a twin prepares afresh
+        model.load_state_dict(other.state_dict())
+        assert enc.module_weights(conv, bn) is not moved
+        assert torch.equal(model(tx)[0][0], other(tx)[0][0])
 
 
 # -- the whole forward ---------------------------------------------------------------

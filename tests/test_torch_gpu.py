@@ -25,7 +25,11 @@ The encoder kernels (``ops/encoder.py``: stem, 3x3 pass, point3, point2) are
 held to 1 bf16 ulp of their plain versions (an fp32 sum in another order can
 put the one rounding on the other side), their statistics to 1e-5 of the
 plain version's fp64 sums, and two runs to the same bits; with integer
-inputs, where every sum is exact, to equality.
+inputs, where every sum is exact, to equality. The pass's edge cases (maps
+smaller than its 8 x 16 output patch and off its multiples, a half-empty or
+a third 64-channel chunk, one or two column blocks) are held to equality on
+integer inputs: at a single pixel the statistics are single values, and an
+fp32 sum with cancellation in another order has no 1e-5 bound there.
 
 The alt kernel is held to 1 bf16 ulp (1e-5 of the largest tap in fp32) of
 its plain version, whose fp32 row product sums in another order; the
@@ -386,6 +390,57 @@ def test_gpu_pass_kernel_matches_plain(cuda, h, w, cin, cout, kind, stats):
         assert st is None
 
 
+EDGES = [(1, 1, 32, 96), (2, 130, 160, 384), (70, 3, 32, 384), (19, 37, 160, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("kind", ["raw1", "mid1", "mid2"])
+@pytest.mark.parametrize("h,w,cin,cout", EDGES)
+def test_gpu_pass_kernel_patch_edges_and_widths(cuda, h, w, cin, cout, kind, stats):
+    """Maps smaller than the kernel's 8 x 16 output patch and not a multiple
+    of it, 32 and 160 input channels (one chunk of 64 half empty, three
+    chunks), and 96 and 384 output channels (one block of 96 columns, two of
+    192), on integer inputs, weights and means (inv = 1/2), where every sum
+    is exact: outputs and statistics equal the plain version's bit for bit,
+    so a wrong tap, halo, chunk or column shows. The plan's statistics rows
+    are one per patch (maps this small need no scratch rows for the fp64
+    reduction)."""
+    g = torch.Generator(device=cuda).manual_seed(121)
+    inputs = [_enc_triple(cuda, g, (1, h, w, cin), stats and kind != "raw1", ints=True)
+              for _ in range(2 if kind == "mid2" else 1)]
+    wt, b = _enc_conv(cuda, cin, cout, 3, 122, ints=True)
+    got, st = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    again, st2 = enc.conv_pass(kind, inputs, wt, b, stats=stats)
+    ref, st_ref = enc.conv_pass_plain(kind, inputs, wt, b, stats=stats)
+    torch.cuda.synchronize()
+    rows, width, smem, blocks = enc.pass_plan(kind, h, w, cin, cout)
+    assert rows == -(-h // 8) * -(-w // 16) and width == (96 if cout == 96 else 192)
+    assert 1 <= blocks <= (2 if width == 96 else 1) and blocks * smem <= 228 * 1024
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    if stats:
+        assert torch.equal(st, st_ref) and torch.equal(st, st2)
+    else:
+        assert st is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["raw1", "mid1", "mid2"])
+@pytest.mark.parametrize("h,w,cin,cout", EDGES)
+def test_gpu_pass_kernel_patch_edges_on_random_inputs(cuda, h, w, cin, cout, kind):
+    """The same shapes on random inputs and means, instance norm: outputs
+    within 1 bf16 ulp of the plain version, two runs with equal bits."""
+    g = torch.Generator(device=cuda).manual_seed(125)
+    inputs = [_enc_triple(cuda, g, (1, h, w, cin), kind != "raw1")
+              for _ in range(2 if kind == "mid2" else 1)]
+    wt, b = _enc_conv(cuda, cin, cout, 3, 126)
+    got, st = enc.conv_pass(kind, inputs, wt, b, stats=True)
+    again, st2 = enc.conv_pass(kind, inputs, wt, b, stats=True)
+    ref, _ = enc.conv_pass_plain(kind, inputs, wt, b, stats=True)
+    torch.cuda.synchronize()
+    assert _ulps(got, ref) <= 1.0 and torch.equal(got, again) and torch.equal(st, st2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["raw1", "mid1"])
 def test_gpu_pass_kernel_without_a_bias(cuda, kind):
@@ -704,6 +759,47 @@ def test_gpu_pass_q8_equals_host_quantization(cuda, h, w, cin, cout):
     assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
     assert torch.equal(lane.q, again.q) and torch.equal(lane.scale, again.scale)
     assert _q8_close(lane, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(29, 45), (1, 1)])
+def test_gpu_pass_q8_over_several_patches(cuda, h, w):
+    """The zqr width, 128 -> 384 (two column blocks of 192), on a map of
+    several patches in both directions and on a single pixel: the conv runs
+    once into a bf16 scratch map, so the container must be the host
+    quantization of the bf16 pass's output bit for bit, two runs equal."""
+    g = torch.Generator(device=cuda).manual_seed(123)
+    inputs = [(torch.relu(_enc_triple(cuda, g, (1, h, w, 128), False)[0]), None, None)]
+    wt, b = _enc_conv(cuda, 128, 384, 3, 124)
+    lane, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)
+    again, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False, quant=True)
+    bf, _ = enc.conv_pass("raw1", inputs, wt, b, stats=False)
+    ref, _ = enc.conv_pass_plain("raw1", inputs, wt, b, stats=False, quant=True)
+    host = quantize_feature8(bf)
+    torch.cuda.synchronize()
+    assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+    assert torch.equal(lane.q, again.q) and torch.equal(lane.scale, again.scale)
+    assert _q8_close(lane, ref)
+
+
+@pytest.mark.gpu
+def test_gpu_pass_q8_rounds_half_to_even(cuda):
+    """An identity conv passes the map through, and a map whose largest
+    value is 127 has scale 1, so v / scale lands on half-integers: the
+    kernel's quantization must round them to even, as the host's does."""
+    ch = 64
+    vals = torch.tensor([127.0, -127.0, 2.5, -2.5, 3.5, 0.5, -0.5, 1.5, 126.5, -126.5, 0.0, 7.0],
+                        device=cuda)
+    x = vals.repeat(9 * 11 * ch // len(vals) + 1)[:9 * 11 * ch].reshape(1, 9, 11, ch)
+    wt = torch.zeros((ch, ch, 3, 3), device=cuda)
+    wt[torch.arange(ch), torch.arange(ch), 1, 1] = 1.0
+    inputs = [(x.to(torch.bfloat16), None, None)]
+    lane, _ = enc.conv_pass("raw1", inputs, wt, None, stats=False, quant=True)
+    host = quantize_feature8(inputs[0][0])
+    torch.cuda.synchronize()
+    assert float(lane.scale) == 1.0
+    assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
+    assert int(lane.q.flatten()[2]) == 2 and int(lane.q.flatten()[4]) == 4
 
 
 @pytest.mark.gpu

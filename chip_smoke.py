@@ -6,9 +6,12 @@
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from raft_stereo_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc per source, all at once, and print the loop kernels',
-   the pass engine's and the q8 exits' registers and spills (ptxas -v), and
-   the pass engine's dynamic shared memory at each output width;
+   (sm_90a), one nvcc per source, all at once, and print the loop kernels'
+   (the resident kernel, gru16+32, the serial GRU and motion launches), the
+   pass engine's and the q8 exits' registers and spills (ptxas -v), the
+   pass engine's dynamic shared memory at each output width and the loop
+   engine's block (loop_conv_sm90.cuh: shared memory, threads, blocks an
+   SM);
 3. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (KITTI 375x1242 padded to 384x1248: features at
    96x312, B=1, bf16): max |error| against a stated tolerance; device ms per
@@ -17,7 +20,8 @@ Phases, each fatal on failure:
    around them (CUDA events, ``wrapper_ms`` and ``plain_wall_ms``); and the
    analytic bound. The gru16+32 and resident kernels must also equal, bit
    for bit, the serial CUDA chain they replace (``serial_ms``: its device
-   ms). The encoder kernels (stem, 3x3 pass, point3, point2) are held in
+   ms; ``kernel_ms``: the hand-written kernels' own share of ``ms``). The
+   encoder kernels (stem, 3x3 pass, point3, point2) are held in
    bf16 ulps of the plain version, their statistics against its fp64 sums,
    and run twice for equal bits, in both norm variants at the shapes of
    both main paths (the KITTI frames: 384x1248x64, 192x624x96, 96x312x128;
@@ -269,7 +273,7 @@ def phase_build() -> float:
                       "sources": list(kernels.SOURCES)}))
     # The loop kernels' and the q8 exits' instantiations (resident_kernel<T,
     # Q>: T the level type, Q czrq's; "a" is int8, "13__nv_bfloat16" bf16).
-    for name in ("resident", "gru1632", "conv_gru", "enc_pass", "enc_point"):
+    for name in ("resident", "gru1632", "conv_gru", "motion", "enc_pass", "enc_point"):
         print(json.dumps({"phase": "ptxas", "source": name,
                           "kernels": _ptxas_usage(kernels.build_log(name))}))
     # The pass engine's dynamic shared memory at each pass the main paths
@@ -282,6 +286,10 @@ def phase_build() -> float:
                       "passes": [{"kind": k, "cin": ci, "cout": co, "block_columns": n,
                                   "dynamic_smem_bytes": b, "blocks_per_sm": nb}
                                  for k, ci, co, n, b, nb in plans]}))
+    # The loop engine's (csrc/loop_conv_sm90.cuh: the resident kernel and the
+    # serial motion and gru08 + head launches) block.
+    from raft_stereo_tpu_torch.ops.resident import loop_plan
+    print(json.dumps({"phase": "smem", "source": "resident", **loop_plan()}))
     return seconds
 
 
@@ -452,7 +460,8 @@ def check_gru(level: str, lane8: bool = False) -> dict:
 
     out = {"name": f"conv_gru:{level}{'+head' if head else ''}",
            "counter": f"conv_gru:{level}", "tol": tol, "ok": ok, "max_abs_err": err,
-           **detail, **_timings(kernel, plain), "bound_ms": bound_ms, "bound_by": bound_by,
+           **detail, **_timings(kernel, plain, own=OWN_KERNELS["conv_gru"]),
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "shape": f"1x{h}x{w}x{ch}, x parts {list(parts)}, bf16"
                     f"{', czrq int8' if lane8 else ''}"}
     if not lane8:
@@ -501,7 +510,7 @@ def check_motion() -> dict:
             "ok": err <= tol and flow_exact, "max_abs_err": err,
             "flow_channels_exact": flow_exact,
             **_timings(lambda: stream.fused_motion(wts, flow, corr),
-                       lambda: stream.motion_plain(wts, flow, corr)),
+                       lambda: stream.motion_plain(wts, flow, corr), own=OWN_KERNELS["motion"]),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": f"1x{h}x{w}, corr 36, bf16"}
 
@@ -574,7 +583,8 @@ def check_gru1632(lane8: bool = False) -> dict:
             _serial_gru1632(*args)
 
     out = {"name": "gru1632", "counter": "gru1632", "tol": tol, "ok": err <= tol and bitwise,
-           "max_abs_err": err, "bitwise_equal_serial": bitwise, **_timings(kernel, plain),
+           "max_abs_err": err, "bitwise_equal_serial": bitwise,
+           **_timings(kernel, plain, own=OWN_KERNELS["gru1632"]),
            "serial_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by,
            "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"
                     f"{', czrq int8' if lane8 else ''}"}
@@ -665,7 +675,8 @@ def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
             chain()
 
     timings = _with_env({"RAFT_LANE_PACK8": "1"} if lane8 else {},
-                        lambda: {**_timings(kernel, plain), "serial_ms": _device_ms(serial_run)})
+                        lambda: {**_timings(kernel, plain, own=OWN_KERNELS["fused_iter"]),
+                                 "serial_ms": _device_ms(serial_run)})
     out = {"name": "fused_iter:pack8" if pack8 else "fused_iter", "counter": "fused_iter",
            "tol": tol, "ok": err_h <= tol and err_dx <= tol * dx_rms and bitwise,
            "max_abs_err": max(err_h, err_dx), "max_abs_err_h": err_h, "max_abs_err_dx": err_dx,
@@ -734,7 +745,10 @@ def _enc_triple(g, shape, stats: bool):
             torch.rand(c, generator=g, device="cuda") * 1.5 + 0.5)
 
 
-OWN_KERNELS = {"enc_stem": ("enc_stem_kernel", "stats_reduce_kernel"),
+OWN_KERNELS = {"conv_gru": ("loop_conv_kernel", "conv3x3_kernel"),
+               "motion": ("motion_stage1_kernel", "loop_conv_kernel"),
+               "gru1632": ("gru1632_kernel",), "fused_iter": ("resident_kernel",),
+               "enc_stem": ("enc_stem_kernel", "stats_reduce_kernel"),
                "enc_pass": ("pass_sm90_kernel", "stats_reduce_kernel"),
                "enc_point3": ("point3_kernel",), "enc_point2": ("point2_kernel",)}
 

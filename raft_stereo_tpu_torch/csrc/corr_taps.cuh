@@ -75,13 +75,22 @@ __device__ __forceinline__ void gather_level_taps(const Levels<T>& lv, int l, in
   // clamp only keeps the integer conversion in range.
   const int i0 = (int)fminf(fmaxf(i0f, (float)(-radius - 2)), (float)(w + radius + 1));
   const float scale = level_scale(lv, l, p);
-  int pos = i0 - radius;
+  const int pos = i0 - radius;
   float prev = (pos >= 0 && pos < w) ? tap_f32(row[pos], scale) : 0.0f;
-  for (int t = 0; t < k; ++t) {
-    ++pos;
-    const float next = (pos >= 0 && pos < w) ? tap_f32(row[pos], scale) : 0.0f;
-    o[t] = from_f32<O>(__fadd_rn(__fmul_rn(prev, omf), __fmul_rn(next, frac)));
-    prev = next;
+  // Eight taps' loads in flight at a time, then their lerps in order.
+  for (int t0 = 0; t0 < k; t0 += 8) {
+    float next[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = pos + 1 + t0 + u;
+      next[u] = (t0 + u < k && q >= 0 && q < w) ? tap_f32(row[q], scale) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (t0 + u >= k) break;
+      o[t0 + u] = from_f32<O>(__fadd_rn(__fmul_rn(prev, omf), __fmul_rn(next[u], frac)));
+      prev = next[u];
+    }
   }
 }
 

@@ -2,9 +2,8 @@
 // through tensor maps, mbarriers, ldmatrix and wgmma with A in registers and
 // B read from 128-byte-swizzled shared memory through a descriptor.
 //
-// Only enc_pass.cu includes this header. The refinement loop's kernels stay
-// on conv3x3.cuh, whose serial and persistent routes are pinned bit for bit
-// against each other.
+// Included by enc_pass.cu (the encoder's 3x3 pass) and loop_conv_sm90.cuh
+// (the refinement loop's engine: motion, gru08 + head, the resident kernel).
 //
 // Layout shared by TMA and the readers: a box whose innermost dimension is
 // 64 bf16 (128 bytes) lands with CU_TENSOR_MAP_SWIZZLE_128B as rows of 128

@@ -1,5 +1,6 @@
-// Grid-wide barrier and cooperative launch for the persistent kernels
-// (gru1632.cu, resident.cu).
+// Grid-wide barrier (gru1632.cu) and cooperative launch for the persistent
+// kernels (gru1632.cu, resident.cu, whose stages wait on counters of their
+// own instead of a barrier).
 //
 // A persistent kernel runs the stages of one serial chain in one launch:
 // each stage is a grid-stride loop over the tiles the serial launch would
@@ -54,14 +55,15 @@ inline int persistent_grid(Kernel kernel, int threads, size_t smem, int tiles) {
   return per_sm * sms < tiles ? per_sm * sms : tiles;
 }
 
-// Zeroes the kCounters counters at `bar` and launches `kernel(params)`
+// Zeroes `counters` counters at `bar` and launches `kernel(params)`
 // cooperatively on `stream`. Returns the first non-zero cudaError_t.
 template <class Params>
 inline int launch_persistent(void (*kernel)(Params), const Params& params, unsigned int* bar,
-                             int tiles, size_t smem, int threads, cudaStream_t stream) {
+                             int tiles, size_t smem, int threads, cudaStream_t stream,
+                             int counters = kCounters) {
   const int grid = persistent_grid(kernel, threads, smem, tiles);
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int err = (int)cudaMemsetAsync(bar, 0, kCounters * sizeof(unsigned int), stream);
+  int err = (int)cudaMemsetAsync(bar, 0, counters * sizeof(unsigned int), stream);
   if (err) return err;
   Params p = params;
   void* args[] = {&p};

@@ -20,23 +20,50 @@
 //
 // Design: the TPU kernel streams row blocks down a sequential grid, with
 // gru08 one block behind the motion stages and every intermediate in VMEM
-// windows. Here one cooperative launch, at most as many blocks as the card
-// holds at once (grid.cuh), runs seven stages as grid-stride loops with a
-// grid barrier between them:
-//   1. gather + motion stage 1: a block gathers the taps of 32 pixels into
-//      shared memory once (gather_level_taps, the lookup's own body) and
-//      runs the 1x1 convc1 from there and the 7x7 convf1 from the flow
-//      (MotionStage1, the serial kernel's own body); the taps never reach
-//      device memory;
+// windows. Here one cooperative launch, one block an SM (grid.cuh), runs
+// seven stages:
+//   1. gather + motion stage 1, in tiles of 64 pixels of one image row: a
+//      block gathers the tile's taps into shared memory once
+//      (gather_level_taps, the lookup's own body) and runs the 1x1 convc1
+//      from there and the 7x7 convf1 from the flow (MotionStage1::tile, the
+//      serial kernel's own body, every operand in shared memory); the taps
+//      never reach device memory;
 //   2. the block-diagonal 3x3, 3. the fusion 3x3 ([cf fused | 2 flow]),
 //   4. the gru08 gates, 5. the update (h'), 6. head conv1, 7. head conv2:
-//      the serial stages of stages.cuh on the shared engine.
-// The motion features and the GRU intermediates go through device scratch
-// between the barriers (a few MB each at 96x312, mostly L2-resident on the
-// card's 50 MB); keeping them on chip is later work. Registers are capped
-// at 80 so that three blocks fit an SM, as for the serial engine launches:
-// a few bytes spill, and the engine stages, latency-bound, run faster than
-// at two blocks.
+//      the serial launches' stages (stages.cuh) on the Hopper engine
+//      (loop_conv_sm90.cuh), tiles dealt to blocks in the serial launch's
+//      order.
+// What bounds the design, and what it does about each cost of the WMMA
+// engine (conv3x3.cuh) that ran these stages before:
+//   1. wgmma m64nNk16 (N up to 128), the card's full tensor-core path, in
+//      place of mma.sync fragments with a __syncthreads every K step;
+//   2. each 64-channel input chunk of an 8 x 16 output patch is staged once,
+//      as a TMA halo patch of 10 x 18 pixels, and the 9 taps read it at
+//      shifted ldmatrix addresses, in place of 9 copies of the A tile;
+//   3. a block computes up to 128 output columns of a patch at once (the
+//      gates in three tiles: z, r and q), so a patch is staged once per 128
+//      columns, not per 64; larger pixel tiles (256 pixels, two m64 blocks a
+//      warpgroup) spilled at ptxas's 168 registers and ran slower;
+//   4. the accumulators stay in registers: shuffles within a quad hand each
+//      lane 8 consecutive columns, and the epilogue functors (stages.cuh,
+//      the one definition of every rounding point) load and store 16 bytes
+//      at a time (put8), with no fp32 staging through shared memory; the
+//      scattered 2-byte accesses of a value-by-value epilogue had cost more
+//      than the products;
+//   5. a producer warp (one thread issues every TMA load), a signal warp and
+//      two consumer warpgroups, one block an SM, 168 registers a thread and
+//      no spill, in place of three blocks capped at 80 registers that
+//      spilled;
+//   6. no grid barrier: the stages form a dataflow. A tile's producer waits
+//      until the three patch rows its halo reads count as done in the stage
+//      before (a counter a patch row, `bar`), then orders its TMA reads
+//      after them with a proxy fence; the signal warp counts each finished
+//      tile after the consumer warps' stores. A block goes on to the next
+//      stage's first rows while others finish this stage's last, so the
+//      stages' tails overlap. s1, s2, mot, z, rh, aqx (fp32) and f1 still go
+//      through device scratch (7.7-15 MB each at 96x312, in the 50 MB L2).
+#include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 #include "corr_taps.cuh"
@@ -46,24 +73,28 @@
 
 namespace rst {
 
-constexpr int kTapPixels = 32;  // pixels per gather tile of stage 1
+// The dataflow's counters: stage 1 and the five conv stages before the
+// last, one a patch row of each image.
+inline int resident_counters(int B, int H) { return 6 * B * ((H + loop::kTH - 1) / loop::kTH); }
 
 template <typename Q>
 struct ResidentParams {
+  CUtensorMap maps[loop::kLaunchMaps];  // the conv stages' inputs and weights
   Levels<bf16> lv;      // the pyramid's levels, or
   Levels<int8_t> lv8;   // its int8 levels with their scales
   int nlev, radius, npix;
   const float* coords;  // [P] x positions
   MotionStage1 stage1;
   bf16* s1;             // [P][n1 + nf]
-  ConvIn s2, fusion, gate, update, head1, head2;
+  unsigned* s1_done;    // stage 1's count a patch row (the dataflow, loop::LoopConv)
+  loop::LoopConv s2, fusion, gate, update, head1, head2;
+  int fusion_n, gate_n, update_n, head1_n;  // column tile widths, 64 or 128
   ReluBiasEpi s2_epi;
   FusionEpi fusion_epi;
   GateEpi<Q> gate_epi;
   UpdateEpi update_epi;
   ReluBiasEpi head1_epi;
   FirstChannelEpi head2_epi;
-  unsigned int* bar;
 };
 
 template <typename T, typename Q>
@@ -75,51 +106,66 @@ __device__ __forceinline__ const Levels<T>& levels_of(const ResidentParams<Q>& p
   }
 }
 
+// Stage 1 in tiles of up to 64 pixels of one image row, so each tile counts
+// toward one patch row of stage 2 (s1_done).
 template <typename T, typename Q>
 __device__ __forceinline__ void gather_stage1(const ResidentParams<Q>& p, unsigned char* smem) {
   const Levels<T>& lv = levels_of<T>(p);
-  bf16* taps = reinterpret_cast<bf16*>(smem);  // [kTapPixels][ccorr]
-  const int ccorr = p.stage1.ccorr;
+  const Stage1Smem s = p.stage1.smem(smem);
+  p.stage1.load_weights(s);
   const int k = 2 * p.radius + 1;
-  const int ns = p.stage1.n1 + p.stage1.nf;
-  const int ntiles = (p.npix + kTapPixels - 1) / kTapPixels;
+  const int H = p.stage1.H, W = p.stage1.W;
+  const int segs = (W + kS1Pixels - 1) / kS1Pixels;
+  const int ntiles = p.npix / W * segs;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int p0 = t * kTapPixels;
-    for (int i = threadIdx.x; i < kTapPixels * p.nlev; i += blockDim.x) {
+    const int row = t / segs;  // img * H + y
+    const int x0 = (t % segs) * kS1Pixels;
+    const int count = min(kS1Pixels, W - x0);
+    const int p0 = row * W + x0;
+    for (int i = threadIdx.x; i < kS1Pixels * p.nlev; i += blockDim.x) {
       const int px = i / p.nlev;
       const int l = i % p.nlev;
-      if (p0 + px < p.npix)
+      if (px < count)
         gather_level_taps(lv, l, p0 + px, p.coords[p0 + px], p.radius,
-                          taps + px * ccorr + l * k);
+                          s.taps + px * p.stage1.ccorr + l * k);
     }
+    p.stage1.tile(s, row, x0, count, p.s1);
+    // s1 is read by TMA in other blocks once the count says so (tile()
+    // ends in a block barrier; the fence is cumulative).
+    sm90::fence_proxy_async_global();
     __syncthreads();
-    for (int i = threadIdx.x; i < kTapPixels * ns; i += blockDim.x) {
-      const int px = i / ns;
-      const int n = i % ns;
-      if (p0 + px < p.npix)
-        p.s1[(size_t)(p0 + px) * ns + n] = p.stage1(taps + px * ccorr, p0 + px, n);
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(p.s1_done + (row / H) * p.s2.tiles_y + (row % H) / loop::kTH, 1u);
     }
-    __syncthreads();
   }
+  sm90::fence_proxy_async();  // TMA overwrites this shared memory next
+}
+
+template <class Epi>
+__device__ __forceinline__ void stage_n(int n, const loop::LoopConv& c, const CUtensorMap* maps,
+                                        const Epi& epi, const loop::LoopSmem& s, loop::Ring& r) {
+  if (n == 128)
+    loop::conv_stage<128>(c, maps, epi, s, r);
+  else
+    loop::conv_stage<64>(c, maps, epi, s, r);
 }
 
 template <typename T, typename Q>
-__global__ void __launch_bounds__(THREADS, 3) resident_kernel(ResidentParams<Q> p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  GridBarrier grid{p.bar};
-  gather_stage1<T>(p, smem);
-  grid.sync();
-  conv3x3_stage<64>(p.s2, p.s2_epi, smem, p.bar + 1);
-  grid.sync();
-  conv3x3_stage<64>(p.fusion, p.fusion_epi, smem, p.bar + 2);
-  grid.sync();
-  conv3x3_stage<64>(p.gate, p.gate_epi, smem, p.bar + 3);
-  grid.sync();
-  conv3x3_stage<64>(p.update, p.update_epi, smem, p.bar + 4);
-  grid.sync();
-  conv3x3_stage<64>(p.head1, p.head1_epi, smem, p.bar + 5);
-  grid.sync();
-  conv3x3_stage<16>(p.head2, p.head2_epi, smem, p.bar + 6);
+__global__ void __launch_bounds__(loop::kThreads, loop::kBlocksPerSM)
+    resident_kernel(const __grid_constant__ ResidentParams<Q> p) {
+  extern __shared__ unsigned char smem_raw[];
+  const loop::LoopSmem s = loop::loop_smem(smem_raw);
+  loop::loop_init(s);
+  gather_stage1<T>(p, s.a);
+  __syncthreads();  // the block's stage 1 is done with the rings' memory
+  loop::Ring r;
+  loop::conv_stage<64>(p.s2, p.maps, p.s2_epi, s, r);
+  stage_n(p.fusion_n, p.fusion, p.maps, p.fusion_epi, s, r);
+  stage_n(p.gate_n, p.gate, p.maps, p.gate_epi, s, r);
+  stage_n(p.update_n, p.update, p.maps, p.update_epi, s, r);
+  stage_n(p.head1_n, p.head1, p.maps, p.head1_epi, s, r);
+  loop::conv_stage<8>(p.head2, p.maps, p.head2_epi, s, r);
 }
 
 template <typename Q>
@@ -133,7 +179,7 @@ int launch_resident(const float* coords, const void* const* rows, const int* wid
                     const bf16* w2h, int nh, bf16* s1, bf16* s2, bf16* mot, bf16* z, bf16* rh,
                     float* aqx, bf16* f1, bf16* h_out, float* dx, unsigned int* bar,
                     cudaStream_t stream) {
-  const size_t smem = TileSmem<64>::BYTES;
+  static_assert(sizeof(ResidentParams<Q>) <= 4096, "kernel parameters over 4 KB");
   ResidentParams<Q> p{};
   for (int l = 0; l < nlev; ++l) {
     p.lv.row[l] = static_cast<const bf16*>(rows[l]);
@@ -151,30 +197,49 @@ int launch_resident(const float* coords, const void* const* rows, const int* wid
   p.stage1 = MotionStage1{flow, wc1, wf1, b1, ccorr, n1, nf, H, W};
   p.s1 = s1;
   const int ns = n1 + nf;
-  p.s2 = motion_s2_in(s1, B, H, W, n1, nf, w2);
-  p.s2_epi = ReluBiasEpi{b2, s2, ns};
-  p.fusion = motion_fusion_in(s2, B, H, W, ns, cf, wf);
-  p.fusion_epi = FusionEpi{bf, flow, mot, cf};
+  int nmaps = 0;
   const bf16* xs[3] = {mot, xa, xb};
   const int cxs[3] = {cf + 2, cxa, cxb};
-  p.gate = gru_gate_in(h, xs, cxs, 3, B, H, W, ch, w_gate);
+  int err = motion_s2_loop(p.s2, p.maps, &nmaps, s1, B, H, W, n1, nf, w2);
+  if (!err) err = motion_fusion_loop(p.fusion, p.maps, &nmaps, s2, B, H, W, ns, cf, wf,
+                                     &p.fusion_n);
+  if (!err) err = gate_loop(p.gate, p.maps, &nmaps, h, xs, cxs, 3, B, H, W, ch, w_gate, &p.gate_n);
+  if (!err) err = update_loop(p.update, p.maps, &nmaps, rh, B, H, W, ch, w_q, &p.update_n);
+  if (!err) err = head1_loop(p.head1, p.maps, &nmaps, h_out, B, H, W, ch, w1, nh, &p.head1_n);
+  if (!err) err = head2_loop(p.head2, p.maps, &nmaps, f1, B, H, W, nh, w2h);
+  if (err) return err;
+  p.s2_epi = ReluBiasEpi{b2, s2, ns};
+  p.fusion_epi = FusionEpi{bf, flow, mot, cf};
   p.gate_epi = GateEpi<Q>{static_cast<const Q*>(czrq), czrq_scale, H * W, h, z, rh, aqx, ch};
-  p.update = gru_update_in(rh, B, H, W, ch, w_q);
   p.update_epi = UpdateEpi{aqx, z, h, h_out, ch};
-  p.head1 = head1_in(h_out, B, H, W, ch, w1, nh);
   p.head1_epi = ReluBiasEpi{bh1, f1, nh};
-  p.head2 = head2_in(f1, B, H, W, nh, w2h);
   p.head2_epi = FirstChannelEpi{dx};
-  p.bar = bar;
-  int tiles = (p.npix + kTapPixels - 1) / kTapPixels;
-  const ConvIn* stages[5] = {&p.s2, &p.fusion, &p.gate, &p.update, &p.head1};
-  for (const ConvIn* a : stages) {
-    const int t = conv3x3_tiles(*a, 64);
-    if (t > tiles) tiles = t;
+  // The dataflow: stage k's tiles wait on stage k - 1's counts a patch row.
+  const int patch_rows = B * p.s2.tiles_y;
+  const int segs = (W + kS1Pixels - 1) / kS1Pixels;
+  p.s1_done = bar;
+  loop::LoopConv* chain[6] = {&p.s2, &p.fusion, &p.gate, &p.update, &p.head1, &p.head2};
+  for (int i = 0; i < 6; ++i) {
+    loop::LoopConv& c = *chain[i];
+    c.wait_on = bar + i * patch_rows;
+    if (i == 0) {
+      c.wait_full = loop::kTH * segs;
+      c.wait_last = (H - (c.tiles_y - 1) * loop::kTH) * segs;
+    } else {
+      c.wait_full = c.wait_last = chain[i - 1]->tiles_x * chain[i - 1]->ncol;
+    }
+    c.signal = i < 5 ? bar + (i + 1) * patch_rows : nullptr;
   }
-  if (int8_levels)
-    return launch_persistent(resident_kernel<int8_t, Q>, p, bar, tiles, smem, THREADS, stream);
-  return launch_persistent(resident_kernel<bf16, Q>, p, bar, tiles, smem, THREADS, stream);
+  int tiles = (p.npix + kS1Pixels - 1) / kS1Pixels;
+  for (const loop::LoopConv* c : {&p.s2, &p.fusion, &p.gate, &p.update, &p.head1, &p.head2})
+    tiles = std::max(tiles, loop::tiles_of(*c));
+  void (*kernel)(ResidentParams<Q>) =
+      int8_levels ? &resident_kernel<int8_t, Q> : &resident_kernel<bf16, Q>;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  loop::kSmemBytes);
+  if (err) return err;
+  return launch_persistent(kernel, p, bar, tiles, loop::kSmemBytes, loop::kThreads, stream,
+                           resident_counters(B, H));
 }
 
 }  // namespace rst
@@ -187,10 +252,15 @@ using rst::bf16;
 // bf16, or int8 with lane8 != 0 and czrq_scale: [B] fp32; xa/xb: gru08's x
 // parts after the motion features ([P][cxa], [P][cxb], 0 channels = absent).
 // Motion weights as rst_motion's (wc1: [ccorr][n1], wf1: [49][nf], b1, w2,
-// b2, wf, bf, cf); GRU weights as rst_conv_gru's over [h; motion; xa; xb];
-// head w1/bh1/w2h of width nh. s1, s2: [P][n1+nf], mot: [P][cf+2], z, rh:
-// [P][ch] bf16, aqx: [P][ch] fp32, f1: [P][nh]: scratch. Outputs h_out:
-// [P][ch], dx: [P] fp32. bar: rst::kCounters counters. Returns the first
+// b2, wf, bf, cf); GRU and head weights as rst_conv_gru's with the head,
+// over [h; motion; xa; xb], the head of width nh; every 3x3 matrix K-major (output channel,
+// then input channel): w2: [9][ns][ns] block-diagonal, wf: [9][cf][ns],
+// w_gate: [9][3ch][ch + cf + 2 + cxa + cxb], w_q: [9][ch][ch], w1:
+// [9][nh][ch], w2h: [9][1][nh] (conv2's x output). s1, s2: [P][n1+nf],
+// mot: [P][cf+2], z, rh: [P][ch] bf16, aqx: [P][ch] fp32, f1: [P][nh]:
+// scratch. Outputs h_out:
+// [P][ch], dx: [P] fp32. bar: rst_resident_counters(B, H) counters, zeroed
+// here (the dataflow between the stages). Returns the first
 // non-zero cudaError_t.
 extern "C" int rst_resident(const float* coords, const void* const* rows, const int* widths,
                             int nlev, int radius, int int8_levels, const float* scales,
@@ -205,7 +275,7 @@ extern "C" int rst_resident(const float* coords, const void* const* rows, const 
                             float* dx, unsigned int* bar, cudaStream_t stream) {
   if (nlev < 1 || nlev > rst::kMaxLevels) return (int)cudaErrorInvalidValue;
   const int ccorr = nlev * (2 * radius + 1);
-  if ((size_t)rst::kTapPixels * ccorr * sizeof(bf16) > rst::TileSmem<64>::BYTES)
+  if (rst::stage1_smem_bytes(ccorr, n1, nf) > rst::loop::kBarOffset)
     return (int)cudaErrorInvalidValue;
   if (int8_levels && scales == nullptr) return (int)cudaErrorInvalidValue;
   if (lane8 && czrq_scale == nullptr) return (int)cudaErrorInvalidValue;
@@ -218,4 +288,20 @@ extern "C" int rst_resident(const float* coords, const void* const* rows, const 
       coords, rows, widths, nlev, radius, int8_levels, scales, flow, h, czrq, nullptr, xa, cxa,
       xb, cxb, B, H, W, ch, wc1, wf1, b1, n1, nf, w2, b2, wf, bf, cf, w_gate, w_q, w1, bh1, w2h,
       nh, s1, s2, mot, z, rh, aqx, f1, h_out, dx, bar, stream);
+}
+
+// The counters rst_resident needs at bar for B images of H rows.
+extern "C" int rst_resident_counters(int B, int H) { return rst::resident_counters(B, H); }
+
+// The loop engine's block on this card: plan[0] its dynamic shared memory in
+// bytes, plan[1] its threads, plan[2] the resident kernel's blocks an SM.
+// Returns 0 or a cudaError_t.
+extern "C" int rst_resident_plan(int* plan) {
+  void (*kernel)(rst::ResidentParams<bf16>) = &rst::resident_kernel<bf16, bf16>;
+  plan[0] = rst::loop::kSmemBytes;
+  plan[1] = rst::loop::kThreads;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, rst::loop::kSmemBytes);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan[2], kernel, plan[1], plan[0]);
 }

@@ -49,7 +49,7 @@ _SIGNATURES = {
                  [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _I, _F,
                   _I, _P, _P]),
     "conv_gru": ("rst_conv_gru",
-                 [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                 [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
     "motion": ("rst_motion",
                [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
@@ -60,6 +60,10 @@ _SIGNATURES = {
                  [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _P, _P, _P, _P,
                   _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                   _P, _I, _P, _P, _P, _P, _P, _I] + [_P] * 11),
+    # More symbols of csrc/resident.cu: the size of its counter buffer, and
+    # the loop engine's block.
+    "resident_counters": ("rst_resident_counters", [_I, _I], "resident"),
+    "resident_plan": ("rst_resident_plan", [ctypes.POINTER(_I)], "resident"),
     "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
     "enc_pass": ("rst_enc_pass",
                  [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I] + [_P] * 7),

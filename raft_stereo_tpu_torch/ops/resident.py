@@ -25,6 +25,7 @@ variant ``fused_iter:pack8``, ``fused_iter:lane8`` or
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -33,10 +34,20 @@ from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import lane_pack8_on
 from raft_stereo_tpu_torch.corr.reg_cuda import CorrOperands, Lane8, kernel_levels, lookup_plain
 from raft_stereo_tpu_torch.ops.stream import (
-    _COUNTERS, _HEAD2_COLS, Czrq, GruWeights, HeadWeights, MotionWeights, _check_nhwc,
-    _czrq_args, _pad64, conv_gru_plain, motion_plain)
+    Czrq, GruWeights, HeadWeights, MotionWeights, _check_nhwc, _czrq_args,
+    conv_gru_plain, motion_plain)
 
-_MAX_X2 = 2  # gru08 x parts after the motion features (csrc/conv3x3.cuh kMaxParts - 2)
+_MAX_X2 = 2  # gru08 x parts after the motion features (csrc/loop_conv_sm90.cuh kParts - 2)
+
+
+def loop_plan() -> dict:
+    """The loop engine's block on this card (``csrc/loop_conv_sm90.cuh``, the
+    resident kernel and the serial motion and gru08 + head launches): its
+    dynamic shared memory, its threads and the resident kernel's blocks an
+    SM. Builds the kernel if needed; needs the card."""
+    plan = (ctypes.c_int * 3)()
+    kernels.check("resident_plan", kernels.entry("resident_plan")(plan))
+    return {"dynamic_smem_bytes": plan[0], "threads": plan[1], "blocks_per_sm": plan[2]}
 
 
 def fused_iter_plain(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
@@ -102,14 +113,14 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
     for name, t, shape, tdt in (
             ("h", h, (b, hh, ww, ch), dt), ("flow", flow, (b, hh, ww, 2), dt),
             ("wc1", m.wc1, (ccorr, m.n1), dt), ("wf1", m.wf1, (49, m.nf), dt),
-            ("b1", m.b1, (ns,), torch.float32), ("w2", m.w2, (9, ns, _pad64(ns)), dt),
-            ("b2", m.b2, (ns,), torch.float32), ("wf", m.wf, (9, ns, _pad64(cm)), dt),
+            ("b1", m.b1, (ns,), torch.float32), ("w2_k", m.w2_k, (9, ns, ns), dt),
+            ("b2", m.b2, (ns,), torch.float32), ("wf_k", m.wf_k, (9, m.cf, ns), dt),
             ("bf", m.bf, (m.cf,), torch.float32),
-            ("w_gate", gru_w.w_gate, (9, ch + cm + sum(cxs), _pad64(3 * ch)), dt),
-            ("w_q", gru_w.w_q, (9, ch, _pad64(ch)), dt),
-            ("head.w1", head_w.w1, (9, ch, _pad64(head_w.nh)), dt),
+            ("w_gate_k", gru_w.w_gate_k, (9, 3 * ch, ch + cm + sum(cxs)), dt),
+            ("w_q_k", gru_w.w_q_k, (9, ch, ch), dt),
+            ("head.w1_k", head_w.w1_k, (9, head_w.nh, ch), dt),
             ("head.b1", head_w.b1, (head_w.nh,), torch.float32),
-            ("head.w2", head_w.w2, (9, head_w.nh, _HEAD2_COLS), dt)):
+            ("head.w2_k", head_w.w2_k, (9, 1, head_w.nh), dt)):
         _check_nhwc(name, t, shape, tdt, dev)
     for i, (x, c) in enumerate(zip(x2, cxs)):
         _check_nhwc(f"x2[{i}]", x, (b, hh, ww, c), dt, dev)
@@ -121,7 +132,7 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
     aqx = torch.empty(h.shape, dtype=torch.float32, device=dev)
     f1 = torch.empty((b, hh, ww, head_w.nh), dtype=dt, device=dev)
     dx = torch.empty((b, hh, ww, 1), dtype=torch.float32, device=dev)
-    bar = torch.empty(_COUNTERS, dtype=torch.int32, device=dev)
+    bar = torch.empty(kernels.entry("resident_counters")(b, hh), dtype=torch.int32, device=dev)
     fn = kernels.entry("resident")
     kernels.check("resident", fn(
         coords.data_ptr(), rows, widths, nlev, corr_ops.radius, int(mode == 2), scales,
@@ -129,9 +140,9 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         h.data_ptr(), czrq_ptr, lane8, scale_ptr, parts[0][0], parts[0][1], parts[1][0],
         parts[1][1],
         b, hh, ww, ch, m.wc1.data_ptr(), m.wf1.data_ptr(), m.b1.data_ptr(), m.n1, m.nf,
-        m.w2.data_ptr(), m.b2.data_ptr(), m.wf.data_ptr(), m.bf.data_ptr(), m.cf,
-        gru_w.w_gate.data_ptr(), gru_w.w_q.data_ptr(), head_w.w1.data_ptr(),
-        head_w.b1.data_ptr(), head_w.w2.data_ptr(), head_w.nh, s1.data_ptr(),
+        m.w2_k.data_ptr(), m.b2.data_ptr(), m.wf_k.data_ptr(), m.bf.data_ptr(), m.cf,
+        gru_w.w_gate_k.data_ptr(), gru_w.w_q_k.data_ptr(), head_w.w1_k.data_ptr(),
+        head_w.b1.data_ptr(), head_w.w2_k.data_ptr(), head_w.nh, s1.data_ptr(),
         s2.data_ptr(), mot.data_ptr(), z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
         f1.data_ptr(), h_out.data_ptr(), dx.data_ptr(), bar.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))

@@ -19,10 +19,14 @@ torch modules of ``models/update.py`` round:
 - Motion: ``c1``, ``f1``, ``[c2|f2]`` and the fused output round to bf16
   after their relus; convf1's flow-y weights are dropped (flow y is 0).
 
-Weights are converted once per frame into the kernels' layout: tap-major
-``(9, Cin, Cout)`` matrices in the compute dtype, output columns zero-padded
-to a multiple of 64 (:func:`gru_weights`, :func:`head_weights`,
-:func:`motion_weights`).
+Weights are converted once per frame into the kernels' layouts, in the
+compute dtype (:func:`gru_weights`, :func:`head_weights`,
+:func:`motion_weights`): tap-major ``(9, Cin, Cout)`` matrices with the
+output columns zero-padded to a multiple of 64 for the WMMA engine
+(``csrc/conv3x3.cuh``: the head-less GRU steps, gru16+32) and the plain
+versions, and K-major ``(9, Cout, Cin)`` matrices (the ``*_k`` fields) for
+the Hopper engine (``csrc/loop_conv_sm90.cuh``: the motion encoder, gru08
+with the FlowHead, the resident iteration).
 
 Under ``RAFT_LANE_PACK8`` the czrq context is an int8 lane container
 (:func:`prepare_gru_context_any`, ``corr/reg_cuda.py:Lane8``): the GRU
@@ -61,6 +65,12 @@ def _taps(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(9, cin, cout)
 
 
+def _kmajor(w: torch.Tensor) -> torch.Tensor:
+    """OIHW 3x3 weight -> (9, Cout, Cin): the Hopper engine's K-major layout."""
+    cout, cin = w.shape[:2]
+    return w.permute(2, 3, 0, 1).reshape(9, cout, cin)
+
+
 def _pad_cols(w: torch.Tensor, cols: int) -> torch.Tensor:
     return F.pad(w, (0, cols - w.shape[-1])).contiguous()
 
@@ -77,6 +87,8 @@ def _conv9(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
 class GruWeights(NamedTuple):
     w_gate: torch.Tensor  # (9, ch + cx, pad64(3ch)): [wz | wr | wq] over [h; x]
     w_q: torch.Tensor     # (9, ch, pad64(ch)): wq over h (applied to r*h)
+    w_gate_k: torch.Tensor  # (9, 3ch, ch + cx): w_gate K-major, unpadded
+    w_q_k: torch.Tensor     # (9, ch, ch): w_q K-major
     ch: int
     level: str            # the GRU's name, keys its launch count
 
@@ -85,6 +97,8 @@ class HeadWeights(NamedTuple):
     w1: torch.Tensor  # (9, ch, pad64(nh))
     b1: torch.Tensor  # (nh,) fp32
     w2: torch.Tensor  # (9, nh, 16): conv2's x output in column 0
+    w1_k: torch.Tensor  # (9, nh, ch): w1 K-major
+    w2_k: torch.Tensor  # (9, 1, nh): conv2's x output, K-major
     nh: int
 
 
@@ -96,6 +110,8 @@ class MotionWeights(NamedTuple):
     b2: torch.Tensor   # (ns,) fp32
     wf: torch.Tensor   # (9, ns, pad64(cf + 2)): the fusion conv
     bf: torch.Tensor   # (cf,) fp32
+    w2_k: torch.Tensor  # (9, ns, ns): w2 K-major, unpadded
+    wf_k: torch.Tensor  # (9, cf, ns): wf K-major
     n1: int
     nf: int
     cf: int
@@ -108,8 +124,11 @@ def gru_weights(gru, dtype: torch.dtype, level: str = "gru") -> GruWeights:
     ch = gru.convz.weight.shape[0]
     wz, wr, wq = (_taps(c.weight) for c in (gru.convz, gru.convr, gru.convq))
     w_gate = torch.cat([wz, wr, wq], dim=-1).to(dtype)
+    w_gate_k = torch.cat([_kmajor(c.weight) for c in (gru.convz, gru.convr, gru.convq)],
+                         dim=1).to(dtype).contiguous()
     return GruWeights(_pad_cols(w_gate, _pad64(3 * ch)),
-                      _pad_cols(wq[:, :ch].to(dtype), _pad64(ch)), ch, level)
+                      _pad_cols(wq[:, :ch].to(dtype), _pad64(ch)), w_gate_k,
+                      w_gate_k[:, 2 * ch:, :ch].contiguous(), ch, level)
 
 
 def head_weights(head, dtype: torch.dtype) -> HeadWeights:
@@ -117,7 +136,9 @@ def head_weights(head, dtype: torch.dtype) -> HeadWeights:
     nh = head.conv1.weight.shape[0]
     w1 = _pad_cols(_taps(head.conv1.weight).to(dtype), _pad64(nh))
     w2 = _pad_cols(_taps(head.conv2.weight)[..., :1].to(dtype), _HEAD2_COLS)
-    return HeadWeights(w1, head.conv1.bias.float().contiguous(), w2, nh)
+    return HeadWeights(w1, head.conv1.bias.float().contiguous(), w2,
+                       _kmajor(head.conv1.weight).to(dtype).contiguous(),
+                       _kmajor(head.conv2.weight[:1]).to(dtype).contiguous(), nh)
 
 
 def motion_weights(enc, dtype: torch.dtype) -> MotionWeights:
@@ -134,8 +155,11 @@ def motion_weights(enc, dtype: torch.dtype) -> MotionWeights:
     w2[:, n1:, n1:ns] = _taps(enc.convf2.weight).to(dtype)
     b2 = torch.cat([enc.convc2.bias, enc.convf2.bias]).float()
     wf = _pad_cols(_taps(enc.conv.weight).to(dtype), _pad64(cf + 2))
+    w2_k = torch.zeros(9, ns, ns, dtype=dtype, device=wc1.device)
+    w2_k[:, :n1, :n1] = _kmajor(enc.convc2.weight).to(dtype)
+    w2_k[:, n1:, n1:] = _kmajor(enc.convf2.weight).to(dtype)
     return MotionWeights(wc1, wf1, b1, w2, b2, wf, enc.conv.bias.float().contiguous(),
-                         n1, nf, cf)
+                         w2_k, _kmajor(enc.conv.weight).to(dtype).contiguous(), n1, nf, cf)
 
 
 def prepare_gru_context(gru, context: Sequence[torch.Tensor],
@@ -243,23 +267,26 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: Czrq,
     aqx = torch.empty(h.shape, dtype=torch.float32, device=dev)
     h_out = torch.empty_like(h)
     parts = [(x.data_ptr(), c) for x, c in zip(x_list, cxs)] + [(None, 0)] * (3 - len(cxs))
-    w1 = b1 = w2 = f1 = dx = None
+    w1 = b1 = w2 = f1 = dx = wgk = wqk = None
     nh = 0
     if head is not None:
         nh = head.nh
         if nh % 32:
             raise ValueError(f"FlowHead hidden width must be a multiple of 32, got {nh}")
-        _check_nhwc("head.w1", head.w1, (9, ch, _pad64(nh)), dt, dev)
+        _check_nhwc("w_gate_k", w.w_gate_k, (9, 3 * ch, ch + sum(cxs)), dt, dev)
+        _check_nhwc("w_q_k", w.w_q_k, (9, ch, ch), dt, dev)
+        _check_nhwc("head.w1_k", head.w1_k, (9, nh, ch), dt, dev)
         _check_nhwc("head.b1", head.b1, (nh,), torch.float32, dev)
-        _check_nhwc("head.w2", head.w2, (9, nh, _HEAD2_COLS), dt, dev)
+        _check_nhwc("head.w2_k", head.w2_k, (9, 1, nh), dt, dev)
         f1 = torch.empty((b, hh, ww, nh), dtype=dt, device=dev)
         dx = torch.empty((b, hh, ww, 1), dtype=torch.float32, device=dev)
-        w1, b1, w2 = head.w1.data_ptr(), head.b1.data_ptr(), head.w2.data_ptr()
+        w1, b1, w2 = head.w1_k.data_ptr(), head.b1.data_ptr(), head.w2_k.data_ptr()
+        wgk, wqk = w.w_gate_k.data_ptr(), w.w_q_k.data_ptr()
     fn = kernels.entry("conv_gru")
     kernels.check("conv_gru", fn(
         h.data_ptr(), czrq_ptr, lane8, scale_ptr, parts[0][0], parts[0][1], parts[1][0],
         parts[1][1], parts[2][0], parts[2][1], b, hh, ww, ch, w.w_gate.data_ptr(),
-        w.w_q.data_ptr(), z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
+        w.w_q.data_ptr(), wgk, wqk, z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
         h_out.data_ptr(), w1, b1, w2, nh, None if f1 is None else f1.data_ptr(),
         None if dx is None else dx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
@@ -302,9 +329,9 @@ def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> to
     _check_nhwc("wc1", w.wc1, (ccorr, w.n1), dt, dev)
     _check_nhwc("wf1", w.wf1, (49, w.nf), dt, dev)
     _check_nhwc("b1", w.b1, (ns,), torch.float32, dev)
-    _check_nhwc("w2", w.w2, (9, ns, _pad64(ns)), dt, dev)
+    _check_nhwc("w2_k", w.w2_k, (9, ns, ns), dt, dev)
     _check_nhwc("b2", w.b2, (ns,), torch.float32, dev)
-    _check_nhwc("wf", w.wf, (9, ns, _pad64(w.cf + 2)), dt, dev)
+    _check_nhwc("wf_k", w.wf_k, (9, w.cf, ns), dt, dev)
     _check_nhwc("bf", w.bf, (w.cf,), torch.float32, dev)
     s1 = torch.empty((b, hh, ww, ns), dtype=dt, device=dev)
     s2 = torch.empty_like(s1)
@@ -312,8 +339,8 @@ def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> to
     fn = kernels.entry("motion")
     kernels.check("motion", fn(
         corr.data_ptr(), ccorr, flow.data_ptr(), b, hh, ww, w.wc1.data_ptr(),
-        w.wf1.data_ptr(), w.b1.data_ptr(), w.n1, w.nf, w.w2.data_ptr(),
-        w.b2.data_ptr(), w.wf.data_ptr(), w.bf.data_ptr(), w.cf, s1.data_ptr(),
+        w.wf1.data_ptr(), w.b1.data_ptr(), w.n1, w.nf, w.w2_k.data_ptr(),
+        w.b2.data_ptr(), w.wf_k.data_ptr(), w.bf.data_ptr(), w.cf, s1.data_ptr(),
         s2.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     kernels.launches["motion"] += 1
     return out

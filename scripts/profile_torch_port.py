@@ -51,7 +51,9 @@ def _group(name: str) -> str:
     if "corr_alt_kernel" in n:
         return "port:corr_alt"
     if "conv3x3_kernel" in n:
-        return "port:conv3x3 engine (GRU, motion stages 2-3)"
+        return "port:conv3x3 WMMA engine (gru16, gru32 steps)"
+    if "loop_conv_kernel" in n:
+        return "port:loop_conv_sm90 engine (motion stages 2-3, gru08 + head)"
     if "motion_stage1" in n:
         return "port:motion stage 1"
     if "gru1632_kernel" in n:

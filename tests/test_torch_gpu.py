@@ -16,7 +16,11 @@ exact.
 
 The gru16+32 and resident kernels must besides equal, bit for bit, the
 serial CUDA chain they replace (the same stage code); at the main path's
-shapes a block of their persistent grid runs several tiles a stage.
+shapes a block of their persistent grid runs several tiles a stage. The
+loop engine's edge cases (maps under one 8 x 16 output patch and off its
+multiples, B = 2, no, one and two x2 parts with a 32-channel one) run all
+four resident modes against their serial chains, and the motion and gru08
++ head launches against their plain versions.
 With integer inputs they must also equal their plain versions wherever no
 sigmoid or tanh sits between (those are the card's and the library's own
 functions, which may round their last fp32 bit apart).
@@ -731,6 +735,124 @@ def test_gpu_resident_lane8_matches_serial_bitwise(cuda, monkeypatch, b, h, w, c
     monkeypatch.setenv("RAFT_LANE_PACK8", "0")
     with pytest.raises(RuntimeError, match="RAFT_LANE_PACK8"):
         resident.fused_iter(*args)
+
+
+# -- the loop engine's patch tiling (csrc/loop_conv_sm90.cuh) ----------------------
+
+# Maps under one 8 x 16 output patch and off its multiples, and B = 2.
+TILING = [(1, 1, 1), (1, 2, 130), (1, 70, 3), (2, 9, 17)]
+# gru08's hidden width and x2 parts after the motion features: none, one, and
+# two with a 32-channel part (a chunk half filled, in the middle of the concat).
+X2_PARTS = [(32, ()), (64, (64,)), (32, (32, 64))]
+
+
+def _resident_parts_case(device, b, h, w, ch, x2, seed):
+    """A resident case of any width: as many pyramid levels as the width
+    holds (each level halves it; a level must keep a column), at most 4."""
+    levels = min(4, w.bit_length())
+    gru, head, _ = _modules_on(device, ch, 128 + sum(x2), seed)
+    enc = BasicMotionEncoder(levels * 9)
+    init_weights(enc, torch.Generator().manual_seed(seed + 2))
+    enc = enc.to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(bf)
+
+    with torch.no_grad():
+        f1, f2 = rnd((b, h, w, 16)), rnd((b, h, w, 16))
+        ops = reg_cuda.build_corr_operands(f1, f2, num_levels=levels, radius=4)
+        coords = torch.rand((b, h, w), generator=g, device=device) * (w + 20) - 10
+        flow = torch.cat([rnd((b, h, w, 1), 3.0), torch.zeros((b, h, w, 1), device=device,
+                                                              dtype=bf)], -1)
+        wts = (stream.motion_weights(enc, bf), stream.gru_weights(gru, bf, "gru08"),
+               stream.head_weights(head, bf))
+        czrq = stream.prepare_gru_context(gru, [rnd((b, h, w, ch), 0.3) for _ in range(3)], bf)
+    return (*wts, ops, rnd((b, h, w, ch), 0.5), czrq, coords, flow,
+            *(rnd((b, h, w, c)) for c in x2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack8,lane8", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+@pytest.mark.parametrize("ch,x2", X2_PARTS)
+@pytest.mark.parametrize("b,h,w", TILING)
+def test_gpu_resident_patch_tiling_matches_serial_bitwise(cuda, monkeypatch, b, h, w, ch, x2,
+                                                          pack8, lane8):
+    """All four resident instantiations on the loop engine's edge cases: bit
+    for bit the serial chain (lookup, motion, gru08 + head, the same tile
+    code in separate launches) and within the tolerance of the plain
+    version; one launch, counted under its variant."""
+    from raft_stereo_tpu_torch import kernels
+    monkeypatch.setenv("RAFT_CORR_PACK8", "1" if pack8 else "0")
+    monkeypatch.setenv("RAFT_LANE_PACK8", "1" if lane8 else "0")
+    args = list(_resident_parts_case(cuda, b, h, w, ch, x2, 120 + b * h * w))
+    assert args[3].pack8 == pack8
+    if lane8:
+        args[5] = quantize_feature8(args[5])
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = resident.fused_iter(*args)
+        counts = dict(kernels.launches)
+        serial = _resident_serial(*args)
+        plain = resident.fused_iter_plain(*args)
+    torch.cuda.synchronize()
+    assert counts == {"fused_iter": 1}
+    for g_, s_ in zip(got, serial):
+        assert torch.equal(g_, s_)
+    assert float((got[0].float() - plain[0].float()).abs().max()) <= 2.0 ** -5
+    assert float((got[1] - plain[1]).abs().max()) <= 2.0 ** -5 * float(
+        plain[1].square().mean().sqrt())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", TILING)
+def test_gpu_motion_patch_tiling_integer_exact(cuda, b, h, w):
+    """The motion kernel's two 3x3 stages on the loop engine's edge cases,
+    integer weights and inputs: every sum exact, so equal to the plain
+    version bit for bit."""
+    _, _, enc = _modules_on(cuda, 32, 32, 130)
+    g = torch.Generator(device=cuda).manual_seed(131)
+
+    def ints(shape, lo=-1, hi=2):
+        return torch.randint(lo, hi, shape, generator=g, device=cuda).float()
+
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.copy_(ints(p.shape))
+        wts = stream.motion_weights(enc, torch.bfloat16)
+        corr = ints((b, h, w, 36), -3, 4).to(torch.bfloat16)
+        flow = torch.cat([ints((b, h, w, 1), -3, 4), torch.zeros((b, h, w, 1), device=cuda)],
+                         -1).to(torch.bfloat16)
+        got = stream.fused_motion(wts, flow, corr)
+        ref = stream.motion_plain(wts, flow, corr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch,x2", X2_PARTS)
+@pytest.mark.parametrize("b,h,w", TILING)
+def test_gpu_conv_gru_head_patch_tiling_matches_plain(cuda, b, h, w, ch, x2):
+    """gru08 + head on the loop engine's edge cases, x parts [motion, x2...]
+    as in the loop: within the tolerance of the plain version."""
+    gru, head, _ = _modules_on(cuda, ch, 128 + sum(x2), 140)
+    g = torch.Generator(device=cuda).manual_seed(141)
+    bf = torch.bfloat16
+    hst = (torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.5).to(bf)
+    xs = [torch.randn((b, h, w, c), generator=g, device=cuda).to(bf) for c in (128, *x2)]
+    ctx = [(torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.3).to(bf)
+           for _ in range(3)]
+    with torch.no_grad():
+        wts, hw = stream.gru_weights(gru, bf), stream.head_weights(head, bf)
+        czrq = stream.prepare_gru_context(gru, ctx, bf)
+        got_h, got_dx = stream.fused_conv_gru(wts, hst, czrq, *xs, head=hw)
+        ref_h, ref_dx = stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
+    torch.cuda.synchronize()
+    assert float((got_h.float() - ref_h.float()).abs().max()) <= 2.0 ** -5
+    assert float((got_dx - ref_dx).abs().max()) <= 2.0 ** -5 * float(
+        ref_dx.square().mean().sqrt())
 
 
 def _q8_close(lane: Lane8, ref: Lane8) -> bool:

@@ -182,3 +182,60 @@ def test_update_modules_match_jax(rng, kind):
     for got, ref in pairs:
         assert got.dtype == TDT[kind]
         assert float(np.abs(_np(got) - _np(ref)).max()) <= _tol(kind, ref)
+
+
+def _conv9_k(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """fp32 3x3 conv of NHWC ``x`` with a K-major (9, Cout, Cin) matrix, the
+    Hopper engine's layout (``csrc/loop_conv_sm90.cuh``), zero padding 1."""
+    cout, cin = wk.shape[1:]
+    w = wk.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
+    return torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), w, None, 1, 1
+                                      ).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("ch,parts", [(32, (128, 32)), (64, (128, 64, 32))])
+def test_kmajor_weights_reproduce_the_plain_versions(rng, ch, parts):
+    """The K-major weights that the loop engine reads (the ``*_k`` fields of
+    gru_weights, head_weights, motion_weights), fed to a plain torch conv
+    with the kernels' rounding points, give conv_gru_plain's and
+    motion_plain's results bit for bit: they hold the same matrices, the q
+    gate's over h (w_q_k) and the block-diagonal motion stage included."""
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    bf = torch.bfloat16
+    gru, head, enc = ConvGRU(ch, sum(parts)), FlowHead(ch, 256, 2), BasicMotionEncoder(36)
+    for i, m in enumerate((gru, head, enc)):
+        init_weights(m, torch.Generator().manual_seed(40 + i))
+    b, h, w = 2, 5, 11
+    t = lambda a, s=1.0: torch.from_numpy((a * s).astype(np.float32)).to(bf)  # noqa: E731
+    hst = t(rng.standard_normal((b, h, w, ch)), 0.5)
+    xs = [t(rng.standard_normal((b, h, w, c))) for c in parts]
+    ctx = [t(rng.standard_normal((b, h, w, ch)), 0.3) for _ in range(3)]
+    with torch.no_grad():
+        wts, hw = stream.gru_weights(gru, bf), stream.head_weights(head, bf)
+        czrq = stream.prepare_gru_context(gru, ctx, bf)
+        ref_h, ref_dx = stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
+        x, c = torch.cat(xs, -1), czrq.float()
+        zr = _conv9_k(torch.cat([hst, x], -1), wts.w_gate_k[:, :2 * ch]) + c[..., :2 * ch]
+        z, r = torch.sigmoid(zr[..., :ch]).to(bf), torch.sigmoid(zr[..., ch:]).to(bf)
+        aqx = _conv9_k(x, wts.w_gate_k[:, 2 * ch:, ch:]) + c[..., 2 * ch:]
+        q = torch.tanh(_conv9_k(r * hst, wts.w_q_k) + aqx).to(bf)
+        h_new = (1 - z) * hst + z * q
+        f1 = torch.relu(_conv9_k(h_new, hw.w1_k) + hw.b1).to(bf)
+        assert torch.equal(h_new, ref_h)
+        assert torch.equal(_conv9_k(f1, hw.w2_k), ref_dx)
+
+        mw = stream.motion_weights(enc, bf)
+        corr = t(rng.standard_normal((b, h, w, 36)))
+        flow = torch.cat([t(rng.standard_normal((b, h, w, 1)), 3.0),
+                          torch.zeros((b, h, w, 1), dtype=bf)], -1)
+        ref = stream.motion_plain(mw, flow, corr)
+        n1 = mw.n1
+        assert not mw.w2_k[:, :n1, n1:].any() and not mw.w2_k[:, n1:, :n1].any()
+        c1 = torch.relu(corr.float() @ mw.wc1.float() + mw.b1[:n1])
+        f1m = torch.nn.functional.conv2d(flow[..., :1].float().permute(0, 3, 1, 2),
+                                         mw.wf1.float().t().reshape(mw.nf, 1, 7, 7), None, 1, 3)
+        f1m = torch.relu(f1m.permute(0, 2, 3, 1) + mw.b1[n1:])
+        s1 = torch.cat([c1.to(bf), f1m.to(bf)], -1)
+        s2 = torch.relu(_conv9_k(s1, mw.w2_k) + mw.b2).to(bf)
+        out = torch.relu(_conv9_k(s2, mw.wf_k) + mw.bf).to(bf)
+        assert torch.equal(torch.cat([out, flow], -1), ref)

@@ -6,12 +6,13 @@
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from raft_stereo_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc per source, all at once, and print the loop kernels'
-   (the resident kernel, gru16+32, the serial GRU and motion launches), the
-   pass engine's and the q8 exits' registers and spills (ptxas -v), the
-   pass engine's dynamic shared memory at each output width and the loop
-   engine's block (loop_conv_sm90.cuh: shared memory, threads, blocks an
-   SM);
+   (sm_90a), one nvcc per source, all at once (the wall seconds, and each
+   source's), and print the loop kernels' (the resident kernel, gru16+32,
+   the serial GRU and motion launches), the pass engine's and the q8 exits'
+   registers and spills (ptxas -v), the pass engine's dynamic shared memory
+   at each output width and the loop engine's block (loop_conv_sm90.cuh:
+   shared memory, threads, blocks an SM) in the resident kernel and in both
+   gru16+32 instantiations;
 3. each kernel against its plain torch version on the card, at the shapes
    the main path gives it (KITTI 375x1242 padded to 384x1248: features at
    96x312, B=1, bf16): max |error| against a stated tolerance; device ms per
@@ -20,7 +21,9 @@ Phases, each fatal on failure:
    around them (CUDA events, ``wrapper_ms`` and ``plain_wall_ms``); and the
    analytic bound. The gru16+32 and resident kernels must also equal, bit
    for bit, the serial CUDA chain they replace (``serial_ms``: its device
-   ms; ``kernel_ms``: the hand-written kernels' own share of ``ms``). The
+   ms; ``kernel_ms``: the hand-written kernels' own share of ``ms``);
+   gru16+32 and its chain also at the Middlebury-F shapes (252x372 and
+   126x186, 5 calls after 1), in bf16 and on int8 czrq. The
    encoder kernels (stem, 3x3 pass, point3, point2) are held in
    bf16 ulps of the plain version, their statistics against its fp64 sums,
    and run twice for equal bits, in both norm variants at the shapes of
@@ -268,9 +271,10 @@ def _ptxas_usage(log: str) -> list:
 
 def phase_build() -> float:
     from raft_stereo_tpu_torch import kernels
-    seconds = kernels.build()
+    by_source = kernels.build()
+    seconds = max(by_source.values(), default=0.0)
     print(json.dumps({"phase": "build", "seconds": seconds,
-                      "sources": list(kernels.SOURCES)}))
+                      "sources": list(kernels.SOURCES), "seconds_by_source": by_source}))
     # The loop kernels' and the q8 exits' instantiations (resident_kernel<T,
     # Q>: T the level type, Q czrq's; "a" is int8, "13__nv_bfloat16" bf16).
     for name in ("resident", "gru1632", "conv_gru", "motion", "enc_pass", "enc_point"):
@@ -290,6 +294,13 @@ def phase_build() -> float:
     # serial motion and gru08 + head launches) block.
     from raft_stereo_tpu_torch.ops.resident import loop_plan
     print(json.dumps({"phase": "smem", "source": "resident", **loop_plan()}))
+    import ctypes
+    for lane8 in (0, 1):  # gru1632_kernel<bf16>, <int8_t>
+        plan = (ctypes.c_int * 3)()
+        kernels.check("gru1632_plan", kernels.entry("gru1632_plan")(lane8, plan))
+        print(json.dumps({"phase": "smem", "source": "gru1632", "lane8": bool(lane8),
+                          "dynamic_smem_bytes": plan[0], "threads": plan[1],
+                          "blocks_per_sm": plan[2]}))
     return seconds
 
 
@@ -399,11 +410,12 @@ def _lane8(t):
     return quantize_feature8(t)
 
 
-def _lane8_row(out: dict, variant: str, on_path: str, replaces: str, bf16_kernel) -> dict:
+def _lane8_row(out: dict, variant: str, on_path: str, replaces: str, bf16_kernel,
+              reps: int = 20, warmup: int = 3) -> dict:
     """A lane8 mode's row: its variant, the path that runs it, the TPU
     kernel it replaces and the bf16 mode's device ms in this call."""
     out.update(name=f"{out['name']}:lane8", variant=variant, on_path=on_path,
-               replaces=replaces, bf16_ms=_device_ms(bf16_kernel))
+               replaces=replaces, bf16_ms=_device_ms(bf16_kernel, reps, warmup))
     return out
 
 
@@ -530,18 +542,21 @@ def _gru_macs(ch: int, cx: int) -> int:
     return 9 * (cx * 3 * ch + ch * 2 * ch + ch * ch)
 
 
-def check_gru1632(lane8: bool = False) -> dict:
+def check_gru1632(lane8: bool = False, headline: bool = False) -> dict:
     """Kernel 4 at the main path's shapes (gru16 48x156, gru32 24x78, 128
-    channels). Tolerance as for the GRU kernel, 2^-5 on both states; and
-    bit for bit the serial CUDA chain (two GRU launches and the resize).
-    With ``lane8`` on int8 czrq containers, against the serial lane8
-    chain."""
+    channels; with ``headline`` the Middlebury-F frame's, 252x372 and
+    126x186, timed over 5 calls after 1). Tolerance as for the GRU kernel,
+    2^-5 on both states; and bit for bit the serial CUDA chain (two GRU
+    launches and the resize). With ``lane8`` on int8 czrq containers,
+    against the serial lane8 chain."""
     from raft_stereo_tpu_torch.models.layers import init_weights
     from raft_stereo_tpu_torch.models.update import ConvGRU
     from raft_stereo_tpu_torch.ops import stream
     g = _gen(11)
     ch, bf = 128, torch.bfloat16
-    (h16, w16), (h32, w32) = (FEAT[0] // 2, FEAT[1] // 2), (FEAT[0] // 4, FEAT[1] // 4)
+    fh, fw = ALT_HEADLINE_FEAT if headline else FEAT
+    (h16, w16), (h32, w32) = (fh // 2, fw // 2), (fh // 4, fw // 4)
+    reps, warmup = (5, 1) if headline else (20, 3)
     g16, g32 = ConvGRU(ch, 2 * ch), ConvGRU(ch, ch)
     init_weights(g16, torch.Generator().manual_seed(12))
     init_weights(g32, torch.Generator().manual_seed(13))
@@ -582,12 +597,16 @@ def check_gru1632(lane8: bool = False) -> dict:
         with torch.no_grad():
             _serial_gru1632(*args)
 
-    out = {"name": "gru1632", "counter": "gru1632", "tol": tol, "ok": err <= tol and bitwise,
+    out = {"name": f"gru1632 {h16}x{w16}" if headline else "gru1632", "counter": "gru1632",
+           "tol": tol, "ok": err <= tol and bitwise,
            "max_abs_err": err, "bitwise_equal_serial": bitwise,
-           **_timings(kernel, plain, own=OWN_KERNELS["gru1632"]),
-           "serial_ms": _device_ms(chain), "bound_ms": bound_ms, "bound_by": bound_by,
+           **_timings(kernel, plain, reps, warmup, own=OWN_KERNELS["gru1632"]),
+           "serial_ms": _device_ms(chain, reps, warmup), "bound_ms": bound_ms,
+           "bound_by": bound_by,
            "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"
                     f"{', czrq int8' if lane8 else ''}"}
+    if headline:
+        out["on_path"] = "headline"
     if not lane8:
         return out
 
@@ -595,8 +614,8 @@ def check_gru1632(lane8: bool = False) -> dict:
         with torch.no_grad():
             stream.fused_gru1632(*bf16_args)
 
-    return _lane8_row(out, "gru1632:lane8", "lane8", "raft_stereo_tpu/ops/pallas_stream.py:814",
-                      bf16_kernel)
+    return _lane8_row(out, "gru1632:lane8", "lane8_headline" if headline else "lane8",
+                      "raft_stereo_tpu/ops/pallas_stream.py:814", bf16_kernel, reps, warmup)
 
 
 def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
@@ -745,7 +764,7 @@ def _enc_triple(g, shape, stats: bool):
             torch.rand(c, generator=g, device="cuda") * 1.5 + 0.5)
 
 
-OWN_KERNELS = {"conv_gru": ("loop_conv_kernel", "conv3x3_kernel"),
+OWN_KERNELS = {"conv_gru": ("loop_conv_kernel",),
                "motion": ("motion_stage1_kernel", "loop_conv_kernel"),
                "gru1632": ("gru1632_kernel",), "fused_iter": ("resident_kernel",),
                "enc_stem": ("enc_stem_kernel", "stats_reduce_kernel"),
@@ -1125,7 +1144,8 @@ def lane8_checks() -> list:
     resblock shapes, both norms."""
     (h, w), (hh, wh) = FEAT, ALT_HEADLINE_FEAT
     out = [check_gru(level, lane8=True) for level in ("gru08", "gru16", "gru32")]
-    out += [check_gru1632(lane8=True), check_resident(lane8=True)]
+    out += [check_gru1632(lane8=True), check_gru1632(lane8=True, headline=True),
+            check_resident(lane8=True)]
     out += [check_pass_q8("lane8", h // k, w // k) for k in (1, 2, 4)]
     out.append(check_pass_q8("lane8_headline", hh, wh))
     out += [check_point2_q8("resblock_q8", *hw, norm) for hw in (FEAT, ALT_HEADLINE_FEAT)
@@ -1140,7 +1160,8 @@ def phase_kernels() -> tuple:
     from raft_stereo_tpu_torch.ops import resident
     from raft_stereo_tpu_torch.ops import encoder as enc
     results = [check_lookup(), check_gru("gru08"), check_gru("gru16"),
-               check_gru("gru32"), check_motion(), check_gru1632(), check_resident(),
+               check_gru("gru32"), check_motion(), check_gru1632(),
+               check_gru1632(headline=True), check_resident(),
                *encoder_checks(), check_alt("alt", *FEAT),
                check_alt("alt_headline", *ALT_HEADLINE_FEAT), check_lookup(pack8=True),
                check_resident(pack8=True), *lane8_checks()]

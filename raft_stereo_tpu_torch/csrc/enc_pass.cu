@@ -34,8 +34,9 @@
 // weight tiles (N x 64, K-major) through a 3-D map over [9][cout][cin];
 // channels past cin and rows past cout read zeros. Rings: 1 patch stage (2
 // where there are several chunks), 4 weight stages, one full and one empty
-// mbarrier each. What that does to the costs of the WMMA engine
-// (conv3x3.cuh) this replaces:
+// mbarrier each. What that does to the costs of the WMMA implicit GEMM
+// (mma.sync tiles fed by cp.async, one copy of the A tile a tap) this
+// replaces:
 //   1. the input is read once per block, not once per tap: the 9 taps read
 //      the one staged patch at shifted addresses (ldmatrix, per-lane row
 //      addresses, so a one-pixel shift costs nothing);

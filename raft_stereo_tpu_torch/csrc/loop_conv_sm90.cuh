@@ -1,7 +1,8 @@
-// The refinement loop's 3x3 convolution engine for Hopper: the motion
-// encoder's two 3x3 stages, the gru08 gates and update and the FlowHead's two
-// convs, in the serial launches (motion.cu, conv_gru.cu with the head) and
-// in the resident iteration (resident.cu), which run the same tile code.
+// The refinement loop's 3x3 convolution engine for Hopper: every 3x3 conv of
+// the loop. The motion encoder's two 3x3 stages, the ConvGRU gates and
+// update at every level and the FlowHead's two convs, in the serial launches
+// (motion.cu, conv_gru.cu) and in the persistent kernels (resident.cu,
+// gru1632.cu), which run the same tile code.
 //
 // An implicit GEMM over NHWC bf16 activations, built from the TMA, ldmatrix
 // and wgmma pieces of enc_conv_sm90.cuh. A tile is an 8 x 16 patch of output
@@ -29,19 +30,20 @@
 // each quad of lanes give a lane 8 consecutive columns of a pixel, and the
 // caller's functor (stages.cuh) takes them at once (put8: 16-byte loads and
 // stores); every rounding point is the functor's. Tiles are dealt to blocks
-// in a fixed order (blockIdx.x, then every gridDim.x-th), and a tile's sums
-// depend on nothing but its own loads, so a serial launch
-// (loop_conv_kernel) and a stage of the persistent kernel give the same
-// bits at any grid size. In the persistent kernel the stages follow each
-// other without a grid barrier: a tile waits for counts of the patch rows
-// its halo reads (LoopConv's dataflow fields).
+// in a fixed order (a block's first tile, t0, then every gridDim.x-th: t0 is
+// blockIdx.x, or in gru1632.cu the block's place after the stage's first
+// block), and a tile's sums depend on nothing but its own loads, so a serial
+// launch (loop_conv_kernel) and a stage of a persistent kernel give the same
+// bits at any grid size. In a persistent kernel the stages follow
+// each other without a grid barrier: a tile waits for counts of the patch
+// rows its halo reads (LoopConv's dataflow fields).
 //
 // Rings: 2 patch slots (23 KB), 4 weight slots (16 KB), one full and one
 // empty mbarrier each; shared memory 113 KB a block, one block an SM, 320
 // threads (the consumers, the producer warp, the signal warp). ptxas holds
 // such a block to 168 registers a thread; no stage spills. setmaxnreg is
 // not used: ptxas ignores it where the roles rejoin, as they do between the
-// persistent kernel's stages.
+// persistent kernels' stages.
 #pragma once
 
 #include <cstdint>
@@ -110,13 +112,17 @@ struct LoopConv {
   short wk[2][kMaxChunks];           // its first row in the weight matrix's K
   unsigned char map_w;
   // Dataflow between the stages of a persistent kernel (null in a serial
-  // launch): a tile's loads wait until wait_on[img * tiles_y + ty'] reaches
+  // launch): before a tile's first chunk of a part whose tensor map is
+  // maps[wait_map] or a later one (every part at 0; the chunks before load
+  // at once), the producer waits until wait_on[img * tiles_y + ty'] reaches
   // wait_full (wait_last for the last patch row) for ty' = ty - 1 .. ty + 1,
-  // the patch rows whose outputs of the stage before its halo reads; after
-  // a tile's epilogue, signal[img * tiles_y + ty] gains one.
+  // the patch rows whose outputs of the stage before its halo reads. After a
+  // tile's epilogue, signal[img * tiles_y + ty] gains one.
   const unsigned* wait_on;
   unsigned wait_full, wait_last;
   unsigned* signal;
+  unsigned char wait_map;
+  int first;  // the block that takes tile 0, where the caller deals from it (first_tile)
 };
 
 struct Ring {
@@ -186,20 +192,31 @@ __device__ __forceinline__ TileAt tile_at(const LoopConv& c, int t, int n) {
           col >= c.split ? 1 : 0, patch / c.tiles_x};
 }
 
+// This block's first tile of a stage whose tile 0 runs in block `first`. The
+// serial launches and the resident kernel start at blockIdx.x itself: an
+// offset start costs their stages registers and time (the motion kernel's
+// block-diagonal stage 20% slower, measured).
+__device__ __forceinline__ int first_tile(int first) {
+  return (int)((blockIdx.x + gridDim.x - (unsigned)first) % gridDim.x);
+}
+
+// Spins until a count reaches `want`. A count that does not arrive within
+// seconds is a fault: the kernel traps, and the launch reports an error
+// instead of hanging.
+__device__ __forceinline__ void spin_until(const unsigned* count, unsigned want) {
+  for (unsigned spins = 0; *reinterpret_cast<const volatile unsigned*>(count) < want; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    __nanosleep(64);
+  }
+}
+
 // Spins until the patch rows around `row` (one image's rows) have their
-// inputs, then orders this thread's later TMA reads after them. A count
-// that does not arrive within seconds is a fault: the kernel traps, and the
-// launch reports an error instead of hanging.
+// inputs, then orders this thread's later TMA reads after them.
 __device__ __forceinline__ void wait_rows(const LoopConv& c, int row) {
   const int ty = row % c.tiles_y;
   for (int d = -1; d <= 1; ++d) {
     if (ty + d < 0 || ty + d >= c.tiles_y) continue;
-    const unsigned want = ty + d == c.tiles_y - 1 ? c.wait_last : c.wait_full;
-    for (unsigned spins = 0;
-         *reinterpret_cast<const volatile unsigned*>(c.wait_on + row + d) < want; ++spins) {
-      if (spins == (1u << 26)) __trap();
-      __nanosleep(64);
-    }
+    spin_until(c.wait_on + row + d, ty + d == c.tiles_y - 1 ? c.wait_last : c.wait_full);
   }
   __threadfence();
   sm90::fence_proxy_async_global();
@@ -207,13 +224,18 @@ __device__ __forceinline__ void wait_rows(const LoopConv& c, int row) {
 
 // The producer thread: every load of this block's tiles of one stage.
 template <int N>
-__device__ void produce(const LoopConv& c, const CUtensorMap* maps, const LoopSmem& s, Ring& r) {
+__device__ void produce(const LoopConv& c, const CUtensorMap* maps, const LoopSmem& s, Ring& r,
+                        int t0) {
   sm90::fence_proxy_async_global();  // the stage before wrote these inputs
   const int ntiles = c.patches * c.ncol;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+  for (int t = t0; t < ntiles; t += gridDim.x) {
     const TileAt at = tile_at(c, t, N);
-    if (c.wait_on != nullptr) wait_rows(c, at.row);
+    bool waited = c.wait_on == nullptr;
     for (int k = 0; k < c.nchunk[at.list]; ++k) {
+      if (!waited && c.map[at.list][k] >= c.wait_map) {
+        wait_rows(c, at.row);
+        waited = true;
+      }
       const uint32_t ia = r.a % kAStages, pa = (r.a / kAStages) & 1;
       ++r.a;
       sm90::mbar_wait(&s.empty_a[ia], pa ^ 1);
@@ -235,7 +257,7 @@ __device__ void produce(const LoopConv& c, const CUtensorMap* maps, const LoopSm
 // The consumer warpgroups: products and epilogue of this block's tiles.
 // Warp w computes output row w of the patch.
 template <int N, class Epi>
-__device__ void consume(const LoopConv& c, const Epi& epi, const LoopSmem& s, Ring& r) {
+__device__ void consume(const LoopConv& c, const Epi& epi, const LoopSmem& s, Ring& r, int t0) {
   constexpr int NA = N / 2;  // accumulators a thread
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // ldmatrix: lane l gives the address of pixel lx of the warp's row, the
@@ -244,7 +266,7 @@ __device__ void consume(const LoopConv& c, const Epi& epi, const LoopSmem& s, Ri
   const int khalf = lane >> 4;
   const int g = lane >> 2, t4 = lane & 3;
   const int ntiles = c.patches * c.ncol;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+  for (int t = t0; t < ntiles; t += gridDim.x) {
     const TileAt at = tile_at(c, t, N);
     float acc[NA];
 #pragma unroll
@@ -373,9 +395,9 @@ __device__ void consume(const LoopConv& c, const Epi& epi, const LoopSmem& s, Ri
 // its wait), one count for the tile's patch row, released at the scope of
 // the grid (the fence is cumulative). Keeps the fence's latency off the
 // consumers' path.
-__device__ void signal(const LoopConv& c, int n, const LoopSmem& s, Ring& r) {
+__device__ void signal(const LoopConv& c, int n, const LoopSmem& s, Ring& r, int t0) {
   const int ntiles = c.patches * c.ncol;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+  for (int t = t0; t < ntiles; t += gridDim.x) {
     const uint32_t id = r.d % 2, pd = (r.d / 2) & 1;
     ++r.d;
     sm90::mbar_wait(&s.done_full[id], pd);
@@ -385,20 +407,31 @@ __device__ void signal(const LoopConv& c, int n, const LoopSmem& s, Ring& r) {
   }
 }
 
-// A conv stage run by the whole block: the producer thread loads, the
-// consumer warpgroups compute, the signal warp counts finished tiles (in a
-// persistent kernel), the other lanes idle. Ring counts carry from stage to
-// stage.
+// A conv stage run by the whole block from its first tile t0: the producer
+// thread loads, the consumer warpgroups compute, the signal warp counts
+// finished tiles (in a persistent kernel), the other lanes idle. Ring counts
+// carry from stage to stage.
 template <int N, class Epi>
 __device__ __forceinline__ void conv_stage(const LoopConv& c, const CUtensorMap* maps,
-                                           const Epi& epi, const LoopSmem& s, Ring& r) {
+                                           const Epi& epi, const LoopSmem& s, Ring& r, int t0) {
   if (threadIdx.x >= kSignaler) {
-    if (threadIdx.x == kSignaler && c.signal != nullptr) signal(c, N, s, r);
+    if (threadIdx.x == kSignaler && c.signal != nullptr) signal(c, N, s, r, t0);
   } else if (threadIdx.x >= kProducer) {
-    if (threadIdx.x == kProducer) produce<N>(c, maps, s, r);
+    if (threadIdx.x == kProducer) produce<N>(c, maps, s, r, t0);
   } else {
-    consume<N, Epi>(c, epi, s, r);
+    consume<N, Epi>(c, epi, s, r, t0);
   }
+}
+
+// A stage whose column tile width, 128 or 64, is known at run time.
+template <class Epi>
+__device__ __forceinline__ void conv_stage_n(int n, const LoopConv& c, const CUtensorMap* maps,
+                                             const Epi& epi, const LoopSmem& s, Ring& r,
+                                             int t0) {
+  if (n == 128)
+    conv_stage<128>(c, maps, epi, s, r, t0);
+  else
+    conv_stage<64>(c, maps, epi, s, r, t0);
 }
 
 template <class Epi>
@@ -417,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   loop_init(s);
   __syncthreads();
   Ring r;
-  conv_stage<N>(p.conv, p.maps, p.epi, s, r);
+  conv_stage<N>(p.conv, p.maps, p.epi, s, r, blockIdx.x);
 }
 
 // -- host ------------------------------------------------------------------------------
@@ -547,15 +580,21 @@ inline int loop_conv1(LoopConv& c, CUtensorMap* maps, int* nmaps, const bf16* x,
 
 inline int tiles_of(const LoopConv& c) { return c.patches * c.ncol; }
 
+// The card's SM count. Returns 0 or a cudaError_t.
+inline int sm_count(int* sms) {
+  int dev = 0;
+  const int err = (int)cudaGetDevice(&dev);
+  return err ? err : (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 // The launch's grid: one block an SM, no more than the tiles.
 template <class Kernel>
 inline int loop_grid(Kernel kernel, int tiles, int* grid) {
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       kSmemBytes);
   if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms))) return err;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                                 kSmemBytes)))
     return err;
@@ -578,6 +617,14 @@ inline int launch_loop_conv(const LoopConv& c, const CUtensorMap* maps, int nmap
   if (err) return err;
   loop_conv_kernel<N, Epi><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The same, at a column tile width of 128 or 64 known at run time.
+template <class Epi>
+inline int launch_loop_conv_n(int n, const LoopConv& c, const CUtensorMap* maps, int nmaps,
+                              const Epi& epi, cudaStream_t stream) {
+  return n == 128 ? launch_loop_conv<128>(c, maps, nmaps, epi, stream)
+                  : launch_loop_conv<64>(c, maps, nmaps, epi, stream);
 }
 
 }  // namespace loop

@@ -77,6 +77,5 @@ extern "C" int rst_motion(const bf16* corr, int ccorr, const bf16* flow, int B, 
   nmaps = 0;
   if ((err = rst::motion_fusion_loop(c, maps, &nmaps, s2, B, H, W, ns, cf, wf, &n))) return err;
   const rst::FusionEpi epi{bf, flow, out, cf};
-  return n == 128 ? rst::loop::launch_loop_conv<128>(c, maps, nmaps, epi, stream)
-                  : rst::loop::launch_loop_conv<64>(c, maps, nmaps, epi, stream);
+  return rst::loop::launch_loop_conv_n(n, c, maps, nmaps, epi, stream);
 }

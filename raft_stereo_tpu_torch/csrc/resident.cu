@@ -34,7 +34,8 @@
 //      (loop_conv_sm90.cuh), tiles dealt to blocks in the serial launch's
 //      order.
 // What bounds the design, and what it does about each cost of the WMMA
-// engine (conv3x3.cuh) that ran these stages before:
+// implicit GEMM (mma.sync tiles of 128 pixels by 64 columns fed by cp.async)
+// that ran these stages before:
 //   1. wgmma m64nNk16 (N up to 128), the card's full tensor-core path, in
 //      place of mma.sync fragments with a __syncthreads every K step;
 //   2. each 64-channel input chunk of an 8 x 16 output patch is staged once,
@@ -142,15 +143,6 @@ __device__ __forceinline__ void gather_stage1(const ResidentParams<Q>& p, unsign
   sm90::fence_proxy_async();  // TMA overwrites this shared memory next
 }
 
-template <class Epi>
-__device__ __forceinline__ void stage_n(int n, const loop::LoopConv& c, const CUtensorMap* maps,
-                                        const Epi& epi, const loop::LoopSmem& s, loop::Ring& r) {
-  if (n == 128)
-    loop::conv_stage<128>(c, maps, epi, s, r);
-  else
-    loop::conv_stage<64>(c, maps, epi, s, r);
-}
-
 template <typename T, typename Q>
 __global__ void __launch_bounds__(loop::kThreads, loop::kBlocksPerSM)
     resident_kernel(const __grid_constant__ ResidentParams<Q> p) {
@@ -160,12 +152,13 @@ __global__ void __launch_bounds__(loop::kThreads, loop::kBlocksPerSM)
   gather_stage1<T>(p, s.a);
   __syncthreads();  // the block's stage 1 is done with the rings' memory
   loop::Ring r;
-  loop::conv_stage<64>(p.s2, p.maps, p.s2_epi, s, r);
-  stage_n(p.fusion_n, p.fusion, p.maps, p.fusion_epi, s, r);
-  stage_n(p.gate_n, p.gate, p.maps, p.gate_epi, s, r);
-  stage_n(p.update_n, p.update, p.maps, p.update_epi, s, r);
-  stage_n(p.head1_n, p.head1, p.maps, p.head1_epi, s, r);
-  loop::conv_stage<8>(p.head2, p.maps, p.head2_epi, s, r);
+  const int t0 = blockIdx.x;
+  loop::conv_stage<64>(p.s2, p.maps, p.s2_epi, s, r, t0);
+  loop::conv_stage_n(p.fusion_n, p.fusion, p.maps, p.fusion_epi, s, r, t0);
+  loop::conv_stage_n(p.gate_n, p.gate, p.maps, p.gate_epi, s, r, t0);
+  loop::conv_stage_n(p.update_n, p.update, p.maps, p.update_epi, s, r, t0);
+  loop::conv_stage_n(p.head1_n, p.head1, p.maps, p.head1_epi, s, r, t0);
+  loop::conv_stage<8>(p.head2, p.maps, p.head2_epi, s, r, t0);
 }
 
 template <typename Q>
@@ -235,11 +228,10 @@ int launch_resident(const float* coords, const void* const* rows, const int* wid
     tiles = std::max(tiles, loop::tiles_of(*c));
   void (*kernel)(ResidentParams<Q>) =
       int8_levels ? &resident_kernel<int8_t, Q> : &resident_kernel<bf16, Q>;
-  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  loop::kSmemBytes);
-  if (err) return err;
-  return launch_persistent(kernel, p, bar, tiles, loop::kSmemBytes, loop::kThreads, stream,
-                           resident_counters(B, H));
+  int grid = 0;
+  if ((err = loop::loop_grid(kernel, tiles, &grid))) return err;
+  return launch_persistent(kernel, p, bar, resident_counters(B, H), grid, loop::kSmemBytes,
+                           loop::kThreads, stream);
 }
 
 }  // namespace rst

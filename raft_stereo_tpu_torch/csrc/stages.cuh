@@ -1,13 +1,9 @@
 // The stages of the refinement loop's kernels: the epilogue of each stage
-// and the engine input it runs on, on one of two engines.
-//
-// The Hopper engine (loop_conv_sm90.cuh: TMA halo patches, wgmma) runs the
-// gru08 + FlowHead chain and the motion encoder's two 3x3 stages, in the
-// serial launches (conv_gru.cu with the head, motion.cu) and in the resident
-// iteration (resident.cu). The WMMA engine (conv3x3.cuh, ConvIn) runs the
-// head-less GRU steps: conv_gru.cu without the head and gru1632.cu. A stage
-// of a persistent kernel is the serial launch's stage built by the same
-// function here on the same engine, so the two routes cannot drift apart.
+// and the loop engine's input it runs on (loop_conv_sm90.cuh: TMA halo
+// patches, wgmma), for the serial launches (conv_gru.cu with and without the
+// head, motion.cu) and the persistent kernels (resident.cu, gru1632.cu). A
+// stage of a persistent kernel is the serial launch's stage built by the
+// same function here, so the two routes cannot drift apart.
 //
 // ConvGRU step (raft_stereo_tpu/ops/pallas_stream.py:_gru_kernel), with
 // its rounding points (czrq: bf16, or int8 q times the sample's scale):
@@ -30,7 +26,6 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "conv3x3.cuh"
 #include "loop_conv_sm90.cuh"
 
 namespace rst {
@@ -63,10 +58,10 @@ __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// Each epilogue takes one (pixel, column) value (operator(), the WMMA
-// engine) or columns n .. n + 7 of a pixel at once (put8, the Hopper
-// engine: n a multiple of 8, the output rows 16-byte aligned); both compute
-// each value with the same function, which holds its rounding points.
+// Each epilogue takes columns n .. n + 7 of a pixel at once (put8: n a
+// multiple of 8, the output rows 16-byte aligned), the FlowHead's one-column
+// conv its column alone (operator()); each value is computed by one function,
+// which holds its rounding points.
 
 // The gate stage's epilogue. Q is czrq's element type: bf16, or int8 under
 // RAFT_LANE_PACK8 (pallas_stream.py:_gru_lane8_kernel), where the context is
@@ -81,30 +76,9 @@ struct GateEpi {
   bf16* rh;            // [P][ch]
   float* aqx;          // [P][ch]
   int ch;
-  __device__ float context(int p, int n) const {
-    const Q c = czrq[(size_t)p * 3 * ch + n];
-    if constexpr (std::is_same_v<Q, int8_t>) {
-      return __fmul_rn((float)c, scale[p / sample_pixels]);
-    } else {
-      return __bfloat162float(c);
-    }
-  }
   // v = acc + context: z, and r times h (each then rounded once to bf16).
   static __device__ float z_of(float v) { return 1.0f / (1.0f + expf(-v)); }
   static __device__ float rh_of(float v, float hv) { return bf16r(z_of(v)) * hv; }
-  __device__ void operator()(int p, int n, float acc) const {
-    if (n >= 3 * ch) return;
-    const size_t base = (size_t)p * ch;
-    const float v = acc + context(p, n);
-    if (n < ch) {
-      z[base + n] = __float2bfloat16(z_of(v));
-    } else if (n < 2 * ch) {
-      const int c = n - ch;
-      rh[base + c] = __float2bfloat16(rh_of(v, __bfloat162float(h[base + c])));
-    } else {
-      aqx[base + n - 2 * ch] = v;
-    }
-  }
   __device__ void put8(int p, int n, const float (&acc)[8]) const {
     if (n >= 3 * ch) return;
     float v[8];
@@ -149,12 +123,6 @@ struct UpdateEpi {
     const float take = bf16r(zz * q);
     return keep + take;
   }
-  __device__ void operator()(int p, int n, float acc) const {
-    if (n >= ch) return;
-    const size_t i = (size_t)p * ch + n;
-    out[i] = __float2bfloat16(
-        h_of(acc, aqx[i], __bfloat162float(z[i]), __bfloat162float(h[i])));
-  }
   __device__ void put8(int p, int n, const float (&acc)[8]) const {
     if (n >= ch) return;
     const size_t i = (size_t)p * ch + n;
@@ -176,9 +144,6 @@ struct ReluBiasEpi {
   const float* bias;
   bf16* out;
   int n_out;
-  __device__ void operator()(int p, int n, float acc) const {
-    if (n < n_out) out[(size_t)p * n_out + n] = __float2bfloat16(relu_bias(acc, bias[n]));
-  }
   __device__ void put8(int p, int n, const float (&acc)[8]) const {
     if (n >= n_out) return;
     float b[8];
@@ -201,7 +166,7 @@ struct FusionEpi {
   const bf16* flow;  // [P][2]
   bf16* out;         // [P][cf + 2]
   int cf;
-  __device__ void operator()(int p, int n, float acc) const {
+  __device__ void put1(int p, int n, float acc) const {
     const int cout = cf + 2;
     if (n < cf)
       out[(size_t)p * cout + n] = __float2bfloat16(relu_bias(acc, bias[n]));
@@ -212,7 +177,7 @@ struct FusionEpi {
   __device__ void put8(int p, int n, const float (&acc)[8]) const {
     if (n + 8 > cf || (cf + 2) % 8) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) (*this)(p, n + e, acc[e]);
+      for (int e = 0; e < 8; ++e) put1(p, n + e, acc[e]);
       return;
     }
     float b[8];
@@ -223,76 +188,30 @@ struct FusionEpi {
   }
 };
 
-inline ConvIn conv_in(int B, int H, int W) {
-  ConvIn a{};
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  return a;
-}
-
-inline void add_part(ConvIn& a, const bf16* p, int c) {
-  a.ptr[a.nparts] = p;
-  a.cin[a.nparts] = c;
-  ++a.nparts;
-}
-
-// One input part over all its channels, into `cols` output channels.
-inline ConvIn single_in(const bf16* x, int c, int B, int H, int W, const bf16* w, int cols) {
-  ConvIn a = conv_in(B, H, W);
-  add_part(a, x, c);
-  a.w = w;
-  a.ctot = c;
-  a.npad = cols;
-  a.n_split = cols;
-  a.k0a = a.k0b = 0;
-  a.k1a = a.k1b = c;
-  return a;
-}
-
-// GRU gates over [h; x parts]: z and r read every channel, the q columns
-// (from 2ch on) only the x parts. nx x parts of cxs channels (0 skips one).
-// w_gate: [9][ch + cx][pad64(3ch)].
-inline ConvIn gru_gate_in(const bf16* h, const bf16* const* xs, const int* cxs, int nx, int B,
-                          int H, int W, int ch, const bf16* w_gate) {
-  ConvIn a = conv_in(B, H, W);
-  add_part(a, h, ch);
-  int cx = 0;
-  for (int i = 0; i < nx; ++i) {
-    if (cxs[i] > 0) {
-      add_part(a, xs[i], cxs[i]);
-      cx += cxs[i];
-    }
-  }
-  a.w = w_gate;
-  a.ctot = ch + cx;
-  a.npad = pad64(3 * ch);
-  a.n_split = 2 * ch;
-  a.k0a = 0;
-  a.k1a = ch + cx;
-  a.k0b = ch;
-  a.k1b = ch + cx;
-  return a;
-}
-
-// GRU update: q's h-side conv over r*h. w_q: [9][ch][pad64(ch)].
-inline ConvIn gru_update_in(const bf16* rh, int B, int H, int W, int ch, const bf16* w_q) {
-  return single_in(rh, ch, B, H, W, w_q, pad64(ch));
-}
-
-// -- the same stages on the Hopper engine (loop_conv_sm90.cuh) -----------------
+// -- the stages' engine inputs --------------------------------------------------
 // Weights K-major: [9][rows][K], K the input channels of the virtual concat.
 // Each function here encodes its tensor maps into maps[*nmaps...] and returns 0 or
 // a cudaError_t; the column tile width is the widest of 128 and 64 on which
 // the stage's column split falls.
 
-inline int tile_cols(int split) { return split % 128 == 0 ? 128 : 64; }
+// That width for a stage of `cols` columns over a B x H x W map. Given the
+// card's SM count `sms` (the head-less GRU steps: gru16 and gru32, in their
+// serial launches and in the gru16+32 kernel alike), 64 also where the
+// stage's 128-column tiles would number fewer than two an SM: at the coarse
+// maps a stage's latency is its cost, and a tile of 64 columns takes about
+// half as long.
+inline int tile_cols(int split, int cols = 0, int B = 0, int H = 0, int W = 0, int sms = 0) {
+  if (split % 128) return 64;
+  const int patches = B * ((H + loop::kTH - 1) / loop::kTH) * ((W + loop::kTW - 1) / loop::kTW);
+  return patches * ((cols + 127) / 128) < 2 * sms ? 64 : 128;
+}
 
 // GRU gates over [h; x parts]: z and r (columns [0, 2ch)) read every
 // channel, q (from 2ch on) only the x parts. w_gate: [9][3ch][ch + cx].
+// sms: as tile_cols'.
 inline int gate_loop(loop::LoopConv& c, CUtensorMap* maps, int* nmaps, const bf16* h,
                      const bf16* const* xs, const int* cxs, int nx, int B, int H, int W, int ch,
-                     const bf16* w_gate, int* n) {
+                     const bf16* w_gate, int* n, int sms = 0) {
   loop::Part parts[loop::kParts];
   int np = 0, ctot = ch;
   parts[np++] = {h, ch};
@@ -302,15 +221,15 @@ inline int gate_loop(loop::LoopConv& c, CUtensorMap* maps, int* nmaps, const bf1
     parts[np++] = {xs[i], cxs[i]};
     ctot += cxs[i];
   }
-  *n = tile_cols(2 * ch);
+  *n = tile_cols(2 * ch, 3 * ch, B, H, W, sms);
   return loop::loop_conv(c, maps, nmaps, parts, np, B, H, W, w_gate, 3 * ch, 3 * ch, *n, 2 * ch,
                          0, ctot, ch, ctot);
 }
 
-// GRU update: q's h-side conv over r*h. w_q: [9][ch][ch].
+// GRU update: q's h-side conv over r*h. w_q: [9][ch][ch]. sms: as tile_cols'.
 inline int update_loop(loop::LoopConv& c, CUtensorMap* maps, int* nmaps, const bf16* rh, int B,
-                       int H, int W, int ch, const bf16* w_q, int* n) {
-  *n = tile_cols(ch);
+                       int H, int W, int ch, const bf16* w_q, int* n, int sms = 0) {
+  *n = tile_cols(ch, ch, B, H, W, sms);
   return loop::loop_conv1(c, maps, nmaps, rh, ch, B, H, W, w_q, ch, ch, *n);
 }
 

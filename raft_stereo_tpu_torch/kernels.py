@@ -50,12 +50,16 @@ _SIGNATURES = {
                   _I, _P, _P]),
     "conv_gru": ("rst_conv_gru",
                  [_P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                  _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]),
+                  _P, _P, _P, _P, _P, _I, _P, _P, _P]),
     "motion": ("rst_motion",
                [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                 _P, _P, _P, _P]),
     "gru1632": ("rst_gru1632",
-                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 18),
+                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 19),
+    # More symbols of csrc/gru1632.cu: the size of its counter buffer, and
+    # its block.
+    "gru1632_counters": ("rst_gru1632_counters", [_I, _I, _I], "gru1632"),
+    "gru1632_plan": ("rst_gru1632_plan", [_I, ctypes.POINTER(_I)], "gru1632"),
     "resident": ("rst_resident",
                  [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _P, _P, _P, _P,
                   _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
@@ -129,36 +133,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> float:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile the named sources that have no library yet, one ``nvcc`` per
-    source, all started together. Returns the wall seconds; raises
+    source, all started together. Returns the wall seconds each compile took
+    from the start, by source (none for a source already built); raises
     ``RuntimeError`` with the compiler's output if any build fails."""
     t0 = time.perf_counter()
     todo = [n for n in names if not library_path(n).exists()]
+    seconds: Dict[str, float] = {}
     if not todo:
-        return time.perf_counter() - t0
+        return seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = []
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = out.with_suffix(f".{os.getpid()}.log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        with open(log, "wb") as sink:
+            procs.append((name, out, tmp, log, subprocess.Popen(
+                cmd, stdout=sink, stderr=subprocess.STDOUT)))
+    pending = list(procs)
+    while pending:  # each compiler's own wall time, whichever ends first
+        time.sleep(0.05)
+        for item in [p for p in pending if p[-1].poll() is not None]:
+            seconds[item[0]] = time.perf_counter() - t0
+            pending.remove(item)
     failures = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
+    for name, out, tmp, log, proc in procs:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n"
-                            f"{log.decode(errors='replace')}")
+                            f"{log.read_text(errors='replace')}")
             tmp.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
         else:
-            out.with_suffix(".log").write_bytes(log)
+            os.replace(log, out.with_suffix(".log"))
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def build_log(name: str) -> str:

@@ -19,14 +19,12 @@ torch modules of ``models/update.py`` round:
 - Motion: ``c1``, ``f1``, ``[c2|f2]`` and the fused output round to bf16
   after their relus; convf1's flow-y weights are dropped (flow y is 0).
 
-Weights are converted once per frame into the kernels' layouts, in the
+Weights are converted once per frame into the kernels' layout, in the
 compute dtype (:func:`gru_weights`, :func:`head_weights`,
-:func:`motion_weights`): tap-major ``(9, Cin, Cout)`` matrices with the
-output columns zero-padded to a multiple of 64 for the WMMA engine
-(``csrc/conv3x3.cuh``: the head-less GRU steps, gru16+32) and the plain
-versions, and K-major ``(9, Cout, Cin)`` matrices (the ``*_k`` fields) for
-the Hopper engine (``csrc/loop_conv_sm90.cuh``: the motion encoder, gru08
-with the FlowHead, the resident iteration).
+:func:`motion_weights`): K-major ``(9, Cout, Cin)`` matrices (the ``*_k``
+fields), which the loop engine (``csrc/loop_conv_sm90.cuh``: every 3x3 conv
+of the loop, in the serial launches and in the gru16+32 and resident
+kernels) and the plain versions read alike.
 
 Under ``RAFT_LANE_PACK8`` the czrq context is an int8 lane container
 (:func:`prepare_gru_context_any`, ``corr/reg_cuda.py:Lane8``): the GRU
@@ -50,68 +48,46 @@ from raft_stereo_tpu_torch.ops.resize import interp_align_corners, lerp_taps
 
 Czrq = Union[torch.Tensor, Lane8]  # the folded context, or its int8 container
 
-_COL = 64  # csrc/conv3x3.cuh pad64: output-column multiple of weight matrices
-_HEAD2_COLS = 16  # columns of the FlowHead conv2 matrix (one used)
-_COUNTERS = 8  # csrc/grid.cuh kCounters: a persistent kernel's barrier and tile counters
-
-
-def _pad64(n: int) -> int:
-    return -(-n // _COL) * _COL
-
-
-def _taps(w: torch.Tensor) -> torch.Tensor:
-    """OIHW 3x3 weight -> (9, Cin, Cout)."""
-    cout, cin = w.shape[:2]
-    return w.permute(2, 3, 1, 0).reshape(9, cin, cout)
+_BRANCH = 64  # csrc/stages.cuh motion_s2_loop: the block-diagonal stage's column tiles
 
 
 def _kmajor(w: torch.Tensor) -> torch.Tensor:
-    """OIHW 3x3 weight -> (9, Cout, Cin): the Hopper engine's K-major layout."""
+    """OIHW 3x3 weight -> (9, Cout, Cin): the loop engine's K-major layout."""
     cout, cin = w.shape[:2]
     return w.permute(2, 3, 0, 1).reshape(9, cout, cin)
 
 
-def _pad_cols(w: torch.Tensor, cols: int) -> torch.Tensor:
-    return F.pad(w, (0, cols - w.shape[-1])).contiguous()
-
-
-def _conv9(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
-    """fp32 3x3 conv of NHWC ``x`` with a (9, Cin, Cout) tap matrix, zero
-    padding 1: the kernels' fp32 accumulator."""
-    cin, cout = w9.shape[1:]
-    w = w9.float().reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+def _conv9(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """fp32 3x3 conv of NHWC ``x`` with a K-major (9, Cout, Cin) matrix,
+    zero padding 1: the kernels' fp32 accumulator."""
+    cout, cin = wk.shape[1:]
+    w = wk.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
     out = F.conv2d(x.float().permute(0, 3, 1, 2), w, None, 1, 1)
     return out.permute(0, 2, 3, 1)
 
 
 class GruWeights(NamedTuple):
-    w_gate: torch.Tensor  # (9, ch + cx, pad64(3ch)): [wz | wr | wq] over [h; x]
-    w_q: torch.Tensor     # (9, ch, pad64(ch)): wq over h (applied to r*h)
-    w_gate_k: torch.Tensor  # (9, 3ch, ch + cx): w_gate K-major, unpadded
-    w_q_k: torch.Tensor     # (9, ch, ch): w_q K-major
+    w_gate_k: torch.Tensor  # (9, 3ch, ch + cx): [wz | wr | wq] over [h; x]
+    w_q_k: torch.Tensor     # (9, ch, ch): wq over h (applied to r*h)
     ch: int
-    level: str            # the GRU's name, keys its launch count
+    level: str              # the GRU's name, keys its launch count
 
 
 class HeadWeights(NamedTuple):
-    w1: torch.Tensor  # (9, ch, pad64(nh))
-    b1: torch.Tensor  # (nh,) fp32
-    w2: torch.Tensor  # (9, nh, 16): conv2's x output in column 0
-    w1_k: torch.Tensor  # (9, nh, ch): w1 K-major
-    w2_k: torch.Tensor  # (9, 1, nh): conv2's x output, K-major
+    w1_k: torch.Tensor  # (9, nh, ch): conv1
+    b1: torch.Tensor    # (nh,) fp32
+    w2_k: torch.Tensor  # (9, 1, nh): conv2's x output
     nh: int
 
 
 class MotionWeights(NamedTuple):
-    wc1: torch.Tensor  # (ccorr, n1): convc1, 1x1
-    wf1: torch.Tensor  # (49, nf): convf1 over flow x, taps row-major
-    b1: torch.Tensor   # (n1 + nf,) fp32
-    w2: torch.Tensor   # (9, ns, pad64(ns)): block-diagonal [convc2, convf2]
-    b2: torch.Tensor   # (ns,) fp32
-    wf: torch.Tensor   # (9, ns, pad64(cf + 2)): the fusion conv
-    bf: torch.Tensor   # (cf,) fp32
-    w2_k: torch.Tensor  # (9, ns, ns): w2 K-major, unpadded
-    wf_k: torch.Tensor  # (9, cf, ns): wf K-major
+    wc1: torch.Tensor   # (ccorr, n1): convc1, 1x1
+    wf1: torch.Tensor   # (49, nf): convf1 over flow x, taps row-major
+    b1: torch.Tensor    # (n1 + nf,) fp32
+    b2: torch.Tensor    # (ns,) fp32
+    bf: torch.Tensor    # (cf,) fp32
+    w2_k: torch.Tensor  # (9, ns, ns): block-diagonal [convc2, convf2]
+    wf_k: torch.Tensor  # (9, cf, ns): the fusion conv
     n1: int
     nf: int
     cf: int
@@ -122,23 +98,17 @@ def gru_weights(gru, dtype: torch.dtype, level: str = "gru") -> GruWeights:
     ``[h; x]``). The kernel's launches with them count under
     ``conv_gru:<level>``."""
     ch = gru.convz.weight.shape[0]
-    wz, wr, wq = (_taps(c.weight) for c in (gru.convz, gru.convr, gru.convq))
-    w_gate = torch.cat([wz, wr, wq], dim=-1).to(dtype)
     w_gate_k = torch.cat([_kmajor(c.weight) for c in (gru.convz, gru.convr, gru.convq)],
                          dim=1).to(dtype).contiguous()
-    return GruWeights(_pad_cols(w_gate, _pad64(3 * ch)),
-                      _pad_cols(wq[:, :ch].to(dtype), _pad64(ch)), w_gate_k,
-                      w_gate_k[:, 2 * ch:, :ch].contiguous(), ch, level)
+    return GruWeights(w_gate_k, w_gate_k[:, 2 * ch:, :ch].contiguous(), ch, level)
 
 
 def head_weights(head, dtype: torch.dtype) -> HeadWeights:
     """Kernel-layout weights of a FlowHead (conv1 3x3 + relu, conv2 3x3)."""
-    nh = head.conv1.weight.shape[0]
-    w1 = _pad_cols(_taps(head.conv1.weight).to(dtype), _pad64(nh))
-    w2 = _pad_cols(_taps(head.conv2.weight)[..., :1].to(dtype), _HEAD2_COLS)
-    return HeadWeights(w1, head.conv1.bias.float().contiguous(), w2,
-                       _kmajor(head.conv1.weight).to(dtype).contiguous(),
-                       _kmajor(head.conv2.weight[:1]).to(dtype).contiguous(), nh)
+    return HeadWeights(_kmajor(head.conv1.weight).to(dtype).contiguous(),
+                       head.conv1.bias.float().contiguous(),
+                       _kmajor(head.conv2.weight[:1]).to(dtype).contiguous(),
+                       head.conv1.weight.shape[0])
 
 
 def motion_weights(enc, dtype: torch.dtype) -> MotionWeights:
@@ -146,20 +116,16 @@ def motion_weights(enc, dtype: torch.dtype) -> MotionWeights:
     n1 = enc.convc1.weight.shape[0]
     nf = enc.convf1.weight.shape[0]
     ns = n1 + nf
-    cf = enc.conv.weight.shape[0]
     wc1 = enc.convc1.weight[:, :, 0, 0].t().to(dtype).contiguous()
     wf1 = enc.convf1.weight[:, 0].reshape(nf, 49).t().to(dtype).contiguous()
     b1 = torch.cat([enc.convc1.bias, enc.convf1.bias]).float()
-    w2 = torch.zeros(9, ns, _pad64(ns), dtype=dtype, device=wc1.device)
-    w2[:, :n1, :n1] = _taps(enc.convc2.weight).to(dtype)
-    w2[:, n1:, n1:ns] = _taps(enc.convf2.weight).to(dtype)
     b2 = torch.cat([enc.convc2.bias, enc.convf2.bias]).float()
-    wf = _pad_cols(_taps(enc.conv.weight).to(dtype), _pad64(cf + 2))
     w2_k = torch.zeros(9, ns, ns, dtype=dtype, device=wc1.device)
     w2_k[:, :n1, :n1] = _kmajor(enc.convc2.weight).to(dtype)
     w2_k[:, n1:, n1:] = _kmajor(enc.convf2.weight).to(dtype)
-    return MotionWeights(wc1, wf1, b1, w2, b2, wf, enc.conv.bias.float().contiguous(),
-                         w2_k, _kmajor(enc.conv.weight).to(dtype).contiguous(), n1, nf, cf)
+    return MotionWeights(wc1, wf1, b1, b2, enc.conv.bias.float().contiguous(), w2_k,
+                         _kmajor(enc.conv.weight).to(dtype).contiguous(), n1, nf,
+                         enc.conv.weight.shape[0])
 
 
 def prepare_gru_context(gru, context: Sequence[torch.Tensor],
@@ -211,17 +177,17 @@ def conv_gru_plain(w: GruWeights, h: torch.Tensor, czrq: Czrq,
     ch, dt = w.ch, h.dtype
     x = torch.cat(x_list, dim=-1)
     ctx = _czrq_f32(czrq)
-    zr = _conv9(torch.cat([h, x], dim=-1), w.w_gate[..., :2 * ch]) + ctx[..., :2 * ch]
+    zr = _conv9(torch.cat([h, x], dim=-1), w.w_gate_k[:, :2 * ch]) + ctx[..., :2 * ch]
     z = torch.sigmoid(zr[..., :ch]).to(dt)
     r = torch.sigmoid(zr[..., ch:]).to(dt)
     rh = r * h
-    aqx = _conv9(x, w.w_gate[:, ch:, 2 * ch:3 * ch]) + ctx[..., 2 * ch:]
-    q = torch.tanh(_conv9(rh, w.w_q[..., :ch]) + aqx).to(dt)
+    aqx = _conv9(x, w.w_gate_k[:, 2 * ch:, ch:]) + ctx[..., 2 * ch:]
+    q = torch.tanh(_conv9(rh, w.w_q_k) + aqx).to(dt)
     h_new = (1 - z) * h + z * q
     if head is None:
         return h_new, None
-    f1 = torch.relu(_conv9(h_new, head.w1[..., :head.nh]) + head.b1).to(dt)
-    return h_new, _conv9(f1, head.w2[..., :1])
+    f1 = torch.relu(_conv9(h_new, head.w1_k) + head.b1).to(dt)
+    return h_new, _conv9(f1, head.w2_k)
 
 
 def _check_nhwc(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -260,33 +226,30 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: Czrq,
     czrq_ptr, lane8, scale_ptr = _czrq_args("czrq", czrq, (b, hh, ww, 3 * ch), dev)
     for i, (x, c) in enumerate(zip(x_list, cxs)):
         _check_nhwc(f"x_list[{i}]", x, (b, hh, ww, c), dt, dev)
-    _check_nhwc("w_gate", w.w_gate, (9, ch + sum(cxs), _pad64(3 * ch)), dt, dev)
-    _check_nhwc("w_q", w.w_q, (9, ch, _pad64(ch)), dt, dev)
+    _check_nhwc("w_gate_k", w.w_gate_k, (9, 3 * ch, ch + sum(cxs)), dt, dev)
+    _check_nhwc("w_q_k", w.w_q_k, (9, ch, ch), dt, dev)
     z = torch.empty_like(h)
     rh = torch.empty_like(h)
     aqx = torch.empty(h.shape, dtype=torch.float32, device=dev)
     h_out = torch.empty_like(h)
     parts = [(x.data_ptr(), c) for x, c in zip(x_list, cxs)] + [(None, 0)] * (3 - len(cxs))
-    w1 = b1 = w2 = f1 = dx = wgk = wqk = None
+    w1 = b1 = w2 = f1 = dx = None
     nh = 0
     if head is not None:
         nh = head.nh
         if nh % 32:
             raise ValueError(f"FlowHead hidden width must be a multiple of 32, got {nh}")
-        _check_nhwc("w_gate_k", w.w_gate_k, (9, 3 * ch, ch + sum(cxs)), dt, dev)
-        _check_nhwc("w_q_k", w.w_q_k, (9, ch, ch), dt, dev)
         _check_nhwc("head.w1_k", head.w1_k, (9, nh, ch), dt, dev)
         _check_nhwc("head.b1", head.b1, (nh,), torch.float32, dev)
         _check_nhwc("head.w2_k", head.w2_k, (9, 1, nh), dt, dev)
         f1 = torch.empty((b, hh, ww, nh), dtype=dt, device=dev)
         dx = torch.empty((b, hh, ww, 1), dtype=torch.float32, device=dev)
         w1, b1, w2 = head.w1_k.data_ptr(), head.b1.data_ptr(), head.w2_k.data_ptr()
-        wgk, wqk = w.w_gate_k.data_ptr(), w.w_q_k.data_ptr()
     fn = kernels.entry("conv_gru")
     kernels.check("conv_gru", fn(
         h.data_ptr(), czrq_ptr, lane8, scale_ptr, parts[0][0], parts[0][1], parts[1][0],
-        parts[1][1], parts[2][0], parts[2][1], b, hh, ww, ch, w.w_gate.data_ptr(),
-        w.w_q.data_ptr(), wgk, wqk, z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
+        parts[1][1], parts[2][0], parts[2][1], b, hh, ww, ch, w.w_gate_k.data_ptr(),
+        w.w_q_k.data_ptr(), z.data_ptr(), rh.data_ptr(), aqx.data_ptr(),
         h_out.data_ptr(), w1, b1, w2, nh, None if f1 is None else f1.data_ptr(),
         None if dx is None else dx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
@@ -307,9 +270,8 @@ def motion_plain(w: MotionWeights, flow: torch.Tensor,
     f1 = F.conv2d(flow[..., :1].float().permute(0, 3, 1, 2), wf1, None, 1, 3)
     f1 = torch.relu(f1.permute(0, 2, 3, 1) + w.b1[w.n1:])
     s1 = torch.cat([c1.to(dt), f1.to(dt)], dim=-1)
-    ns = w.n1 + w.nf
-    s2 = torch.relu(_conv9(s1, w.w2[..., :ns]) + w.b2).to(dt)
-    out = torch.relu(_conv9(s2, w.wf[..., :w.cf]) + w.bf).to(dt)
+    s2 = torch.relu(_conv9(s1, w.w2_k) + w.b2).to(dt)
+    out = torch.relu(_conv9(s2, w.wf_k) + w.bf).to(dt)
     return torch.cat([out, flow], dim=-1)
 
 
@@ -320,8 +282,8 @@ def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> to
         return motion_plain(w, flow, corr)
     b, hh, ww, ccorr = corr.shape
     dev, dt = corr.device, torch.bfloat16
-    if w.n1 % _COL or w.nf % _COL:
-        raise ValueError(f"motion kernel branch widths must be multiples of {_COL}, "
+    if w.n1 % _BRANCH or w.nf % _BRANCH:
+        raise ValueError(f"motion kernel branch widths must be multiples of {_BRANCH}, "
                          f"got {w.n1}, {w.nf}")
     ns = w.n1 + w.nf
     _check_nhwc("corr", corr, (b, hh, ww, ccorr), dt, dev)
@@ -369,8 +331,9 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     ``fused_gru1632``): ``(h16', h32')`` with
     ``h32' = gru32(h32, czrq32, x1p)`` and
     ``h16' = gru16(h16, czrq16, x0p, interp_align_corners(h32'))``, the
-    resize built inside the kernel. Bit for bit the serial route's:
-    :func:`fused_conv_gru` twice with the resize between.
+    resize built inside the kernel, each value once, into a scratch map.
+    Bit for bit the serial route's: :func:`fused_conv_gru` twice with the
+    resize between.
 
     h16: (B, H16, W16, ch); h32: (B, H32, W32, ch); x0p: (B, H16, W16, cx0),
     pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16). The two
@@ -391,26 +354,27 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
         raise TypeError("gru1632 kernel: czrq16 and czrq32 must both be bf16 or both int8")
     for name, t, shape in (("h16", h16, (b, hh16, ww16, ch)), ("h32", h32, (b, hh32, ww32, ch)),
                            ("x0p", x0p, (b, hh16, ww16, cx0)), ("x1p", x1p, (b, hh32, ww32, ch)),
-                           ("w16.w_gate", w16.w_gate, (9, 2 * ch + cx0, _pad64(3 * ch))),
-                           ("w16.w_q", w16.w_q, (9, ch, _pad64(ch))),
-                           ("w32.w_gate", w32.w_gate, (9, 2 * ch, _pad64(3 * ch))),
-                           ("w32.w_q", w32.w_q, (9, ch, _pad64(ch)))):
+                           ("w16.w_gate_k", w16.w_gate_k, (9, 3 * ch, 2 * ch + cx0)),
+                           ("w16.w_q_k", w16.w_q_k, (9, ch, ch)),
+                           ("w32.w_gate_k", w32.w_gate_k, (9, 3 * ch, 2 * ch)),
+                           ("w32.w_q_k", w32.w_q_k, (9, ch, ch))):
         _check_nhwc(name, t, shape, dt, dev)
     yi, yw = lerp_taps(hh32, hh16, dt, dev)
     xi, xw = lerp_taps(ww32, ww16, dt, dev)
-    z16, rh16, h16_out = (torch.empty_like(h16) for _ in range(3))
+    z16, rh16, up, h16_out = (torch.empty_like(h16) for _ in range(4))
     z32, rh32, h32_out = (torch.empty_like(h32) for _ in range(3))
     aqx16 = torch.empty(h16.shape, dtype=torch.float32, device=dev)
     aqx32 = torch.empty(h32.shape, dtype=torch.float32, device=dev)
-    bar = torch.empty(_COUNTERS, dtype=torch.int32, device=dev)
+    bar = torch.empty(kernels.entry("gru1632_counters")(b, hh16, hh32), dtype=torch.int32,
+                      device=dev)
     fn = kernels.entry("gru1632")
     kernels.check("gru1632", fn(
         h16.data_ptr(), h32.data_ptr(), c16, c32, lane8, s16, s32, x0p.data_ptr(), cx0,
         x1p.data_ptr(), b, hh16, ww16, hh32, ww32, ch,
-        w16.w_gate.data_ptr(), w16.w_q.data_ptr(), w32.w_gate.data_ptr(),
-        w32.w_q.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(),
+        w16.w_gate_k.data_ptr(), w16.w_q_k.data_ptr(), w32.w_gate_k.data_ptr(),
+        w32.w_q_k.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(),
         z16.data_ptr(), rh16.data_ptr(), aqx16.data_ptr(), z32.data_ptr(),
-        rh32.data_ptr(), aqx32.data_ptr(), h16_out.data_ptr(), h32_out.data_ptr(),
-        bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+        rh32.data_ptr(), aqx32.data_ptr(), up.data_ptr(), h16_out.data_ptr(),
+        h32_out.data_ptr(), bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     _count("gru1632", lane8)
     return h16_out, h32_out

@@ -50,10 +50,8 @@ def _group(name: str) -> str:
         return "port:corr_lookup"
     if "corr_alt_kernel" in n:
         return "port:corr_alt"
-    if "conv3x3_kernel" in n:
-        return "port:conv3x3 WMMA engine (gru16, gru32 steps)"
     if "loop_conv_kernel" in n:
-        return "port:loop_conv_sm90 engine (motion stages 2-3, gru08 + head)"
+        return "port:loop_conv_sm90 engine (motion stages 2-3, the GRU steps)"
     if "motion_stage1" in n:
         return "port:motion stage 1"
     if "gru1632_kernel" in n:

@@ -5,10 +5,9 @@ run on a machine with the card but no JAX, without the repo's conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 
-Shapes are small and ragged (pixel counts that are not a multiple of the
-kernels' 128-pixel tile, B=2, narrow channels, heights that are not a
-multiple of 8) to reach the edge handling that the main path's shapes in
-chip_smoke.py do not. Tolerances as in chip_smoke.py: a bf16 rounding one
+Shapes are small and ragged (maps that are not a multiple of the loop
+engine's 8 x 16 output patch, B=2, narrow channels) to reach the edge
+handling that the main path's shapes in chip_smoke.py do not. Tolerances as in chip_smoke.py: a bf16 rounding one
 ulp apart in an intermediate carries into the outputs, |err| <= 2^-5 for
 h', 2^-5 of the RMS of the head's x delta, and 2^-5 of max(1, max|fused|)
 for the motion encoder's fused channels; the flow channels it copies are
@@ -78,11 +77,16 @@ def _modules_on(device, ch, cin, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_on", [True, False])
 @pytest.mark.parametrize("b,h,w,ch,parts", [(2, 7, 13, 64, (64, 32)),
                                             (1, 5, 130, 32, (32,)),
                                             (1, 6, 20, 32, (32, 64, 32)),
-                                            (1, 24, 78, 128, (128,))])
-def test_gpu_conv_gru_kernel_matches_plain(cuda, b, h, w, ch, parts):
+                                            (1, 24, 78, 128, (128,)),
+                                            (2, 9, 17, 128, (32, 128)),
+                                            (1, 48, 156, 128, (128, 128))])
+def test_gpu_conv_gru_kernel_matches_plain(cuda, b, h, w, ch, parts, head_on):
+    """The ConvGRU step with the head (gru08) and without (the gru16 and
+    gru32 steps), all on the loop engine."""
     gru, head, _ = _modules_on(cuda, ch, sum(parts), 10)
     g = torch.Generator(device=cuda).manual_seed(0)
     bf = torch.bfloat16
@@ -91,12 +95,16 @@ def test_gpu_conv_gru_kernel_matches_plain(cuda, b, h, w, ch, parts):
     ctx = [(torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.3).to(bf)
            for _ in range(3)]
     with torch.no_grad():
-        wts, hw = stream.gru_weights(gru, bf), stream.head_weights(head, bf)
+        wts = stream.gru_weights(gru, bf)
+        hw = stream.head_weights(head, bf) if head_on else None
         czrq = stream.prepare_gru_context(gru, ctx, bf)
         got_h, got_dx = stream.fused_conv_gru(wts, hst, czrq, *xs, head=hw)
         ref_h, ref_dx = stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
     torch.cuda.synchronize()
     assert float((got_h.float() - ref_h.float()).abs().max()) <= 2.0 ** -5
+    if not head_on:
+        assert got_dx is None and ref_dx is None
+        return
     assert float((got_dx - ref_dx).abs().max()) <= 2.0 ** -5 * float(
         ref_dx.square().mean().sqrt())
 
@@ -172,9 +180,12 @@ def test_gpu_motion_kernel_integer_exact(cuda):
     assert torch.equal(got, ref)
 
 
-def _gru1632_case(device, b, h16, w16, ch, seed, ints=False):
+def _gru1632_case(device, b, h16, w16, ch, seed, ints=False, cx0=None):
+    """gru16+32 arguments; x0p, the pooled finer state, of ``cx0``
+    channels (default ``ch``)."""
+    cx0 = ch if cx0 is None else cx0
     h32, w32 = h16 // 2, w16 // 2
-    g16, g32 = ConvGRU(ch, 2 * ch), ConvGRU(ch, ch)
+    g16, g32 = ConvGRU(ch, cx0 + ch), ConvGRU(ch, ch)
     for i, m in enumerate((g16, g32)):
         init_weights(m, torch.Generator().manual_seed(seed + i))
     g16, g32 = g16.to(device), g32.to(device)
@@ -194,7 +205,7 @@ def _gru1632_case(device, b, h16, w16, ch, seed, ints=False):
         czrq16 = stream.prepare_gru_context(g16, [rnd((b, h16, w16, ch), 0.3)] * 3, bf)
         czrq32 = stream.prepare_gru_context(g32, [rnd((b, h32, w32, ch), 0.3)] * 3, bf)
     args = (w16_, w32_, rnd((b, h16, w16, ch), 0.5), rnd((b, h32, w32, ch), 0.5), czrq16, czrq32,
-            rnd((b, h16, w16, ch), 1.0), rnd((b, h32, w32, ch), 1.0))
+            rnd((b, h16, w16, cx0), 1.0), rnd((b, h32, w32, ch), 1.0))
     return args
 
 
@@ -205,14 +216,36 @@ def _gru1632_serial(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p):
     return h16n, h32n
 
 
+def _assert_steps_within_band(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p):
+    """Each head-less step of the serial chain (the loop engine's launches)
+    within 2^-5 of its plain version on the same inputs."""
+    h32n, _ = stream.fused_conv_gru(w32, h32, czrq32, x1p)
+    ref32, _ = stream.conv_gru_plain(w32, h32, czrq32, x1p)
+    up = interp_align_corners(h32n, tuple(h16.shape[1:3]))
+    h16n, _ = stream.fused_conv_gru(w16, h16, czrq16, x0p, up)
+    ref16, _ = stream.conv_gru_plain(w16, h16, czrq16, x0p, up)
+    torch.cuda.synchronize()
+    assert float((h32n.float() - ref32.float()).abs().max()) <= 2.0 ** -5
+    assert float((h16n.float() - ref16.float()).abs().max()) <= 2.0 ** -5
+
+
+# gru16+32 tilings: (B, H16, W16, ch, cx0). gru32 maps of 1x1 and 2x3, gru16
+# maps off the 8 x 16 patch's multiples, B = 2, hidden widths 32, 64 and 128
+# with x0p of 32 and 128 channels.
+GRU1632_TILING = [(2, 10, 26, 32, 32), (1, 14, 18, 64, 64), (1, 48, 156, 128, 128),
+                  (1, 2, 2, 32, 32), (2, 4, 6, 64, 128), (1, 22, 34, 128, 32),
+                  (2, 18, 46, 128, 128), (1, 6, 38, 32, 128)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h16,w16,ch", [(2, 10, 26, 32), (1, 14, 18, 64), (1, 48, 156, 128)])
-def test_gpu_gru1632_kernel_matches_plain_and_serial(cuda, b, h16, w16, ch):
-    args = _gru1632_case(cuda, b, h16, w16, ch, 50)
+@pytest.mark.parametrize("b,h16,w16,ch,cx0", GRU1632_TILING)
+def test_gpu_gru1632_kernel_matches_plain_and_serial(cuda, b, h16, w16, ch, cx0):
+    args = _gru1632_case(cuda, b, h16, w16, ch, 50, cx0=cx0)
     with torch.no_grad():
         got = stream.fused_gru1632(*args)
         serial = _gru1632_serial(*args)
         plain = stream.gru1632_plain(*args)
+        _assert_steps_within_band(*args)
     torch.cuda.synchronize()
     for g_, s_, p_ in zip(got, serial, plain):
         assert torch.equal(g_, s_)
@@ -220,12 +253,13 @@ def test_gpu_gru1632_kernel_matches_plain_and_serial(cuda, b, h16, w16, ch):
 
 
 @pytest.mark.gpu
-def test_gpu_gru1632_kernel_integer_inputs(cuda):
+@pytest.mark.parametrize("b,h16,w16,ch,cx0", [(2, 12, 22, 32, 32), (1, 22, 34, 128, 32)])
+def test_gpu_gru1632_kernel_integer_inputs(cuda, b, h16, w16, ch, cx0):
     """Integer weights and inputs: every conv sum of gru32's gates is an
     exact integer, so z, r (sigmoid of an integer) and r*h round alike on
     both routes; the kernel equals the serial chain bit for bit and its
     plain version within the tolerance, on all but a few elements exactly."""
-    args = _gru1632_case(cuda, 2, 12, 22, 32, 60, ints=True)
+    args = _gru1632_case(cuda, b, h16, w16, ch, 60, ints=True, cx0=cx0)
     with torch.no_grad():
         got = stream.fused_gru1632(*args)
         serial = _gru1632_serial(*args)
@@ -655,10 +689,12 @@ def test_gpu_resident_pack8_matches_serial_bitwise(cuda, monkeypatch, b, h, w, c
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("head_on", [True, False])
 @pytest.mark.parametrize("b,h,w,ch,parts", [(2, 7, 13, 64, (64, 32)), (1, 24, 78, 128, (128,))])
-def test_gpu_conv_gru_lane8_matches_plain(cuda, b, h, w, ch, parts):
-    """The ConvGRU kernel on an int8 czrq, with the head; the per-sample
-    scale (sample 1 at 9x the contrast) picked by the pixel's sample."""
+def test_gpu_conv_gru_lane8_matches_plain(cuda, b, h, w, ch, parts, head_on):
+    """The ConvGRU kernel on an int8 czrq, with the head and without; the
+    per-sample scale (sample 1 at 9x the contrast) picked by the pixel's
+    sample."""
     from raft_stereo_tpu_torch import kernels
     gru, head, _ = _modules_on(cuda, ch, sum(parts), 110)
     g = torch.Generator(device=cuda).manual_seed(111)
@@ -668,7 +704,8 @@ def test_gpu_conv_gru_lane8_matches_plain(cuda, b, h, w, ch, parts):
     ctx = [(torch.randn((b, h, w, ch), generator=g, device=cuda) * 0.3) for _ in range(3)]
     ctx[0][-1] *= 9.0
     with torch.no_grad():
-        wts, hw = stream.gru_weights(gru, bf, "gru08"), stream.head_weights(head, bf)
+        wts = stream.gru_weights(gru, bf, "gru08")
+        hw = stream.head_weights(head, bf) if head_on else None
         lane = quantize_feature8(stream.prepare_gru_context(gru, [c.to(bf) for c in ctx], bf))
         kernels.reset_launches()
         got_h, got_dx = stream.fused_conv_gru(wts, hst, lane, *xs, head=hw)
@@ -677,15 +714,18 @@ def test_gpu_conv_gru_lane8_matches_plain(cuda, b, h, w, ch, parts):
     torch.cuda.synchronize()
     assert counts == ({"conv_gru:gru08": 1}, {"conv_gru:gru08:lane8": 1})
     assert float((got_h.float() - ref_h.float()).abs().max()) <= 2.0 ** -5
+    if not head_on:
+        assert got_dx is None and ref_dx is None
+        return
     dx_rms = float(ref_dx.square().mean().sqrt())
     assert float((got_dx - ref_dx).abs().max()) <= 2.0 ** -5 * dx_rms
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h16,w16,ch", [(2, 10, 26, 32), (1, 48, 156, 128)])
-def test_gpu_gru1632_lane8_matches_serial_bitwise(cuda, b, h16, w16, ch):
+@pytest.mark.parametrize("b,h16,w16,ch,cx0", GRU1632_TILING)
+def test_gpu_gru1632_lane8_matches_serial_bitwise(cuda, b, h16, w16, ch, cx0):
     from raft_stereo_tpu_torch import kernels
-    args = list(_gru1632_case(cuda, b, h16, w16, ch, 112))
+    args = list(_gru1632_case(cuda, b, h16, w16, ch, 112, cx0=cx0))
     args[4], args[5] = quantize_feature8(args[4]), quantize_feature8(args[5])
     kernels.reset_launches()
     with torch.no_grad():
@@ -695,6 +735,8 @@ def test_gpu_gru1632_lane8_matches_serial_bitwise(cuda, b, h16, w16, ch):
     torch.cuda.synchronize()
     assert kernels.variants == {"gru1632:lane8": 1, "conv_gru:gru16:lane8": 1,
                                 "conv_gru:gru32:lane8": 1}
+    with torch.no_grad():
+        _assert_steps_within_band(*args)
     for g_, s_, p_ in zip(got, serial, plain):
         assert torch.equal(g_, s_)
         assert float((g_.float() - p_.float()).abs().max()) <= 2.0 ** -5

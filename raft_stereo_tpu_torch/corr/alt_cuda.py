@@ -16,7 +16,10 @@ l's ``W2 // 2^l``.
 level, the dot products of f1 with the pooled f2 vectors at the 2r+2 whole
 positions around ``x / 2^l``, accumulated in fp32, times ``1/sqrt(D)`` in
 fp32, zero outside the row, then the lookup's fp32 lerp and one downcast
-to the feature maps' dtype. The volume is never rounded. On CPU tensors it
+to the feature maps' dtype. The volume is never rounded. The kernel
+computes, for each tile of 64 pixels of a row, the dot block of the tile
+with the window of f2 positions its coordinates reach (bf16 on the tensor
+cores, fp32 with CUDA-core FMAs). On CPU tensors it
 takes :func:`lookup_plain`, which computes the full row product in fp32
 from the same pooled rows and gathers from it, a few image rows at a time
 (the JAX package's ``_masked_alt_xla``). The two agree up to fp32
@@ -37,10 +40,11 @@ from raft_stereo_tpu_torch.corr.alt import feature_pyramid
 from raft_stereo_tpu_torch.corr.reg import lookup_pyramid
 from raft_stereo_tpu_torch.corr.reg_cuda import MAX_LEVELS, level_widths
 
-# csrc/corr_alt.cu: a lane loads 16 bytes at a time, at most kMaxChunks
-# times a vector; a level's 2r+2 dots are at most kMaxTaps.
+# csrc/corr_alt.cu: D a multiple of 8 bf16 or 4 fp32 values (16 bytes: the
+# rows its TMA loads), at most 16 slabs of 64 (bf16) or kMaxD32 (fp32); a
+# level's 2r+2 dots are at most kMaxTaps.
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
-_MAX_CHUNKS = 4
+_MAX_D = {torch.bfloat16: 1024, torch.float32: 512}
 _MAX_TAPS = 16
 
 
@@ -109,9 +113,9 @@ def lookup(ops: AltOperands, coords_x: torch.Tensor) -> torch.Tensor:
     if dtype not in _VEC:
         raise TypeError(f"alt kernel takes bf16 or fp32 feature maps, got {dtype}")
     vec = _VEC[dtype]
-    if d % vec or d > 32 * vec * _MAX_CHUNKS:
+    if d % vec or d > _MAX_D[dtype]:
         raise ValueError(f"alt kernel takes D a multiple of {vec} up to "
-                         f"{32 * vec * _MAX_CHUNKS} for {dtype}, got {d}")
+                         f"{_MAX_D[dtype]} for {dtype}, got {d}")
     if coords_x.dtype != torch.float32 or coords_x.shape != (ops.b, ops.h, ops.w1):
         raise ValueError(f"coords_x must be fp32 of shape {(ops.b, ops.h, ops.w1)}, "
                          f"got {coords_x.dtype} {tuple(coords_x.shape)}")

@@ -2,8 +2,9 @@
 // through tensor maps, mbarriers, ldmatrix and wgmma with A in registers and
 // B read from 128-byte-swizzled shared memory through a descriptor.
 //
-// Included by enc_pass.cu (the encoder's 3x3 pass) and loop_conv_sm90.cuh
-// (the refinement loop's engine: motion, gru08 + head, the resident kernel).
+// Included by enc_pass.cu (the encoder's 3x3 pass), enc_stem.cu (the stem),
+// corr_alt.cu (the alt correlation) and loop_conv_sm90.cuh (the refinement
+// loop's engine: motion, gru08 + head, the resident kernel).
 //
 // Layout shared by TMA and the readers: a box whose innermost dimension is
 // 64 bf16 (128 bytes) lands with CU_TENSOR_MAP_SWIZZLE_128B as rows of 128
@@ -15,10 +16,13 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
+#include <mutex>
+#include <unordered_map>
 
 namespace rst {
 namespace sm90 {
@@ -152,6 +156,23 @@ struct Wgmma;
 
 template <>
 struct Wgmma<64> {
+  // A from shared memory too, K-major through descriptor `a` as B is.
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, "
+        "p, 1, 1, 0, 0;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
   static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -274,18 +295,62 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first, strides in bytes
-// of dimensions 1..rank-1), a box of `box` elements, 128B swizzle: reads
-// outside the tensor fill zeros. Returns 0 or a cudaError_t.
+// of dimensions 1..rank-1), a box of `box` elements, 128B swizzle unless
+// asked otherwise: reads outside the tensor fill zeros. Returns 0 or a
+// cudaError_t.
 inline int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorInitializationError;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                         const_cast<void*>(base), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16_map, cached on everything it encodes (pointer, shape, strides, box,
+// swizzle): a loop encodes the same few maps every iteration, since the
+// caching allocator hands its tensors the same addresses. Returns 0 or a
+// cudaError_t.
+inline int cached_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  struct Key {
+    uint64_t v[15];
+    bool operator==(const Key& o) const { return std::memcmp(v, o.v, sizeof v) == 0; }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      uint64_t h = 1469598103934665603ull;
+      for (uint64_t x : k.v) h = (h ^ x) * 1099511628211ull;
+      return (size_t)h;
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  Key key{};
+  key.v[0] = reinterpret_cast<uintptr_t>(base);
+  key.v[1] = (uint64_t)rank;
+  for (int i = 0; i < rank; ++i) {
+    key.v[2 + i] = dims[i];
+    key.v[6 + i] = box[i];
+    if (i > 0) key.v[9 + i] = strides[i - 1];
+  }
+  key.v[14] = (uint64_t)swizzle;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  const int err = bf16_map(map, base, rank, dims, strides, box, swizzle);
+  if (err) return err;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
 }
 
 }  // namespace sm90

@@ -47,9 +47,6 @@
 #pragma once
 
 #include <cstdint>
-#include <cstring>
-#include <mutex>
-#include <unordered_map>
 
 #include "enc_conv_sm90.cuh"
 #include "rounding.cuh"
@@ -455,45 +452,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 
 // -- host ------------------------------------------------------------------------------
 
-// A tensor map from cuTensorMapEncodeTiled, cached on everything it encodes
-// (pointer, shape, strides, box): the loop encodes the same few maps every
-// iteration, since the caching allocator hands its scratch the same
-// addresses. Returns 0 or a cudaError_t.
-inline int cached_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
-  struct Key {
-    uint64_t v[14];
-    bool operator==(const Key& o) const { return std::memcmp(v, o.v, sizeof v) == 0; }
-  };
-  struct Hash {
-    size_t operator()(const Key& k) const {
-      uint64_t h = 1469598103934665603ull;
-      for (uint64_t x : k.v) h = (h ^ x) * 1099511628211ull;
-      return (size_t)h;
-    }
-  };
-  static std::mutex mu;
-  static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  Key key{};
-  key.v[0] = reinterpret_cast<uintptr_t>(base);
-  key.v[1] = (uint64_t)rank;
-  for (int i = 0; i < rank; ++i) {
-    key.v[2 + i] = dims[i];
-    key.v[6 + i] = box[i];
-    if (i > 0) key.v[9 + i] = strides[i - 1];
-  }
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return 0;
-  }
-  const int err = sm90::bf16_map(map, base, rank, dims, strides, box);
-  if (err) return err;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
+using sm90::cached_map;
 
 // An input part of a conv: an NHWC map of `c` channels (a multiple of 8).
 struct Part {

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "resident_counters": ("rst_resident_counters", [_I, _I], "resident"),
     "resident_plan": ("rst_resident_plan", [ctypes.POINTER(_I)], "resident"),
     "enc_stem": ("rst_enc_stem", [_P, _P, _P, _I, _I, _P, _P, _P, _P]),
+    # A second symbol of csrc/enc_stem.cu: the stem's plan.
+    "enc_stem_plan": ("rst_enc_stem_plan", [_I, _I, ctypes.POINTER(_I)], "enc_stem"),
     "enc_pass": ("rst_enc_pass",
                  [_I, _I] + [_P] * 6 + [_I, _I, _I, _P, _P, _I] + [_P] * 7),
     # A second symbol of csrc/enc_pass.cu: the pass's launch plan.

@@ -62,9 +62,11 @@ Normed = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 ConvWB = Tuple[torch.Tensor, Optional[torch.Tensor]]  # OIHW fp32 weight, fp32 bias
 
 _KINDS = {"raw1": 0, "mid1": 1, "mid2": 2}
-_STEM_BM = 64      # csrc/enc_stem.cu kStemBM
-_STEM_BLOCKS = 528  # csrc/enc_stem.cu kStemBlocks: rows of its partial sums
-_STEM_K = 160      # csrc/enc_stem.cu kStemK: 147 taps padded
+# The stem kernel's weight layout (csrc/enc_stem.cu kK, kTapRow; the kernel's
+# plan reports both, and the wrapper holds them to these): K runs dy-major,
+# 22 a tap row dy (its 7 x 3 taps, then a zero), 154 padded to 160.
+_STEM_K = 160
+_STEM_TAP_ROW = 22
 
 
 def fold_bn(conv, bn) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,11 +256,23 @@ def _bias_f32(bias: Optional[torch.Tensor], cout: int, device) -> torch.Tensor:
 
 
 def _stem_layout(w: torch.Tensor, bias, dev):
-    """The stem kernel's weights, [160][64] bf16 (147 taps, zero rows
-    after), and its fp32 bias."""
-    wk = torch.zeros((_STEM_K, 64), dtype=torch.bfloat16, device=dev)
-    wk[:147] = w.permute(2, 3, 1, 0).reshape(147, 64)
-    return wk, _bias_f32(bias, 64, dev)
+    """The stem kernel's weights, [64][160] bf16: output channel n's row holds
+    tap (dy, dx, ci) at ``dy * 22 + dx * 3 + ci`` and zeros elsewhere (so a
+    pair of K values is two consecutive values of one image row), K-major as
+    the kernel's wgmma reads B; and its fp32 bias."""
+    wk = torch.zeros((64, 7, _STEM_TAP_ROW), dtype=torch.bfloat16, device=dev)
+    wk[:, :, :21] = w.permute(0, 2, 3, 1).reshape(64, 7, 21)
+    wk = F.pad(wk.reshape(64, 7 * _STEM_TAP_ROW), (0, _STEM_K - 7 * _STEM_TAP_ROW))
+    return wk.contiguous(), _bias_f32(bias, 64, dev)
+
+
+def stem_plan(h: int, w: int) -> Tuple[int, int, int]:
+    """The stem kernel's plan for an ``h x w`` image, from the kernel: the
+    rows of its partial statistics (one a block of its constant grid), and
+    the K of its weight layout and of one tap row."""
+    plan = (ctypes.c_int * 3)()
+    kernels.check("enc_stem_plan", kernels.entry("enc_stem_plan")(h, w, plan))
+    return plan[0], plan[1], plan[2]
 
 
 def stem(x: torch.Tensor, w, bias: Optional[torch.Tensor], *,
@@ -277,10 +291,13 @@ def stem(x: torch.Tensor, w, bias: Optional[torch.Tensor], *,
                          f"w {tuple(cw.w.shape)}")
     wk, b = cw.layout("enc_stem", dev, _stem_layout)
     _check("bias", b, (64,), torch.float32, dev)
+    rows, k, tap_row = stem_plan(hh, ww)
+    if (k, tap_row) != (_STEM_K, _STEM_TAP_ROW):
+        raise RuntimeError(f"the stem kernel's weight layout is K {k}, {tap_row} a tap row; "
+                           f"_stem_layout builds {_STEM_K}, {_STEM_TAP_ROW}")
     out = torch.empty((1, hh, ww, 64), dtype=torch.bfloat16, device=dev)
     partial = st = None
     if stats:
-        rows = min(-(-hh * ww // _STEM_BM), _STEM_BLOCKS)
         partial = torch.empty((rows, 2, 64), dtype=torch.float32, device=dev)
         st = torch.empty((2, 64), dtype=torch.float32, device=dev)
     fn = kernels.entry("enc_stem")

@@ -23,7 +23,9 @@ path's pooled fmap2 pyramid and of the two per-iteration resizes, each run
 alone. Then chip_smoke.py's Middlebury-F pair (2016x2976) with and without
 RAFT_LANE_PACK8=1: the same records for one frame of each, and the host
 wall ms of eight frames taken in turns (bf16, lane8, lane8, bf16, twice),
-so the two are compared inside one call.
+so the two are compared inside one call; then the same pair with
+``alt_cuda``, the reference's own Middlebury command (the alt correlation
+at full resolution), one frame's records.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -48,7 +50,7 @@ def _group(name: str) -> str:
     n = name.lower()
     if "corr_lookup_kernel" in n:
         return "port:corr_lookup"
-    if "corr_alt_kernel" in n:
+    if "corr_alt_bf16_kernel" in n or "corr_alt_f32_kernel" in n:
         return "port:corr_alt"
     if "loop_conv_kernel" in n:
         return "port:loop_conv_sm90 engine (motion stages 2-3, the GRU steps)"
@@ -58,7 +60,7 @@ def _group(name: str) -> str:
         return "port:gru1632 (gru32 + gru16)"
     if "resident_kernel" in n:
         return "port:resident (lookup + motion + gru08 + head)"
-    if any(s in n for s in ("enc_stem_kernel", "pass_sm90_kernel", "quant_map_kernel",
+    if any(s in n for s in ("stem_sm90_kernel", "pass_sm90_kernel", "quant_map_kernel",
                             "point3_kernel", "point2_kernel", "stats_reduce")):
         return ("port:encoder kernels (stem, 3x3 pass and its q8 quantize pass, "
                 "point3/point2, statistics)")
@@ -115,6 +117,10 @@ def main() -> int:
         chip_smoke._with_env(env, lambda: _profile_frame(route, model, left, right))
     print(json.dumps({"route": "Middlebury-F, bf16 and lane8 in turns",
                       "frame_wall_ms": _in_turns(model, left, right, lane)}))
+    del model
+    torch.cuda.empty_cache()
+    _profile_frame("Middlebury-F alt_cuda", chip_smoke.seeded_model("cuda", "alt_cuda"), left,
+                   right)
     return 0
 
 

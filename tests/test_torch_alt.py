@@ -105,6 +105,38 @@ def test_alt_cuda_plain_matches_jax_alt_tpu(rng, kind, b, w, d):
         assert _ulps(got, ref) <= 1.0
 
 
+def _frame_field(rng, b, h, w):
+    """A frame-like x field, as the refinement loop's coordinates are: each
+    pixel's column less a smooth disparity of 0 to W/8, up to 2 px of noise;
+    the first columns pushed past the row's left end and the last ones past
+    its right end."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    disp = (w / 8) * 0.5 * (1 + np.sin(2 * np.pi * (1.3 * xx + 0.7 * yy)))
+    coords = np.arange(w)[None] - disp + rng.uniform(-2, 2, (h, w))
+    coords[:, :4] -= 10.0
+    coords[:, -4:] += 10.0
+    return np.broadcast_to(coords, (b, h, w)).astype(np.float32).copy()
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16"])
+def test_alt_cuda_plain_matches_jax_alt_tpu_on_a_frame_field(rng, kind):
+    """The kernel's windows on the card follow the coordinates; here its
+    plain version on a smooth frame-like field, with positions past both
+    ends of the row, against JAX ``alt_tpu`` (the Pallas kernel in
+    interpret mode), at the tolerances above."""
+    b, h, w, d = 1, 3, 150, 16
+    f1 = rng.standard_normal((b, h, w, d)).astype(np.float32)
+    f2 = rng.standard_normal((b, h, w, d)).astype(np.float32)
+    coords = _frame_field(rng, b, h, w)
+    ref = _jax("alt_tpu", f1, f2, coords, kind)
+    got = _port("alt_tpu", f1, f2, coords, kind)
+    assert got.shape == ref.shape == (b, h, w, 36)
+    if kind == "fp32":
+        assert float(np.abs(got - ref).max()) <= 1e-5 * float(np.abs(ref).max())
+    else:
+        assert _ulps(got, ref) <= 1.0
+
+
 def test_alt_plain_and_alt_cuda_agree_with_reg(rng):
     """Sampling then dotting is the reg lookup up to association, in fp32."""
     f1, f2, coords = _case(rng, 1, 3, 45, 16)

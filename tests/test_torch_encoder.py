@@ -186,6 +186,33 @@ def test_stem_matches_pallas(rng, kind, stats):
         assert st is None and jst is None
 
 
+@pytest.mark.parametrize("hh,ww", [(16, 24), (8, 70)])
+def test_stem_layout_as_a_gemm_matches_plain_and_pallas(rng, hh, ww):
+    """The stem kernel's weight layout (``_stem_layout``: K dy-major, 22 a
+    tap row dy, 160 in all) applied as one GEMM to an im2col of the image in
+    the same K order, in fp32 with one rounding as the kernel sums, against
+    ``stem_plain`` and JAX's ``_run_stem`` (bf16, one ulp): a slip in the
+    layout fails here, not only on the card."""
+    pc = init_conv(jax.random.PRNGKey(3), 7, 7, 3, 64)
+    jx, tx = _both("bf16", rng.uniform(-1, 1, (1, hh, ww, 3)))
+    conv = _load(Conv2d(3, 64, 7, padding=3), lambda out: transplant._conv(out, "m", _np_tree(pc)))
+    wk, b = enc._stem_layout(conv.weight.detach(), conv.bias.detach(), torch.device("cpu"))
+    assert tuple(wk.shape) == (64, enc._STEM_K) and wk.dtype == torch.bfloat16
+    xp = torch.nn.functional.pad(tx.float(), (0, 0, 3, 3, 3, 3))[0]
+    cols = torch.zeros((hh, ww, enc._STEM_K))
+    for dy in range(7):
+        for dx in range(7):
+            k = dy * enc._STEM_TAP_ROW + 3 * dx
+            cols[:, :, k:k + 3] = xp[dy:dy + hh, dx:dx + ww]
+    got = (cols.reshape(hh * ww, -1) @ wk.float().T + b).reshape(1, hh, ww, 64).bfloat16()
+    with torch.no_grad():
+        plain, _ = enc.stem_plain(tx, conv.weight, conv.bias, stats=False)
+    packed, _ = jx_pe._run_stem(jx_pe.stem_halves(jx), jx_pe._stem_weights(pc["w"], JDT["bf16"]),
+                                jx_pe._pack_bias(pc["b"]), hh, ww // 2, JDT["bf16"], False)
+    _hold("bf16", got, plain, PASS_ULPS)
+    _hold("bf16", got, jx_pe._unpack_exit(packed), PASS_ULPS)
+
+
 def _mv(rng, c):
     return (rng.normal(0, 0.3, c).astype(np.float32),
             rng.uniform(0.5, 2.0, c).astype(np.float32))

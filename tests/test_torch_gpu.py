@@ -35,9 +35,13 @@ integer inputs: at a single pixel the statistics are single values, and an
 fp32 sum with cancellation in another order has no 1e-5 bound there.
 
 The alt kernel is held to 1 bf16 ulp (1e-5 of the largest tap in fp32) of
-its plain version, whose fp32 row product sums in another order; the
-lookup's int8 mode (RAFT_CORR_PACK8) to equality, and the resident kernel
-on int8 levels bit for bit to the serial int8 chain.
+its plain version, whose fp32 row product sums in another order, also at
+its windowed design's edges (a tile's coordinates spread over the whole
+row, clustered, at the row's ends, or apart row by row; D at the kernel's
+limits), two runs with equal bits; the lookup's int8 mode (RAFT_CORR_PACK8)
+to equality, and the resident kernel on int8 levels bit for bit to the
+serial int8 chain. The stem's 8 x 64 patch edges, with and without TMA,
+are held to equality on integer inputs.
 
 The int8 context lanes (RAFT_LANE_PACK8): the three GRU kernels on an int8
 czrq container are held to their plain versions with the bf16 mode's
@@ -347,7 +351,7 @@ def test_gpu_resident_kernel_integer_inputs(cuda):
 
 # -- the encoder kernels ------------------------------------------------------------
 
-RAGGED = [(7, 13), (5, 131), (33, 70), (3, 259)]  # odd H and W, H < 8, W off the 128-pixel tile
+RAGGED = [(7, 13), (5, 131), (33, 70), (3, 259)]  # odd H and W, H < 8, W off the 64-pixel tile
 
 
 def _ulps(got, ref):
@@ -514,6 +518,29 @@ def test_gpu_pass_kernel_integer_exact(cuda, kind, stats):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(5, 40), (6, 64), (7, 65), (9, 72), (3, 13), (17, 136),
+                                 (1, 8)])
+def test_gpu_stem_kernel_patch_edges_integer_exact(cuda, h, w):
+    """The stem's 8 x 64 output patches: maps under one patch's height or
+    width and one column past a patch (w = 65, 72, 136), with widths whose
+    rows TMA takes (w a multiple of 8) and whose rows the block loads
+    itself; integer inputs and weights, where every sum is exact: outputs
+    and statistics equal the plain version's, and the plan's partial rows
+    are one a block of the kernel's constant grid."""
+    g = torch.Generator(device=cuda).manual_seed(103)
+    x = torch.randint(-2, 3, (1, h, w, 3), generator=g, device=cuda).to(torch.bfloat16)
+    wt, b = _enc_conv(cuda, 3, 64, 7, 104, ints=True)
+    got, st = enc.stem(x, wt, b, stats=True)
+    again, st2 = enc.stem(x, wt, b, stats=True)
+    ref, st_ref = enc.stem_plain(x, wt, b, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(st, st_ref)
+    assert torch.equal(got, again) and torch.equal(st, st2)
+    rows, k, tap_row = enc.stem_plan(h, w)
+    assert rows == min(-(-h // 8) * -(-w // 64), 132) and (k, tap_row) == (160, 22)
+
+
+@pytest.mark.gpu
 def test_gpu_stem_kernel_integer_exact(cuda):
     g = torch.Generator(device=cuda).manual_seed(98)
     h, w = 11, 45
@@ -592,6 +619,18 @@ def _ulps_of(got, ref):
     return float(((got.float() - r).abs() / ulp).max())
 
 
+def _hold_alt(got, ref, again, dtype):
+    """fp32 within 1e-5 of the largest tap, bf16 within one ulp of each
+    value; two runs with equal bits."""
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        assert _ulps_of(got, ref) <= 1.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,w1,w2,d,levels,radius", [
@@ -613,14 +652,51 @@ def test_gpu_alt_kernel_matches_plain(cuda, dtype, b, h, w1, w2, d, levels, radi
     flat[::10], flat[5::10] = -1e6, 1e6
     got = alt_cuda.lookup(ops, coords)
     ref = alt_cuda.lookup_plain(ops, coords)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == ref.shape
     assert torch.equal(got.view(-1, got.shape[-1])[::5], torch.zeros_like(ref.view(
         -1, ref.shape[-1])[::5]))
-    if dtype == torch.float32:
-        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
-    else:
-        assert _ulps_of(got, ref) <= 1.0
+    _hold_alt(got, ref, alt_cuda.lookup(ops, coords), dtype)
+
+
+def _alt_coords(case, g, b, h, w1, w2, device):
+    """x positions that put the kernel's windows (a tile of 64 pixels of a
+    row, its taps' positions walked in chunks of 64 at bf16, 32 or 16 at
+    fp32) where a case wants them."""
+    col = torch.arange(w1, device=device, dtype=torch.float32).expand(b, h, w1)
+    noise = torch.rand((b, h, w1), generator=g, device=device)
+    if case == "spread":  # every tile's window the whole row: several chunks a level
+        return noise * (w2 + 20) - 10
+    if case == "clustered_and_spread":  # most of a tile within 3 px, every 16th anywhere
+        x = 0.3 * w2 + 3 * noise
+        x[..., ::16] = noise[..., ::16] * (w2 + 20) - 10
+        return x
+    if case == "row_ends":  # the first tile at the row's left end, the rest at its right
+        x = w2 - 8 + 14 * noise
+        x[..., :64] = -6 + 14 * noise[..., :64]
+        return x
+    # "rows_apart": a frame-like field, shifted and stretched row by row and
+    # sample by sample, so each row of the batch has windows of its own.
+    r = torch.arange(b * h, device=device, dtype=torch.float32).reshape(b, h, 1)
+    return col * (0.5 + 0.25 * r) - 3 * r + 4 * noise - 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 64),
+                                     (torch.bfloat16, 1024), (torch.float32, 512)])
+@pytest.mark.parametrize("case", ["spread", "clustered_and_spread", "row_ends", "rows_apart"])
+def test_gpu_alt_kernel_windows(cuda, dtype, d, case):
+    """The windowed design's edges: w1 not a multiple of the 64-pixel tile,
+    windows over several chunks, one tile with clustered and spread
+    coordinates, windows at both ends of the row, rows of one batch with
+    windows of their own, and D at the kernel's limits (1024 bf16, 512
+    fp32): within the plain version's tolerance, equal bits in two runs."""
+    g = torch.Generator(device=cuda).manual_seed(95)
+    b, h, w1, w2 = (2, 3, 100, 300) if d <= 64 else (1, 2, 70, 90)
+    f1 = torch.randn((b, h, w1, d), generator=g, device=cuda).to(dtype)
+    f2 = torch.randn((b, h, w2, d), generator=g, device=cuda).to(dtype)
+    ops = alt_cuda.build_alt_operands(f1, f2, num_levels=4, radius=4)
+    coords = _alt_coords(case, g, b, h, w1, w2, cuda)
+    got = alt_cuda.lookup(ops, coords)
+    _hold_alt(got, alt_cuda.lookup_plain(ops, coords), alt_cuda.lookup(ops, coords), dtype)
 
 
 @pytest.mark.gpu

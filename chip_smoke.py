@@ -23,9 +23,12 @@ Phases, each fatal on failure:
    as ``ms_first``), and the
    same calls' wall ms with the Python wrapper around them (CUDA events,
    ``wrapper_ms`` and ``plain_wall_ms``); and the analytic bound. The alt
-   kernel is also timed on a frame-like coordinate field
-   (``ms_frame_coords``). The gru16+32 and resident kernels must also equal, bit
-   for bit, the serial CUDA chain they replace (``serial_ms``: its device
+   kernel and the lookup are also timed on a frame-like coordinate field
+   (``ms_frame_coords``); the lookup also at the Middlebury-F features
+   (504x744, beside the paths), with the 32-byte sectors its windows reach
+   (``sector_floor_ms``) beside its bound of useful bytes. The gru16+32
+   and resident kernels must also equal, bit for bit, the serial CUDA
+   chain they replace (``serial_ms``: its device
    ms; ``kernel_ms``: the hand-written kernels' own share of ``ms``);
    gru16+32 and its chain also at the Middlebury-F shapes (252x372 and
    126x186, 5 calls after 1), in bf16 and on int8 czrq. The
@@ -48,7 +51,9 @@ Phases, each fatal on failure:
    96x312, 48x156, 24x78, Middlebury-F 504x744; ``library_ms`` the
    F.conv2d of the same conv, without the quantization) and point2 q8 at
    96x312x128 and 504x744x128, both norms, each bit for bit the host
-   quantization of the same kernel's bf16 output; the point2 q8 exit, on
+   quantization of the same kernel's bf16 output (point2 q8 in one launch
+   a call, ``launches_per_call``, counted by the profiler); the point2 q8
+   exit, on
    no model path, runs in four stream_resblock_q8 chains (context and
    feature net layer3[1] at both sizes), whose launches are its row's;
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
@@ -365,41 +370,76 @@ def _randn(shape, gen, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def check_lookup(pack8: bool = False) -> dict:
+def _lookup_sector_bytes(ops, coords) -> int:
+    """Bytes of the 32-byte sectors of the levels that this run's windows
+    reach: a (pixel, level)'s taps inside its row, from max(pos, 0) to
+    min(pos + 2r + 1, w - 1), at the level tensor's own addresses."""
+    x = coords.reshape(-1).float()
+    r = ops.radius
+    rows = ops.levels8 if ops.pack8 else ops.levels
+    p = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+    sectors = 0
+    for l, (lvl, w) in enumerate(zip(rows, ops.widths)):
+        cl = x * (1.0 / (1 << l))
+        pos = torch.clamp(torch.floor(cl), -r - 2, w + r + 1).long() - r
+        lo, hi = pos.clamp_min(0), (pos + 2 * r + 1).clamp_max(w - 1)
+        first = lvl.data_ptr() + (p * w + lo) * lvl.element_size()
+        last = lvl.data_ptr() + (p * w + hi + 1) * lvl.element_size() - 1
+        sectors += int(torch.where(lo <= hi, last // 32 - first // 32 + 1, 0).sum())
+    return 32 * sectors
+
+
+def check_lookup(pack8: bool = False, headline: bool = False) -> dict:
     """Kernel 1 at the main path's shapes: bf16 pyramid of a 96x312 frame,
     coords spread past both ends of the row; with ``pack8`` its int8 levels
-    (RAFT_CORR_PACK8=1). Tolerance 0: the kernel and the plain version do
-    the same fp32 operations in the same order."""
+    (RAFT_CORR_PACK8=1); with ``headline`` at the Middlebury-F features,
+    504x744, which no path of phase 4 looks up (a check beside the paths).
+    Also on a frame-like field (frame_coords; ``ms_frame_coords``).
+    Tolerance 0: the kernel and the plain version do the same fp32
+    operations in the same order. ``bound_ms`` counts the useful bytes;
+    ``sector_floor_ms`` the 32-byte sectors this run's windows reach instead
+    of their taps' bytes, with the coords and the outputs."""
     from raft_stereo_tpu_torch.corr import reg_cuda
     g = _gen(1)
-    h, w = FEAT
+    h, w = ALT_HEADLINE_FEAT if headline else FEAT
     f1 = _randn((1, h, w, 256), g)
     f2 = _randn((1, h, w, 256), g)
     ops = _with_env({"RAFT_CORR_PACK8": "1" if pack8 else "0"},
                     lambda: reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4))
+    del f1, f2
     if ops.pack8 != pack8:
         raise SystemExit(f"RAFT_CORR_PACK8={int(pack8)} built pack8={ops.pack8} operands")
     coords = torch.rand((1, h, w), generator=g, device="cuda") * (w + 40) - 20
-    got = reg_cuda.lookup(ops, coords)
-    ref = reg_cuda.lookup_plain(ops, coords)
+    fcoords = frame_coords(g, h, w)
+    err = max(_max_err(reg_cuda.lookup(ops, c), reg_cuda.lookup_plain(ops, c))
+              for c in (coords, fcoords))
     torch.cuda.synchronize()
-    err = _max_err(got, ref)
     npix = h * w
     k = 9
     # coords; the 2r+2 taps of 4 levels (bf16, or int8 and the scales); out.
     tap_bytes = 1 if pack8 else 2
-    nbytes = npix * (4 + 4 * (k + 1) * tap_bytes + 4 * k * 2) + (16 if pack8 else 0)
+    scale_bytes = 16 if pack8 else 0
+    nbytes = npix * (4 + 4 * (k + 1) * tap_bytes + 4 * k * 2) + scale_bytes
     flops = npix * 4 * k * 3 + (npix * 4 * (k + 1) if pack8 else 0)
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_FP32)
+    floor = {}
+    for suffix, c in (("", coords), ("_frame_coords", fcoords)):
+        floor_bytes = _lookup_sector_bytes(ops, c) + npix * (4 + 4 * k * 2) + scale_bytes
+        floor[f"sector_floor_bytes{suffix}"] = floor_bytes
+        floor[f"sector_floor_ms{suffix}"] = floor_bytes / PEAK_BYTES * 1e3
+    frame = _checked_ms(lambda: reg_cuda.lookup(ops, fcoords))
     out = {"name": "corr_lookup:pack8" if pack8 else "corr_lookup", "counter": "corr_lookup",
            "tol": 0.0, "max_abs_err": err,
            **_timings(lambda: reg_cuda.lookup(ops, coords),
                       lambda: reg_cuda.lookup_plain(ops, coords)),
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms_frame_coords": frame["ms"], "events_ms_frame_coords": frame["events_ms"],
+           "bound_ms": bound_ms, "bound_by": bound_by, **floor,
            "shape": f"1x{h}x{w}, 4 levels, r=4, {'int8' if pack8 else 'bf16'}"}
     if pack8:
         out.update(variant="corr_lookup:pack8", on_path="pack8_serial",
                    replaces="raft_stereo_tpu/corr/pallas_reg.py:745")
+    if headline:
+        out.update(name=f"{out['name']} {h}x{w}", on_path=None)
     return out
 
 
@@ -986,12 +1026,30 @@ def _q8_steps(lane, ref) -> float:
     return float(d / torch.maximum(lane.scale, ref.scale))
 
 
+def _launches_per_call(fn, reps: int = 5) -> int:
+    """Kernels, fills and copies one call of ``fn`` puts on the card
+    (torch.profiler over ``reps`` calls, rounded: a lost event does not
+    change the count)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return round(n / reps)
+
+
 def _q8_result(variant, path, hw, shape, lane, again, host, ref, nbytes, flops, peak, kernel,
-               plain, bf16_kernel, own, library=None, library_note=None) -> dict:
+               plain, bf16_kernel, own, library=None, library_note=None,
+               launches_per_call=None) -> dict:
     """The record of a quantize-on-exit check: bit for bit the host
     quantization of the same kernel's bf16 output, equal over two runs, and
     within Q8_STEPS of the plain version's container; ``bf16_ms`` the bf16
-    mode's device ms in this call."""
+    mode's device ms in this call; ``launches_per_call`` what one call puts
+    on the card, beside ``own``, the names of the kernels it launches, and
+    held to ``launches_per_call`` where that is given."""
     torch.cuda.synchronize()
     h, w = hw
     bitwise = torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
@@ -999,11 +1057,14 @@ def _q8_result(variant, path, hw, shape, lane, again, host, ref, nbytes, flops, 
     steps = _q8_steps(lane, ref)
     bound_ms, bound_by = _bound(nbytes, flops, peak)
     reps, warmup = (20, 3) if h * w <= FEAT[0] * FEAT[1] else (5, 1)
+    launches = _launches_per_call(kernel)
     out = {"name": f"{variant} {h}x{w}", "counter": variant.split(":")[0], "variant": variant,
            "on_path": path, "tol": Q8_STEPS, "tol_unit": "quantization steps",
            "max_steps": steps, "max_abs_err": steps * float(lane.scale),
            "bitwise_equal_host_quantization": bitwise, "deterministic": same,
-           "scale": float(lane.scale), "ok": bitwise and same and steps <= Q8_STEPS,
+           "scale": float(lane.scale), "own": list(own), "launches_per_call": launches,
+           "ok": bitwise and same and steps <= Q8_STEPS
+           and launches_per_call in (None, launches),
            **_timings(kernel, plain, reps, warmup, own),
            "bf16_ms": _device_ms(bf16_kernel, reps, warmup),
            "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
@@ -1050,7 +1111,8 @@ def check_pass_q8(path, h: int, w: int) -> dict:
 
 
 def check_point2_q8(path, h: int, w: int, norm: bool) -> dict:
-    """point2 with the quantize-on-exit epilogue (``_point2_q8_kernel``)."""
+    """point2 with the quantize-on-exit epilogue (``_point2_q8_kernel``):
+    one cooperative launch a call, no fill before it."""
     from raft_stereo_tpu_torch.corr.reg_cuda import quantize_feature8
     from raft_stereo_tpu_torch.ops import encoder as enc
     g = _gen(29)
@@ -1070,7 +1132,8 @@ def check_point2_q8(path, h: int, w: int, norm: bool) -> dict:
     return _q8_result(
         f"enc_point2:{_norm_name(norm)}/128/q8", path, (h, w), f"1x{h}x{w}x128, bf16 -> int8",
         kernel(), kernel(), quantize_feature8(bf16_kernel()), plain(), npix * 128 * 5,
-        8.0 * npix * 128, PEAK_FP32, kernel, plain, bf16_kernel, ("point2_kernel",))
+        8.0 * npix * 128, PEAK_FP32, kernel, plain, bf16_kernel, ("point2_q8_kernel",),
+        launches_per_call=1)
 
 
 def check_resblock_q8_chains(model) -> dict:
@@ -1237,6 +1300,7 @@ def phase_kernels() -> tuple:
                check_gru1632(headline=True), check_resident(),
                *encoder_checks(), check_alt("alt", *FEAT),
                check_alt("alt_headline", *ALT_HEADLINE_FEAT), check_lookup(pack8=True),
+               check_lookup(headline=True), check_lookup(pack8=True, headline=True),
                check_resident(pack8=True), *lane8_checks()]
     sources = {"corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu",
                                "raft_stereo_tpu/corr/pallas_reg.py:730", reg_cuda.lookup),

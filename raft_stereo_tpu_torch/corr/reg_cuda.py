@@ -44,7 +44,8 @@ from raft_stereo_tpu_torch.config import corr_pack8_on
 from raft_stereo_tpu_torch.corr.reg import lookup_pyramid
 from raft_stereo_tpu_torch.ops.pooling import avg_pool_last
 
-MAX_LEVELS = 8  # csrc/corr_lookup.cu kMaxLevels
+MAX_LEVELS = 8  # csrc/corr_taps.cuh kMaxLevels
+MAX_RADIUS = 13  # csrc/corr_lookup.cu: the widest window of fp32 levels
 
 
 def level_widths(w2: int, num_levels: int) -> Tuple[int, ...]:
@@ -69,10 +70,21 @@ class CorrOperands:
     w1: int
     levels8: Optional[List[torch.Tensor]] = None
     scales: Optional[torch.Tensor] = None
+    # What kernel_levels built for the kernels, with the tensors it was
+    # built from; rebuilt when the device or any of those tensors changes.
+    _kernel_args: Optional["_KernelArgs"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def pack8(self) -> bool:
         return self.levels8 is not None
+
+
+class _KernelArgs(NamedTuple):
+    device: torch.device
+    rows: Tuple[torch.Tensor, ...]
+    scales: Optional[torch.Tensor]
+    args: tuple  # kernel_levels' result
 
 
 def quantize_levels8(levels: List[torch.Tensor], b: int
@@ -171,7 +183,14 @@ def lookup_plain(ops: CorrOperands, coords_x: torch.Tensor,
 def kernel_levels(ops: CorrOperands, device: torch.device):
     """The level rows, their widths, the mode (0 fp32, 1 bf16, 2 int8 with
     scales) and the scales' pointer, as the kernels take them (ctypes);
-    raises on operands they do not take."""
+    raises on operands they do not take. Checked and built once for the
+    operands' tensors and ``device``, cached on ``ops``."""
+    rows, scales = (ops.levels8, ops.scales) if ops.pack8 else (ops.levels, None)
+    cached = ops._kernel_args
+    if (cached is not None and cached.device == device and cached.scales is scales
+            and len(cached.rows) == len(rows)
+            and all(a is b for a, b in zip(cached.rows, rows))):
+        return cached.args
     dtype = ops.levels[0].dtype
     nlev = len(ops.levels)
     npix = ops.b * ops.h * ops.w1
@@ -179,22 +198,22 @@ def kernel_levels(ops: CorrOperands, device: torch.device):
         raise TypeError(f"corr kernels take bf16 or fp32 volumes, got {dtype}")
     if not 1 <= nlev <= MAX_LEVELS:
         raise ValueError(f"corr kernels take 1..{MAX_LEVELS} levels, got {nlev}")
-    rows, want, scales = ops.levels, dtype, None
-    if ops.pack8:
-        rows, want, scales = ops.levels8, torch.int8, ops.scales
-        if (scales.device != device or scales.dtype != torch.float32
-                or scales.shape != (ops.b, nlev) or not scales.is_contiguous()):
-            raise ValueError(f"pack8 scales must be contiguous fp32 {(ops.b, nlev)} "
-                             "on the coords' device")
+    want = torch.int8 if ops.pack8 else dtype
+    if ops.pack8 and (scales.device != device or scales.dtype != torch.float32
+                      or scales.shape != (ops.b, nlev) or not scales.is_contiguous()):
+        raise ValueError(f"pack8 scales must be contiguous fp32 {(ops.b, nlev)} "
+                         "on the coords' device")
     for lvl, w in zip(rows, ops.widths):
         if (lvl.device != device or lvl.dtype != want
                 or lvl.shape != (npix, w) or not lvl.is_contiguous()):
             raise ValueError(f"corr levels must be contiguous (B*H*W1, width) {want} "
                              "rows on the coords' device")
     mode = 2 if ops.pack8 else int(dtype == torch.bfloat16)
-    return ((ctypes.c_void_p * nlev)(*[lvl.data_ptr() for lvl in rows]),
+    args = ((ctypes.c_void_p * nlev)(*[lvl.data_ptr() for lvl in rows]),
             (ctypes.c_int * nlev)(*ops.widths), mode,
             None if scales is None else scales.data_ptr())
+    ops._kernel_args = _KernelArgs(device, tuple(rows), scales, args)
+    return args
 
 
 def lookup(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
@@ -207,6 +226,8 @@ def lookup(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
     if coords_x.dtype != torch.float32 or coords_x.shape != (ops.b, ops.h, ops.w1):
         raise ValueError(f"coords_x must be fp32 of shape {(ops.b, ops.h, ops.w1)}, "
                          f"got {coords_x.dtype} {tuple(coords_x.shape)}")
+    if not 0 <= ops.radius <= MAX_RADIUS:
+        raise ValueError(f"the lookup kernel takes radius 0..{MAX_RADIUS}, got {ops.radius}")
     rows, widths, mode, scales = kernel_levels(ops, coords_x.device)
     coords = coords_x.contiguous()
     nlev = len(ops.levels)

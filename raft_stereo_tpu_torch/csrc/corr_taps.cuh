@@ -1,7 +1,10 @@
-// The correlation lookup's per-pixel tap gather and lerp, shared by the
+// The correlation lookup's per-pixel tap arithmetic, shared by the
 // standalone lookup (corr_lookup.cu) and the resident iteration
 // (resident.cu), as the JAX package shares gather_level_taps between its
-// two kernels: one body, so the two routes give the same bits.
+// two kernels: one tap_coord, tap_f32 and lerp_tap, so the two routes give
+// the same bits. The two load their taps differently: the lookup a vector
+// window a (pixel, level), the resident kernel's stage 1 one scalar a tap
+// (gather_level_taps).
 //
 // Per pixel and level l (raft_stereo_tpu/corr/pallas_reg.py, plain mode):
 //   cl = x / 2^l, i0 = floor(cl), frac = cl - i0
@@ -59,23 +62,42 @@ __device__ __forceinline__ float level_scale(const Levels<int8_t>& lv, int l, in
   return lv.scale[(p / lv.sample_pixels) * lv.nlev + l];
 }
 
+// Where pixel p's taps sit on level l of width w: the first tap's position
+// and the lerp's weights. Positions this far outside the row give all-zero
+// taps either way; the clamp only keeps the integer conversion in range.
+struct TapCoord {
+  int pos;          // position of tap 0: floor(x / 2^l) - r
+  float frac, omf;  // frac and 1 - frac
+};
+
+__device__ __forceinline__ TapCoord tap_coord(float x, int l, int w, int radius) {
+  const float cl = x * (1.0f / (float)(1 << l));
+  const float i0f = floorf(cl);
+  TapCoord c;
+  c.frac = cl - i0f;
+  c.omf = 1.0f - c.frac;
+  c.pos = (int)fminf(fmaxf(i0f, (float)(-radius - 2)), (float)(w + radius + 1)) - radius;
+  return c;
+}
+
+// One output tap from its two row taps: the one lerp of every route (the
+// standalone lookup, corr_lookup.cu, and gather_level_taps below).
+__device__ __forceinline__ float lerp_tap(float prev, float next, const TapCoord& c) {
+  return __fadd_rn(__fmul_rn(prev, c.omf), __fmul_rn(next, c.frac));
+}
+
 // The 2r+1 taps of pixel p at level l, written to o[0 .. 2r] (the levels'
-// own type, bf16 for int8 levels).
+// own type, bf16 for int8 levels), with one scalar load a tap (the resident
+// iteration's stage 1).
 template <typename T, typename O>
 __device__ __forceinline__ void gather_level_taps(const Levels<T>& lv, int l, int p, float x,
                                                   int radius, O* o) {
   const int k = 2 * radius + 1;
   const int w = lv.width[l];
   const T* row = lv.row[l] + (size_t)p * w;
-  const float cl = x * (1.0f / (float)(1 << l));
-  const float i0f = floorf(cl);
-  const float frac = cl - i0f;
-  const float omf = 1.0f - frac;
-  // Positions this far outside the row give all-zero taps either way; the
-  // clamp only keeps the integer conversion in range.
-  const int i0 = (int)fminf(fmaxf(i0f, (float)(-radius - 2)), (float)(w + radius + 1));
+  const TapCoord c = tap_coord(x, l, w, radius);
   const float scale = level_scale(lv, l, p);
-  const int pos = i0 - radius;
+  const int pos = c.pos;
   float prev = (pos >= 0 && pos < w) ? tap_f32(row[pos], scale) : 0.0f;
   // Eight taps' loads in flight at a time, then their lerps in order.
   for (int t0 = 0; t0 < k; t0 += 8) {
@@ -88,7 +110,7 @@ __device__ __forceinline__ void gather_level_taps(const Levels<T>& lv, int l, in
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       if (t0 + u >= k) break;
-      o[t0 + u] = from_f32<O>(__fadd_rn(__fmul_rn(prev, omf), __fmul_rn(next[u], frac)));
+      o[t0 + u] = from_f32<O>(lerp_tap(prev, next[u], c));
       prev = next[u];
     }
   }

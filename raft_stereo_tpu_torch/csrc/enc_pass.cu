@@ -438,18 +438,6 @@ __global__ void __launch_bounds__(kPassThreads, PassRegs<N>::kBlocks)
   }
 }
 
-// quant8(v, scale) with a multiply by rcp = 1 / scale in place of the IEEE
-// division where that cannot change the result: for a quotient under 128,
-// v * rcp and v / scale, each rounded, differ by at most 3 * 2^-24 * 128 =
-// 2.3e-5, so their rounded integers differ only within that of a
-// half-integer; within 6.2e-5 of one the exact division decides.
-__device__ __forceinline__ int8_t quant8_fast(float v, float scale, float rcp) {
-  const float t = __fmul_rn(v, rcp);
-  const float frac = fabsf(__fsub_rn(t, truncf(t)));
-  if (fabsf(t) < 127.0f && fabsf(__fsub_rn(frac, 0.5f)) > 6.2e-5f) return (int8_t)(int)rintf(t);
-  return quant8(v, scale);  // also a NaN, as quant8 clips it
-}
-
 // The quantize-on-exit pass's second kernel: the bf16 scratch map, 8 values a
 // thread, quantized with the scale of the amax its first kernel folded.
 __global__ void __launch_bounds__(256) quant_map_kernel(const bf16* v, int8_t* q, size_t n8,

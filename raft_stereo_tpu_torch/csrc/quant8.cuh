@@ -12,12 +12,12 @@
 //   scale = max(amax, 1e-30) / 127                       (IEEE fp32 division)
 //   q     = clip(round_half_even(v / scale), -127, 127)  (IEEE fp32 division)
 // Two phases, as the TPU kernel's: phase 0 folds |v| into one maximum
-// (amax_fold; the pass folds its block's first), phase 1 quantizes v with
-// the maximum's scale (point2: a
-// second launch that recomputes v; the pass: a light kernel over its
-// scratch map). The maximum is an atomicMax on the bit pattern of |v|:
-// non-negative floats order as their unsigned bit patterns, and a maximum
-// does not depend on the order it is taken in, so it is exact.
+// (the pass folds its block's first; point2 a block's), phase 1 quantizes v
+// with the maximum's scale (the pass: a light kernel over its scratch map;
+// point2: the same launch after a grid-wide barrier). The maximum is an
+// atomicMax on the bit pattern of |v|: non-negative floats order as their
+// unsigned bit patterns, and a maximum does not depend on the order it is
+// taken in, so it is exact.
 #pragma once
 
 #include <cstdint>
@@ -35,12 +35,16 @@ __device__ __forceinline__ int8_t quant8(float v, float scale) {
   return (int8_t)(int)fminf(fmaxf(t, -127.0f), 127.0f);
 }
 
-// Folds a thread's maximum of |v| (>= 0) into *amax: a warp's maximum by
-// shuffles, then one atomicMax a warp. Every thread of the warp calls it.
-__device__ __forceinline__ void amax_fold(float m, unsigned int* amax) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(amax, __float_as_uint(m));
+// quant8(v, scale) with a multiply by rcp = 1 / scale in place of the IEEE
+// division where that cannot change the result: for a quotient under 128,
+// v * rcp and v / scale, each rounded, differ by at most 3 * 2^-24 * 128 =
+// 2.3e-5, so their rounded integers differ only within that of a
+// half-integer; within 6.2e-5 of one the exact division decides.
+__device__ __forceinline__ int8_t quant8_fast(float v, float scale, float rcp) {
+  const float t = __fmul_rn(v, rcp);
+  const float frac = fabsf(__fsub_rn(t, truncf(t)));
+  if (fabsf(t) < 127.0f && fabsf(__fsub_rn(frac, 0.5f)) > 6.2e-5f) return (int8_t)(int)rintf(t);
+  return quant8(v, scale);  // also a NaN, as quant8 clips it
 }
 
 }  // namespace rst

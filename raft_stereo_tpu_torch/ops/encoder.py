@@ -47,7 +47,7 @@ changes.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -218,11 +218,24 @@ def _ptrs(*tensors):
 
 
 def _q8_outputs(shape, device):
-    """int8 q, its fp32 scale and the amax scratch word of a quantize-on-exit
-    launch."""
+    """int8 q and its fp32 scale, a quantize-on-exit launch's outputs."""
     return (torch.empty(shape, dtype=torch.int8, device=device),
-            torch.empty(1, dtype=torch.float32, device=device),
-            torch.empty(1, dtype=torch.int32, device=device))
+            torch.empty(1, dtype=torch.float32, device=device))
+
+
+# The point2 q8 launch's six scratch words (its maximum, its barrier's and
+# its work queue's counts), one set a (device, stream): two launches that
+# run at once must not share them. Zero when made; each launch leaves them
+# zero.
+_point2_q8_words: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _q8_words(device, stream) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    words = _point2_q8_words.get(key)
+    if words is None:
+        words = _point2_q8_words[key] = torch.zeros(6, dtype=torch.int32, device=device)
+    return words
 
 
 def _check_map(name: str, t: torch.Tensor, device) -> Tuple[int, int, int]:
@@ -376,7 +389,8 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w,
     # freed when this call returns.
     out = torch.empty((1, hh, ww, cout), dtype=torch.bfloat16, device=dev)
     if quant:
-        q, scale, amax = _q8_outputs((1, hh, ww, cout), dev)
+        q, scale = _q8_outputs((1, hh, ww, cout), dev)
+        amax = torch.empty(1, dtype=torch.int32, device=dev)
     if stats:
         partial = torch.empty((pass_plan(kind, hh, ww, cin, cout)[0], 2, cout),
                               dtype=torch.float32, device=dev)
@@ -404,15 +418,16 @@ def _launch_point(kind: int, norm: bool, triples: Sequence[Normed], out_like: to
         _check(f"inputs[{i}]", t[0], out_like.shape, torch.bfloat16, dev)
         args += [t[0].data_ptr(), *_mv_ptrs(f"inputs[{i}]", t, c, dev, norm and t[1] is not None)]
     args += [None] * (9 - len(args))
-    out = q = scale = amax = None
+    stream = torch.cuda.current_stream(dev)
+    out = q = scale = words = None
     if quant:
-        q, scale, amax = _q8_outputs(out_like.shape, dev)
+        q, scale = _q8_outputs(out_like.shape, dev)
+        words = _q8_words(dev, stream)
     else:
         out = torch.empty_like(out_like)
     fn = kernels.entry("enc_point")
     kernels.check("enc_point", fn(kind, int(norm), *args, hh * ww, c,
-                                  *_ptrs(out, q, scale, amax),
-                                  torch.cuda.current_stream(dev).cuda_stream))
+                                  *_ptrs(out, q, scale, words), stream.cuda_stream))
     return Lane8(q, scale) if quant else out
 
 

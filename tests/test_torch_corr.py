@@ -66,9 +66,11 @@ def _port(impl, f1, f2, coords, kind, levels, radius):
 
 
 @pytest.mark.parametrize("kind", ["fp32", "bf16"])
-@pytest.mark.parametrize("w", [20, 37])
-@pytest.mark.parametrize("levels,radius", [(4, 4), (2, 3)])
+@pytest.mark.parametrize("w", [13, 20, 37, 39])
+@pytest.mark.parametrize("levels,radius", [(4, 4), (2, 3), (4, 1)])
 def test_reg_cuda_matches_reg_tpu_on_integer_fmaps(rng, kind, w, levels, radius):
+    """Also at the GPU tests' widths: rows whose bytes are not a multiple of
+    16, and at w = 13 levels of 13, 6, 3 and 1, narrower than the window."""
     f1, f2, coords = _case(rng, 2, 3, w, 16, integer=True)
     ref = _jax("reg_tpu", f1, f2, coords, kind, levels, radius)
     got = _port("reg_cuda", f1, f2, coords, kind, levels, radius)
@@ -111,6 +113,23 @@ def test_lookup_wrapper_takes_plain_version_on_cpu(rng):
     assert [tuple(lvl.shape) for lvl in ops.levels] == [(48, 24), (48, 12), (48, 6)]
     c = torch.from_numpy(coords)
     assert torch.equal(reg_cuda.lookup(ops, c), reg_cuda.lookup_plain(ops, c))
+
+
+def test_kernel_levels_built_once_until_the_levels_change(rng):
+    """The kernels' level arguments are checked and built once a device and
+    set of level tensors, and built again when a level is replaced."""
+    f1, f2, _ = _case(rng, 1, 2, 24, 16, integer=False)
+    ops = reg_cuda.build_corr_operands(torch.from_numpy(f1), torch.from_numpy(f2),
+                                       num_levels=3, radius=2)
+    cpu = torch.device("cpu")
+    first = reg_cuda.kernel_levels(ops, cpu)
+    assert reg_cuda.kernel_levels(ops, cpu) is first
+    ops.levels[1] = ops.levels[1].clone()
+    again = reg_cuda.kernel_levels(ops, cpu)
+    assert again is not first and again[0][1] == ops.levels[1].data_ptr()
+    ops.levels[1] = ops.levels[1].to(torch.float64)
+    with pytest.raises(ValueError):
+        reg_cuda.kernel_levels(ops, cpu)
 
 
 def test_build_corr_operands_rejects_other_out_dtype(rng):

@@ -158,6 +158,61 @@ def test_gpu_lookup_kernel_matches_plain_exactly(cuda, dtype, b, h, w, levels, r
     assert got.dtype == dtype and torch.equal(got, ref)
 
 
+def _edge_coords(g, b, h, w, radius, device):
+    """x positions spread past both ends of the row, with the first pixel of
+    the map far left and the last far right, so the windows reach the first
+    and the last bytes of every level tensor."""
+    coords = torch.rand((b, h, w), generator=g, device=device) * (w + 4 * radius + 8) \
+        - (2 * radius + 4)
+    coords[0, 0, 0] = -(2 * radius + 3.5)
+    coords[-1, -1, -1] = w + 2 * radius + 3.5
+    return coords
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("w", [13, 37, 39])
+@pytest.mark.parametrize("radius", [1, 4])
+def test_gpu_lookup_kernel_window_edges(cuda, monkeypatch, kind, w, radius):
+    """The vector window gather at rows whose bytes are not a multiple of
+    16 (26, 74, 78 bf16; 13, 37, 39 int8), levels narrower than the window
+    (w = 13: 13, 6, 3, 1), B = 2 with a scale a sample under pack8, and
+    windows past the first and the last byte of each level tensor: exactly
+    the plain version's taps."""
+    monkeypatch.setenv("RAFT_CORR_PACK8", "1" if kind == "int8" else "0")
+    g = torch.Generator(device=cuda).manual_seed(130 + w + radius)
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    f1 = torch.randn((2, 3, w, 16), generator=g, device=cuda).to(dtype)
+    f2 = torch.randn((2, 3, w, 16), generator=g, device=cuda).to(dtype)
+    f1[1] *= 7.0  # another scale for the second sample
+    ops = reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=radius)
+    assert ops.pack8 == (kind == "int8")
+    coords = _edge_coords(g, 2, 3, w, radius, cuda)
+    got = reg_cuda.lookup(ops, coords)
+    ref = reg_cuda.lookup_plain(ops, coords)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_gpu_lookup_follows_replaced_levels(cuda):
+    """The kernel's level arguments are built once for a CorrOperands and
+    reused; replacing its levels rebuilds them."""
+    g = torch.Generator(device=cuda).manual_seed(137)
+    f1, f2, f3 = (torch.randn((1, 4, 37, 16), generator=g, device=cuda).bfloat16()
+                  for _ in range(3))
+    ops = reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4)
+    for _ in range(3):
+        coords = _edge_coords(g, 1, 4, 37, 4, cuda)
+        assert torch.equal(reg_cuda.lookup(ops, coords), reg_cuda.lookup_plain(ops, coords))
+    ops.levels = reg_cuda.build_corr_operands(f1, f3, num_levels=4, radius=4).levels
+    coords = _edge_coords(g, 1, 4, 37, 4, cuda)
+    got = reg_cuda.lookup(ops, coords)
+    assert torch.equal(got, reg_cuda.lookup_plain(ops, coords))
+    ops.levels[2] = ops.levels[2] * 2.0
+    assert torch.equal(reg_cuda.lookup(ops, coords), reg_cuda.lookup_plain(ops, coords))
+
+
 @pytest.mark.gpu
 def test_gpu_motion_kernel_integer_exact(cuda):
     """Small integer weights and inputs keep every fp32 sum exact in any
@@ -1072,6 +1127,26 @@ def test_gpu_point2_q8_equals_host_quantization(cuda, h, w, ch, norm):
     torch.cuda.synchronize()
     assert torch.equal(lane.q, host.q) and torch.equal(lane.scale, host.scale)
     assert _q8_close(lane, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("h,w,ch", [(504, 744, 128), (2, 3, 8)])
+def test_gpu_point2_q8_one_launch_twice(cuda, h, w, ch, norm):
+    """point2 q8 in one launch: at 504x744x128 the exit is larger than the
+    grid's shared memory, so most of it is recomputed after the barrier;
+    two calls back to back (the scratch words zeroed by the first) give the
+    same bits, which are the host quantization's."""
+    g = torch.Generator(device=cuda).manual_seed(121)
+    shape = (1, h, w, ch)
+    y = _enc_triple(cuda, g, shape, True)
+    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    first = enc.point2(x, y, norm=norm, quant=True)
+    second = enc.point2(x, y, norm=norm, quant=True)
+    host = quantize_feature8(enc.point2(x, y, norm=norm))
+    torch.cuda.synchronize()
+    assert torch.equal(first.q, second.q) and torch.equal(first.scale, second.scale)
+    assert torch.equal(first.q, host.q) and torch.equal(first.scale, host.scale)
 
 
 @pytest.mark.gpu

@@ -55,7 +55,10 @@ Phases, each fatal on failure:
    a call, ``launches_per_call``, counted by the profiler); the point2 q8
    exit, on
    no model path, runs in four stream_resblock_q8 chains (context and
-   feature net layer3[1] at both sizes), whose launches are its row's;
+   feature net layer3[1] at both sizes), whose launches are its row's; the
+   realtime model's shapes (``REALTIME``, KITTI at 1/8): the head-less gru16
+   step at 24x78 with one x input, and the resident kernel at 48x156 with
+   its 24x78 gru16 state upsampled;
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
    levels, 4 corr levels, radius 4, bf16, reg_cuda) with weights from a
    seed, through the demo's inference function at 32 iterations, with the
@@ -89,10 +92,24 @@ Phases, each fatal on failure:
      bits), and the Middlebury-F pair with the prepare step's and the
      loop's peaks apart; both in LANE_BANDS of the bf16 frames;
    - the prepare step twice on one pair: equal bits (no atomics);
+   - the slow-fast loop (``phase_slow_fast``): the realtime model on the
+     first KITTI pair at 7 iterations (14 gru16 steps, 7 resident launches,
+     no gru16+32, no lookup, no stem; the two finest context heads' 6
+     passes and 2 point2) and on its serial loop (equal bits); the default model with ``slow_fast_gru`` on the same
+     pair at 32 iterations (32 gru32 steps, 64 gru16+32, 32 resident) and
+     on its serial loop (equal bits);
    per-frame ms and peak memory for each;
 5. the same seeded model at 128x256 and 8 iterations on the card and on the
-   CPU (plain versions), with reg_cuda and with alt_cuda, disparities held
-   to a stated band.
+   CPU (plain versions), with reg_cuda and with alt_cuda, and the realtime
+   model at 7 iterations with reg_cuda, disparities held to a stated band;
+6. the bench entry point, ``python -m raft_stereo_tpu_torch.bench``, in a
+   subprocess: the headline default (Middlebury-F, 32 iterations, 3 timed
+   frames) and the realtime model at 384x1248 (7 iterations, 8 frames);
+   each must exit 0 with one JSON line, a positive frame rate, finite
+   checksums inside their committed pins
+   (``raft_stereo_tpu_torch/bench_checksum_ref.json``), ``device_s`` and
+   ``flops`` present and ``mfu`` in (0, 1]; each line is printed again
+   with ``"phase": "bench"``.
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -141,6 +158,11 @@ MIDDLEBURY_F = (2016, 2976)
 ALT_HEADLINE_FEAT = (504, 744)  # 1/4 of MIDDLEBURY_F
 ITERS = 32
 N_FRAMES = 3
+# The reference's realtime model (its README): shared backbone, 1/8
+# resolution, 2 GRU levels, slow-fast GRUs, 7 iterations.
+REALTIME = dict(shared_backbone=True, n_downsample=3, n_gru_layers=2, slow_fast_gru=True)
+RT_ITERS = 7
+RT_FEAT = (FEAT[0] // 2, FEAT[1] // 2)  # 1/8 of the padded 384x1248
 SWITCHES = ("RAFT_FUSE_ITER", "RAFT_FUSE_GRU1632")
 ENCODER_SWITCHES = ("RAFT_FUSED_ENCODERS", "RAFT_STREAM_TAIL")
 # Encoder launches a frame, by variant (kernels.variants). KITTI: the context
@@ -172,6 +194,12 @@ def _by_kernel(variants: dict) -> dict:
 ENC_KITTI = _by_kernel(VAR_CNET)            # 1 stem, 14 passes, 1 point3, 4 point2
 ENC_TRUNK_ONLY = _by_kernel(VAR_TRUNK_ONLY)  # 1 stem, 4 passes, 1 point3
 ENC_MIDDLEBURY = _by_kernel(VAR_MIDDLEBURY)  # 3 stems, 30 passes, 3 point3, 8 point2
+# The realtime model: the shared backbone's trunk takes both images as one
+# batch and stays plain; its two finest context heads take the first image
+# alone (B=1 after the split, as in the JAX package) and stream, a residual
+# block (raw1, mid1, point2) and a head conv (raw1) each.
+VAR_RT = {"enc_pass:raw1/bn/128": 4, "enc_pass:mid1/bn/128": 2, "enc_point2:bn/128": 2}
+ENC_RT = _by_kernel(VAR_RT)  # 6 passes, 2 point2
 # Encoder maps on the two main paths: (H, W) of the padded frame, of layer2
 # and of layer3 and the finest heads.
 SHAPES = {"default": ((384, 1248), (192, 624), (96, 312)),
@@ -532,7 +560,7 @@ def _lane8_row(out: dict, variant: str, on_path: str, replaces: str, bf16_kernel
     return out
 
 
-def check_gru(level: str, lane8: bool = False) -> dict:
+def check_gru(level: str, lane8: bool = False, realtime: bool = False) -> dict:
     """Kernel 2 at one GRU level's main-path shapes. Tolerance: the kernel
     sums in another order than cuDNN's fp32 conv, so a bf16 rounding of
     z, r, q (or f1) can land one ulp apart and carry into h' (and dx):
@@ -540,13 +568,17 @@ def check_gru(level: str, lane8: bool = False) -> dict:
     RMS of dx for dx. A wrong tap, halo or border moves dx by about its RMS,
     32x that bound; the measured error sits several times under it (PERF.md).
     With ``lane8`` on the int8 container of the same czrq (RAFT_LANE_PACK8),
-    the same tolerances, and the bf16 mode's ms beside it."""
+    the same tolerances, and the bf16 mode's ms beside it. With
+    ``realtime`` gru16 at the realtime model's shape: 24x78, one x input
+    (two GRU levels: gru08's state pooled)."""
     from raft_stereo_tpu_torch.ops import stream
     g = _gen(4)
     ch = 128
     h, w = {"gru08": FEAT, "gru16": (FEAT[0] // 2, FEAT[1] // 2),
             "gru32": (FEAT[0] // 4, FEAT[1] // 4)}[level]
     parts = {"gru08": (128, 128), "gru16": (128, 128), "gru32": (128,)}[level]
+    if realtime:
+        (h, w), parts = (RT_FEAT[0] // 2, RT_FEAT[1] // 2), (128,)
     head = level == "gru08"
     wts, hw, hst, czrq_bf16, xs = _gru_case(g, level, h, w, ch, parts, head)
     czrq = _lane8(czrq_bf16) if lane8 else czrq_bf16
@@ -583,12 +615,15 @@ def check_gru(level: str, lane8: bool = False) -> dict:
         with torch.no_grad():
             stream.conv_gru_plain(wts, hst, czrq, *xs, head=hw)
 
-    out = {"name": f"conv_gru:{level}{'+head' if head else ''}",
+    out = {"name": f"conv_gru:{level}{'+head' if head else ''}"
+                   + (f" {h}x{w}" if realtime else ""),
            "counter": f"conv_gru:{level}", "tol": tol, "ok": ok, "max_abs_err": err,
            **detail, **_timings(kernel, plain, own=OWN_KERNELS["conv_gru"]),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "shape": f"1x{h}x{w}x{ch}, x parts {list(parts)}, bf16"
                     f"{', czrq int8' if lane8 else ''}"}
+    if realtime:
+        out["on_path"] = "realtime"
     if not lane8:
         return out
 
@@ -731,10 +766,12 @@ def check_gru1632(lane8: bool = False, headline: bool = False) -> dict:
                       "raft_stereo_tpu/ops/pallas_stream.py:814", bf16_kernel, reps, warmup)
 
 
-def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
+def check_resident(pack8: bool = False, lane8: bool = False, realtime: bool = False) -> dict:
     """Kernel 6 at the main path's shapes (96x312, 128 channels, the pyramid
     of 256-channel feature maps, x2 the upsampled gru16 state); with
-    ``pack8`` on its int8 levels, with ``lane8`` on an int8 czrq container.
+    ``pack8`` on its int8 levels, with ``lane8`` on an int8 czrq container;
+    with ``realtime`` at the realtime model's 48x156, x2 its 24x78 gru16
+    state upsampled.
     Tolerances as for the GRU kernel with the head: 2^-5 for h', 2^-5 of
     the RMS of dx for dx; and bit for bit the serial CUDA chain (lookup,
     motion, GRU with the head) on the same levels and czrq."""
@@ -742,9 +779,10 @@ def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
     from raft_stereo_tpu_torch.models.layers import init_weights
     from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU, FlowHead
     from raft_stereo_tpu_torch.ops import resident, stream
+    from raft_stereo_tpu_torch.ops.resize import interp_align_corners
     g = _gen(14)
     ch, bf = 128, torch.bfloat16
-    h, w = FEAT
+    h, w = RT_FEAT if realtime else FEAT
     enc, gru, fh = BasicMotionEncoder(36), ConvGRU(ch, 2 * ch), FlowHead(ch, 256, 2)
     for i, m in enumerate((enc, gru, fh)):
         init_weights(m, torch.Generator().manual_seed(15 + i))
@@ -762,7 +800,9 @@ def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
                 stream.head_weights(fh, bf), ops, _randn((1, h, w, ch), g, 0.5),
                 stream.prepare_gru_context(gru, [_randn((1, h, w, ch), g, 0.3)
                                                  for _ in range(3)], bf),
-                coords, flow, _randn((1, h, w, ch), g))
+                coords, flow,
+                interp_align_corners(_randn((1, h // 2, w // 2, ch), g), (h, w)) if realtime
+                else _randn((1, h, w, ch), g))
         bf16_args = args
         if lane8:
             args = (*args[:5], _lane8(args[5]), *args[6:])
@@ -819,6 +859,8 @@ def check_resident(pack8: bool = False, lane8: bool = False) -> dict:
     if pack8:
         out.update(variant="fused_iter:pack8", on_path="pack8",
                    replaces="raft_stereo_tpu/ops/pallas_resident.py:97")
+    if realtime:
+        out.update(name=f"fused_iter {h}x{w}", on_path="realtime")
     if not lane8:
         return out
 
@@ -1301,7 +1343,8 @@ def phase_kernels() -> tuple:
                *encoder_checks(), check_alt("alt", *FEAT),
                check_alt("alt_headline", *ALT_HEADLINE_FEAT), check_lookup(pack8=True),
                check_lookup(headline=True), check_lookup(pack8=True, headline=True),
-               check_resident(pack8=True), *lane8_checks()]
+               check_resident(pack8=True), *lane8_checks(),
+               check_gru("gru16", realtime=True), check_resident(realtime=True)]
     sources = {"corr_lookup": ("raft_stereo_tpu_torch/csrc/corr_lookup.cu",
                                "raft_stereo_tpu/corr/pallas_reg.py:730", reg_cuda.lookup),
                "corr_alt": ("raft_stereo_tpu_torch/csrc/corr_alt.cu",
@@ -1351,11 +1394,12 @@ def random_pairs(n: int, shape, seed: int):
             for _ in range(n)]
 
 
-def seeded_model(device: str, corr: str = "reg_cuda"):
+def seeded_model(device: str, corr: str = "reg_cuda", **arch):
     """The default full-width model, weights from seed 0, flow head tempered;
-    ``corr`` only picks the correlation (the weights do not depend on it)."""
+    ``corr`` only picks the correlation (the weights do not depend on it);
+    ``arch``: architecture flags (REALTIME)."""
     from raft_stereo_tpu_torch import RAFTStereoConfig, init_raft_stereo
-    cfg = RAFTStereoConfig(corr_implementation=corr, mixed_precision=True)
+    cfg = RAFTStereoConfig(corr_implementation=corr, mixed_precision=True, **arch)
     model = init_raft_stereo(cfg, seed=0, device=device)
     with torch.no_grad():
         model.update_block.flow_head.conv2.weight.mul_(0.02)
@@ -1363,10 +1407,12 @@ def seeded_model(device: str, corr: str = "reg_cuda"):
     return model
 
 
-def _drive(model, pairs, want: dict, path: str, want_variants: dict) -> tuple:
-    """The demo's inference over ``pairs`` at full width, counts set to 0
-    just before and read just after; each frame must launch exactly
-    ``want``, the encoder kernels exactly ``want_variants`` by variant."""
+def _drive(model, pairs, want: dict, path: str, want_variants: dict,
+           iters: int = ITERS) -> tuple:
+    """The demo's inference over ``pairs`` at full width, ``iters``
+    iterations, counts set to 0 just before and read just after; each frame
+    must launch exactly ``want``, the encoder kernels exactly
+    ``want_variants`` by variant."""
     from raft_stereo_tpu_torch import kernels
     from raft_stereo_tpu_torch.demo import infer_pair
     torch.cuda.synchronize()
@@ -1377,7 +1423,7 @@ def _drive(model, pairs, want: dict, path: str, want_variants: dict) -> tuple:
     for left, right in pairs:
         before, before_var = dict(kernels.launches), dict(kernels.variants)
         t0 = time.perf_counter()
-        disp = infer_pair(model, left, right, iters=ITERS)
+        disp = infer_pair(model, left, right, iters=iters)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         counts = {k: n - before.get(k, 0) for k, n in kernels.launches.items()
@@ -1396,7 +1442,7 @@ def _drive(model, pairs, want: dict, path: str, want_variants: dict) -> tuple:
             raise SystemExit(f"{path}: encoder launches per frame {by_variant}, "
                              f"expected {want_variants}")
         disps.append(disp)
-    result = {"phase": "main_path", "path": path, "frames": len(pairs), "iters": ITERS,
+    result = {"phase": "main_path", "path": path, "frames": len(pairs), "iters": iters,
               "input": "x".join(map(str, pairs[0][0].shape[1:3])), "frame_ms": frame_ms,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "memory_allocated_at_start": at_start,
@@ -1494,11 +1540,7 @@ def phase_main_path() -> dict:
         dict.fromkeys(SWITCHES, "0"),
         lambda: _drive(model, pairs[:1], {**serial, **ENC_KITTI},
                        "serial (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)", VAR_CNET))
-    same = torch.equal(disp_default[0], disp_serial[0])
-    print(json.dumps({"phase": "default_vs_serial", "bitwise_equal": same,
-                      "max_abs_diff": _max_err(disp_default[0], disp_serial[0])}))
-    if not same:
-        raise SystemExit("the default and serial loops give different disparities")
+    _same_bits("default_vs_serial", disp_default[0], disp_serial[0])
     _, disp_trunk = _with_env(
         {"RAFT_STREAM_TAIL": "0"},
         lambda: _drive(model, pairs[:1], {**loop, **ENC_TRUNK_ONLY},
@@ -1520,11 +1562,58 @@ def phase_main_path() -> dict:
     runs = phase_corr_paths(model, pairs[0], big[0], disp_default[0], disp_big[0])
     runs.update(phase_lane_paths(model, pairs[0], big[0], disp_default[0], disp_big[0],
                                  runs["alt_headline"]["peaks"]["reg_cuda"]))
+    runs.update(phase_slow_fast(pairs[0]))
     del disp_big
     _prepare_twice(model, pairs[0])
     _prepare_twice(model, big[0])
     return {"default": run_default, "serial": run_serial, "headline": headline,
             "plain_encoders": run_plain, "headline_plain_encoders": headline_plain, **runs}
+
+
+def _same_bits(name: str, a, b) -> None:
+    """A default loop's disparity against its serial loop's: equal bits."""
+    same = torch.equal(a, b)
+    print(json.dumps({"phase": name, "bitwise_equal": same, "max_abs_diff": _max_err(a, b)}))
+    if not same:
+        raise SystemExit(f"{name}: the default and serial loops give different disparities")
+
+
+def phase_slow_fast(pair) -> dict:
+    """The slow-fast loop (``slow_fast_gru``) through the demo's inference:
+    - the realtime model (REALTIME) on the KITTI pair at RT_ITERS: a frame
+      launches 2 gru16 steps (one x input, 24x78) and 1 resident iteration
+      (48x156) an iteration, no gru16+32 and no lookup, and the encoder
+      kernels of the two finest context heads only (VAR_RT); again with
+      RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0, equal bits;
+    - the default model with ``slow_fast_gru`` on the same pair at ITERS: 1
+      gru32 step, 2 gru16+32 and 1 resident launch an iteration and the
+      context net's encoder kernels; again on the serial loop, equal bits."""
+    rt_model = seeded_model("cuda", **REALTIME)
+    rt = {"conv_gru:gru16": 2 * RT_ITERS, "fused_iter": RT_ITERS, **ENC_RT}
+    rt_serial = {"corr_lookup": RT_ITERS, "motion": RT_ITERS, "conv_gru:gru08": RT_ITERS,
+                 "conv_gru:gru16": 2 * RT_ITERS, **ENC_RT}
+    run_rt, disp_rt = _drive(rt_model, [pair], rt, "realtime", VAR_RT, RT_ITERS)
+    run_rt_serial, disp_rt_serial = _with_env(
+        dict.fromkeys(SWITCHES, "0"),
+        lambda: _drive(rt_model, [pair], rt_serial,
+                       "realtime serial (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)", VAR_RT,
+                       RT_ITERS))
+    _same_bits("realtime_default_vs_serial", disp_rt[0], disp_rt_serial[0])
+    del rt_model
+    sf_model = seeded_model("cuda", slow_fast_gru=True)
+    sf = {"conv_gru:gru32": ITERS, "gru1632": 2 * ITERS, "fused_iter": ITERS, **ENC_KITTI}
+    sf_serial = {"corr_lookup": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS,
+                 "conv_gru:gru16": 2 * ITERS, "conv_gru:gru32": 3 * ITERS, **ENC_KITTI}
+    run_sf, disp_sf = _drive(sf_model, [pair], sf, "slow-fast", VAR_CNET)
+    run_sf_serial, disp_sf_serial = _with_env(
+        dict.fromkeys(SWITCHES, "0"),
+        lambda: _drive(sf_model, [pair], sf_serial,
+                       "slow-fast serial (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)", VAR_CNET))
+    _same_bits("slow_fast_default_vs_serial", disp_sf[0], disp_sf_serial[0])
+    del sf_model
+    torch.cuda.empty_cache()
+    return {"realtime": run_rt, "realtime_serial": run_rt_serial, "slow_fast": run_sf,
+            "slow_fast_serial": run_sf_serial}
 
 
 def _peak_split(model, pair, path: str) -> dict:
@@ -1590,11 +1679,7 @@ def phase_corr_paths(model, pair, big, disp_reg, disp_reg_big) -> dict:
                                        "conv_gru:gru08": ITERS, **ENC_KITTI},
                        "pack8 serial (RAFT_CORR_PACK8=1 RAFT_FUSE_ITER=0)",
                        {**VAR_CNET, "corr_lookup:pack8": ITERS}))
-    same = torch.equal(disp_pack8[0], disp_pack8_serial[0])
-    print(json.dumps({"phase": "pack8_default_vs_serial", "bitwise_equal": same,
-                      "max_abs_diff": _max_err(disp_pack8[0], disp_pack8_serial[0])}))
-    if not same:
-        raise SystemExit("the pack8 default and serial loops give different disparities")
+    _same_bits("pack8_default_vs_serial", disp_pack8[0], disp_pack8_serial[0])
     _disparity_band("pack8 vs bf16", "KITTI", disp_pack8[0], disp_reg,
                     CORR_BANDS["pack8", "KITTI"])
     return {"alt": run_alt, "alt_headline": {**run_alt_big, "peaks": peaks},
@@ -1638,11 +1723,7 @@ def phase_lane_paths(model, pair, big, disp_reg, disp_reg_big, peak_reg_big) -> 
         model, [pair], {**serial, **enc_k},
         "lane8 serial (RAFT_LANE_PACK8=1 RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0)",
         {**VAR_CNET, **q8, **serial_var}))
-    same = torch.equal(disp[0], disp_serial[0])
-    print(json.dumps({"phase": "lane8_default_vs_serial", "bitwise_equal": same,
-                      "max_abs_diff": _max_err(disp[0], disp_serial[0])}))
-    if not same:
-        raise SystemExit("the lane8 default and serial loops give different disparities")
+    _same_bits("lane8_default_vs_serial", disp[0], disp_serial[0])
     _disparity_band("lane8 vs bf16", "KITTI", disp[0], disp_reg, LANE_BANDS["KITTI"])
     run_big, disp_big = _with_env(lane, lambda: _drive(
         model, [big], {**loop, **enc_m}, "lane8, Middlebury-F",
@@ -1658,7 +1739,8 @@ def phase_lane_paths(model, pair, big, disp_reg, disp_reg_big, peak_reg_big) -> 
 
 def phase_cross_check() -> list:
     """The same seeded model at 128x256, 8 iterations, on the card and on
-    the CPU (plain versions), with reg_cuda and with alt_cuda. Band: mean |delta| within the serving canary's
+    the CPU (plain versions), with reg_cuda and with alt_cuda, and the
+    realtime model (REALTIME) at RT_ITERS with reg_cuda. Band: mean |delta| within the serving canary's
     absolute floor, 0.05 px, and every pixel within 0.25 px. The canary
     band itself (rtol 5e-3, atol 5e-2 per pixel) is printed but not held:
     it was set for trained weights, whose updates shrink as the loop
@@ -1672,24 +1754,95 @@ def phase_cross_check() -> list:
     from raft_stereo_tpu_torch.demo import infer_pair
     (left, right), = random_pairs(1, (128, 256), seed=8)
     results = []
-    for corr in ("reg_cuda", "alt_cuda"):
+    for corr, arch, iters in (("reg_cuda", {}, 8), ("alt_cuda", {}, 8),
+                              ("reg_cuda", REALTIME, RT_ITERS)):
         out = {}
         for dev in ("cuda", "cpu"):
-            model = seeded_model(dev, corr)
-            out[dev] = infer_pair(model, left.to(dev), right.to(dev), iters=8).float().cpu()
+            model = seeded_model(dev, corr, **arch)
+            out[dev] = infer_pair(model, left.to(dev), right.to(dev), iters=iters).float().cpu()
         d = (out["cuda"] - out["cpu"]).abs()
         in_canary = np.isclose(out["cuda"].numpy(), out["cpu"].numpy(), rtol=5e-3, atol=5e-2)
         mean_tol, max_tol = 0.05, 0.25
         ok = float(d.mean()) <= mean_tol and float(d.max()) <= max_tol
         result = {"phase": "cross_check", "corr": corr, "ok": ok,
+                  "model": "realtime" if arch else "default", "iters": iters,
                   "mean_abs_diff": float(d.mean()), "max_abs_diff": float(d.max()),
                   "mean_tol": mean_tol, "max_tol": max_tol,
                   "canary_fraction": float(in_canary.mean()),
                   "disparity_abs_mean": float(out["cpu"].abs().mean())}
         print(json.dumps(result))
         if not ok:
-            raise SystemExit(f"{corr}: card and CPU disparities disagree beyond the band")
+            raise SystemExit(f"{corr}, {result['model']}: card and CPU disparities disagree "
+                             "beyond the band")
         results.append(result)
+    return results
+
+
+# The bench's runs: the headline default (Middlebury-F, 32 iterations) and the
+# realtime model at the KITTI size.
+BENCH_RUNS = {"headline": {"RAFT_BENCH_FRAMES": "3"},
+              "realtime": {"RAFT_BENCH_H": "384", "RAFT_BENCH_W": "1248",
+                           "RAFT_BENCH_ITERS": str(RT_ITERS), "RAFT_BENCH_FRAMES": "8",
+                           "RAFT_BENCH_SHARED": "1", "RAFT_BENCH_DOWNSAMPLE": "3",
+                           "RAFT_BENCH_GRU_LAYERS": "2", "RAFT_BENCH_SLOW_FAST": "1"}}
+
+
+def _bench_pin(env: dict, doc: dict) -> dict:
+    """The committed pin of a bench run's configuration, and whether both
+    checksums of ``doc`` lie in its band (the bench's own rule)."""
+    from raft_stereo_tpu_torch import RAFTStereoConfig, bench
+    cfg = RAFTStereoConfig(
+        corr_implementation="reg_cuda", mixed_precision=True,
+        shared_backbone=env.get("RAFT_BENCH_SHARED") == "1",
+        n_downsample=int(env.get("RAFT_BENCH_DOWNSAMPLE", "2")),
+        n_gru_layers=int(env.get("RAFT_BENCH_GRU_LAYERS", "3")),
+        slow_fast_gru=env.get("RAFT_BENCH_SLOW_FAST") == "1")
+    key = bench.pin_key(cfg, int(env.get("RAFT_BENCH_H", "2016")),
+                        int(env.get("RAFT_BENCH_W", "2976")),
+                        int(env.get("RAFT_BENCH_ITERS", "32")), 1, "cuda")
+    ref = json.loads(bench.PIN_PATH.read_text()).get(key)
+    if ref is None:
+        return {"pin": key, "pinned": False, "in_band": False}
+    in_band = all(abs(doc[s] - ref[s]) <= max(abs(ref[s]) * ref["rtol"], ref["atol"])
+                  for s in ("checksum", "sum_abs"))
+    return {"pin": key, "pinned": True, "in_band": in_band}
+
+
+def phase_bench() -> list:
+    """``python -m raft_stereo_tpu_torch.bench`` in a subprocess, for each of
+    BENCH_RUNS: it must exit 0 and print exactly one JSON line, with
+    ``value`` > 0, finite checksums inside their committed pins (a bare run
+    does not pin), ``device_s`` and ``flops`` present and ``mfu`` in (0, 1].
+    Each line is printed again with ``"phase": "bench"``."""
+    root = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    results = []
+    for name, run in BENCH_RUNS.items():
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("RAFT_") and k != "PYTHONPATH"}
+        env.update(run, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "raft_stereo_tpu_torch.bench"],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise SystemExit(f"bench {name}: exit {proc.returncode}, {len(lines)} JSON lines\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        doc = json.loads(lines[0])
+        pin = _bench_pin(run, doc)
+        checks = {"value": doc["value"] > 0,
+                  "checksums_finite": all(math.isfinite(doc[s]) for s in ("checksum", "sum_abs")),
+                  "checksums_pinned": pin["in_band"],
+                  "device_s": bool(doc["device_s"]), "flops": bool(doc["flops"]),
+                  "mfu": doc["mfu"] is not None and 0 < doc["mfu"] <= 1}
+        ok = all(checks.values())
+        print(json.dumps({"phase": "bench", "run": name, "ok": ok, "seconds": seconds,
+                          "env": run, **pin, "checks": checks, "line": doc}))
+        if not ok:
+            raise SystemExit(f"bench {name} failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
+        results.append(doc)
     return results
 
 
@@ -1705,6 +1858,7 @@ def main() -> int:
     results, chain_run = phase_kernels()
     main_path = {**phase_main_path(), "resblock_q8": chain_run}
     phase_cross_check()
+    phase_bench()
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

@@ -120,9 +120,6 @@ class RAFTStereoConfig:
             raise ValueError(
                 f"corr_implementation must be one of {CORR_IMPLEMENTATIONS}, "
                 f"got {self.corr_implementation!r}")
-        if self.slow_fast_gru:
-            raise NotImplementedError(
-                "slow_fast_gru is not ported yet (ROADMAP Queue A, update block)")
         if self.n_gru_layers not in (1, 2, 3):
             raise ValueError(f"n_gru_layers must be 1, 2 or 3, got {self.n_gru_layers}")
         if len(self.hidden_dims) != 3:

@@ -22,7 +22,15 @@ and gru08 kernels (``RAFT_FUSE_GRU1632``, ``RAFT_FUSE_ITER``; either off
 gives the serial kernels, with the same bits). With ``alt_cuda`` there is
 no pyramid for the resident kernel to gather from, so the loop runs the
 gru16+32 kernel, the alt kernel, then the motion and gru08+head kernels.
+With ``slow_fast_gru`` each iteration first steps the coarse GRUs more, as
+in the JAX package: gru32 alone (3 levels), then gru32 with gru16 (one
+gru16+32 launch where it engages; gru16 alone at 2 levels), on every loop.
 Train mode waits for the training slice.
+
+The serving scheduler composes carries into one batch and back
+(:func:`stack_refinement_states`, :func:`take_refinement_rows`): every leaf
+of a carry, a ``Lane8`` container's ``q`` and ``scale`` included, has the
+batch as its leading axis.
 
 Under ``RAFT_LANE_PACK8`` (the JAX package's narrow lanes): the prepare step
 quantizes each zqr level's output (the quantize-on-exit pass where its gate
@@ -37,7 +45,7 @@ segment and epilogue, so it goes through the same two quantizations.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -189,8 +197,16 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     resident = (fused is not None and corr_ops is not None and not warm_start
                 and fuse_iter_on())
     net, coords1 = state["net"], coords_in
+    n = cfg.n_gru_layers
     for _ in range(iters):
         flow = (coords1 - coords0).to(dt)
+        if cfg.slow_fast_gru:
+            # The JAX package's pre-steps: the coarse GRUs step more often
+            # than gru08, gru32 alone first (3 levels), then gru32 with gru16.
+            if n == 3:
+                net = ub.step_coarse(net, inp, fused, iter16=False)
+            if n >= 2:
+                net = ub.step_coarse(net, inp, fused)
         if resident:
             net, delta_flow = ub.step_resident(net, inp, corr_ops, coords1[..., 0], flow,
                                                fused=fused)
@@ -235,6 +251,41 @@ def raft_stereo_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.T
     _, flow_low, flow_up = raft_stereo_segment(model, state, iters=iters,
                                                warm_start=flow_init is not None)
     return flow_low, flow_up
+
+
+def _map_carry(fn, *carries):
+    """``fn`` over the tensor leaves of carries of one structure (dicts,
+    tuples, lists, ``Lane8`` containers)."""
+    first = carries[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*carries)
+    if isinstance(first, dict):
+        if any(c.keys() != first.keys() for c in carries):
+            raise ValueError("carries with different keys")
+        return {k: _map_carry(fn, *(c[k] for c in carries)) for k in first}
+    if isinstance(first, (tuple, list)):
+        if any(type(c) is not type(first) or len(c) != len(first) for c in carries):
+            raise ValueError("carries of different structure")
+        leaves = [_map_carry(fn, *xs) for xs in zip(*carries)]
+        return type(first)(*leaves) if hasattr(first, "_fields") else type(first)(leaves)
+    raise TypeError(f"unexpected carry leaf {type(first).__name__}")
+
+
+def stack_refinement_states(states: Sequence[dict]) -> dict:
+    """Concatenate carries along the batch axis (rows keep order)."""
+    if not states:
+        raise ValueError("stack_refinement_states needs >= 1 state")
+    if len(states) == 1:
+        return states[0]
+    return _map_carry(lambda *xs: torch.cat(xs, dim=0), *states)
+
+
+def take_refinement_rows(state: dict, rows: Sequence[int]) -> dict:
+    """Gather batch rows of a carry, in the order given; repeats are allowed
+    (padding a batch to its bucket replicates a live row)."""
+    leaf = state["coords1"]
+    idx = torch.tensor([int(r) for r in rows], dtype=torch.long, device=leaf.device)
+    return _map_carry(lambda x: x.index_select(0, idx), state)
 
 
 @torch.no_grad()

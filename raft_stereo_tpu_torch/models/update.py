@@ -155,21 +155,23 @@ class BasicMultiUpdateBlock(nn.Module):
                 and h16.shape[2] == 2 * h32.shape[2])
 
     def step_coarse(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
-                    fused: Optional[FusedInputs] = None) -> Tuple[torch.Tensor, ...]:
-        """The coarse GRUs of one step, gru32 then gru16 (those the model
-        has), leaving gru08 as it is: the JAX package's update block with
-        ``iter08=False, update=False``. With the gru16+32 kernel engaged
-        (:meth:`gru1632_engaged`), one launch does both."""
+                    fused: Optional[FusedInputs] = None, *, iter32: bool = True,
+                    iter16: bool = True) -> Tuple[torch.Tensor, ...]:
+        """The coarse GRUs of one step, gru32 (``iter32``) then gru16
+        (``iter16``), those the model has, leaving gru08 as it is: the JAX
+        package's update block with ``iter08=False, update=False``. With both
+        flags set and the gru16+32 kernel engaged (:meth:`gru1632_engaged`),
+        one launch does both; otherwise each runs its own step."""
         net = list(net)
         n = self.n_gru_layers
-        if self.gru1632_engaged(net, fused):
+        if iter32 and iter16 and self.gru1632_engaged(net, fused):
             net[1], net[2] = stream.fused_gru1632(
                 fused.gru[1], fused.gru[2], net[1], net[2], fused.czrq[1], fused.czrq[2],
                 pool2x(net[0]), pool2x(net[1]))
             return tuple(net)
-        if n == 3:
+        if iter32 and n == 3:
             net[2] = self._gru(2, net[2], inp, fused, pool2x(net[1]))
-        if n >= 2:
+        if iter16 and n >= 2:
             xs16 = (pool2x(net[0]),)
             if n == 3:
                 xs16 += (interp_align_corners(net[2], net[1].shape[1:3]),)

@@ -53,3 +53,9 @@ class InputPadder:
         l, r, t, b = self._pad
         ht, wd = x.shape[1], x.shape[2]
         return x[:, t:ht - b, l:wd - r, :]
+
+
+def bucket_shape(dims: Sequence[int], bucket: int, divis_by: int = 8) -> Tuple[int, int]:
+    """Padded (H, W) that ``InputPadder(dims, bucket=bucket)`` would give:
+    how the serving layer lists its shape buckets without building padders."""
+    return InputPadder(dims, divis_by=divis_by, bucket=bucket).padded_shape

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one frame's device time goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_port.py
+    python3 scripts/profile_torch_port.py [slow_fast]
 
 Runs chip_smoke.py's main path (the seeded full-width model, bf16,
 reg_cuda, one random 375x1242 pair padded to 384x1248, 32 iterations) twice
@@ -27,6 +27,11 @@ so the two are compared inside one call; then the same pair with
 ``alt_cuda``, the reference's own Middlebury command (the alt correlation
 at full resolution), one frame's records.
 
+With ``slow_fast``, only the slow-fast frames, the same records for each:
+the reference's realtime model (chip_smoke.REALTIME: shared backbone,
+1/8 resolution, 2 GRU levels, 7 iterations) and the default model with
+``slow_fast_gru``, on the KITTI pair.
+
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -44,6 +49,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
+
+from raft_stereo_tpu_torch.obs.profiler import busy_seconds  # noqa: E402
 
 
 def _group(name: str) -> str:
@@ -73,19 +80,7 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _busy_ms(intervals) -> float:
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e3
-
-
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_port: CUDA is not available", file=sys.stderr)
         return 2
@@ -97,8 +92,16 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "torch": torch.__version__}))
     kernels.build()
-    model = chip_smoke.seeded_model("cuda")
     (left, right), = chip_smoke.random_pairs(1, chip_smoke.KITTI, seed=9)
+    if argv == ["slow_fast"]:
+        _profile_frame("realtime", chip_smoke.seeded_model("cuda", **chip_smoke.REALTIME), left,
+                       right, chip_smoke.RT_ITERS)
+        _profile_frame("slow-fast", chip_smoke.seeded_model("cuda", slow_fast_gru=True), left,
+                       right)
+        return 0
+    if argv:
+        raise SystemExit(f"usage: {sys.argv[0]} [slow_fast]")
+    model = chip_smoke.seeded_model("cuda")
     for route, env in (("default", {}), ("plain encoders", {"RAFT_FUSED_ENCODERS": "0"}),
                        ("lane8", {"RAFT_LANE_PACK8": "1"}), ("alt_cuda", {})):
         if route == "alt_cuda":
@@ -167,23 +170,22 @@ def _by_group(by_name) -> dict:
     return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
 
 
-def _profile_frame(route: str, model, left, right) -> None:
-    import chip_smoke
+def _profile_frame(route: str, model, left, right, iters: int = 32) -> None:
     from raft_stereo_tpu_torch import raft_stereo_prepare
     from raft_stereo_tpu_torch.demo import infer_pair
     from raft_stereo_tpu_torch.ops.padder import InputPadder
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        infer_pair(model, left, right, iters=chip_smoke.ITERS)
+        infer_pair(model, left, right, iters=iters)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        infer_pair(model, left, right, iters=chip_smoke.ITERS)
+        infer_pair(model, left, right, iters=iters)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, intervals = _events(prof)
-    busy = _busy_ms(intervals)
+    busy = busy_seconds(intervals) * 1e3
     window = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
     print(json.dumps({"route": route, "frame_wall_ms": wall_ms, "device_busy_ms": busy,
                       "device_window_ms": window,
@@ -202,7 +204,7 @@ def _profile_frame(route: str, model, left, right) -> None:
         raft_stereo_prepare(model, *padded)
         torch.cuda.synchronize()
     by_name, intervals = _events(prof)
-    print(json.dumps({"route": route, "prepare_device_busy_ms": _busy_ms(intervals),
+    print(json.dumps({"route": route, "prepare_device_busy_ms": busy_seconds(intervals) * 1e3,
                       "prepare_kernel_launches": sum(c for _, c in by_name.values()),
                       "prepare_device_ms_by_group": _by_group(by_name)}))
 
@@ -254,4 +256,4 @@ def _alone() -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

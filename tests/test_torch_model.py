@@ -14,6 +14,11 @@
   within the serving canary band (rtol 5e-3, atol 5e-2 px).
 - The port's own identities, bitwise: k segments == one loop, and
   ``epilogue(segment_carry(s)) == segment(s)``.
+- Carry composition for serving: ``stack_refinement_states`` and
+  ``take_refinement_rows`` give the JAX package's helpers' values on the
+  same carry (fp32 and a ``Lane8`` carry, rows in order, a row repeated),
+  and a stacked carry's rows advance as the carries alone (fp32, 1e-4 px: the CPU convs
+  sum a batch in another order).
 - The port imports without jax and imports nothing of the JAX package; its
   entry points refuse to run without CUDA unless asked for the CPU.
 """
@@ -36,6 +41,8 @@ import raft_stereo_tpu.ops.pallas_stream as jx_ps
 from raft_stereo_tpu.config import RAFTStereoConfig as JaxConfig
 from raft_stereo_tpu.models import init_raft_stereo as jx_init
 from raft_stereo_tpu.models import raft_stereo_forward as jx_forward
+from raft_stereo_tpu.models.raft_stereo import stack_refinement_states as jx_stack
+from raft_stereo_tpu.models.raft_stereo import take_refinement_rows as jx_take
 from raft_stereo_tpu.transplant.torch_loader import export_state_dict
 
 import raft_stereo_tpu_torch.models.raft_stereo as port_model
@@ -43,6 +50,8 @@ from raft_stereo_tpu_torch import (
     RAFTStereo, RAFTStereoConfig, init_raft_stereo, raft_stereo_epilogue,
     raft_stereo_forward, raft_stereo_inference, raft_stereo_prepare, raft_stereo_segment,
     raft_stereo_segment_carry, with_eval_precision)
+from raft_stereo_tpu_torch.corr.reg_cuda import Lane8
+from raft_stereo_tpu_torch.models import stack_refinement_states, take_refinement_rows
 from raft_stereo_tpu_torch.transplant import load_state_dict, params_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -198,6 +207,68 @@ def test_sequential_fnet_matches_batched(rng, monkeypatch):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
 
 
+def _leaves(tree) -> list:
+    """The carry's tensor leaves in a fixed order, as fp32 numpy arrays."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree.float() if isinstance(tree, torch.Tensor) else tree, np.float32)]
+
+
+def _as_jax(tree):
+    if isinstance(tree, dict):
+        return {k: _as_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_as_jax(v) for v in tree)
+    if tree.dtype == torch.bfloat16:
+        return jnp.asarray(tree.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(tree.numpy())
+
+
+@pytest.mark.parametrize("lane", [False, True])
+def test_carry_stack_and_take_match_jax(rng, monkeypatch, lane):
+    """Two carries (the second a batch of 2) stacked, then rows taken out of
+    order with a repeat: the JAX package's helpers on the same values give
+    the same values. Under RAFT_LANE_PACK8 the carry holds Lane8 containers,
+    which stack and take by their batch rows, q and scale alike."""
+    monkeypatch.setenv("RAFT_LANE_PACK8", "1" if lane else "0")
+    kw = dict(SMALL, corr_implementation="reg_cuda", mixed_precision=True) if lane else SMALL
+    model = init_raft_stereo(RAFTStereoConfig(**kw), seed=7, device="cpu")
+    one = raft_stereo_prepare(model, *(torch.from_numpy(a) for a in _images(rng, 64, 96)))
+    two = raft_stereo_prepare(model, *(torch.from_numpy(a) for a in _images(rng, 64, 96, b=2)))
+    assert isinstance(one["fmap1"], Lane8) == lane
+    stacked = stack_refinement_states([one, two])
+    assert stacked["coords1"].shape[0] == 3
+    rows = [2, 0, 2, 1]
+    taken = take_refinement_rows(stacked, rows)
+    if lane:
+        assert isinstance(taken["inp"][0], Lane8) and taken["inp"][0].scale.shape == (4,)
+        assert taken["fmap1"].q.dtype == torch.int8
+    ref_stacked = jx_stack([_as_jax(one), _as_jax(two)])
+    ref_taken = jx_take(ref_stacked, rows)
+    for got, ref in ((stacked, ref_stacked), (taken, ref_taken)):
+        got_leaves, ref_leaves = _leaves(got), _leaves(ref)
+        assert len(got_leaves) == len(ref_leaves)
+        for a, b in zip(got_leaves, ref_leaves):
+            np.testing.assert_array_equal(a, b)
+    assert stack_refinement_states([one]) is one
+    with pytest.raises(ValueError):
+        stack_refinement_states([])
+
+
+def test_stacked_carry_rows_advance_as_alone(rng):
+    model = init_raft_stereo(RAFTStereoConfig(**SMALL), seed=8, device="cpu")
+    states = [raft_stereo_prepare(model, *(torch.from_numpy(a) for a in _images(rng, 64, 96)))
+              for _ in range(2)]
+    stacked, _ = raft_stereo_segment_carry(model, stack_refinement_states(states), iters=2)
+    for i, state in enumerate(states):
+        alone, _ = raft_stereo_segment_carry(model, state, iters=2)
+        row = take_refinement_rows(stacked, [i])
+        np.testing.assert_allclose(row["coords1"].numpy(), alone["coords1"].numpy(),
+                                   rtol=0, atol=1e-4)
+
+
 def test_config_choices():
     assert RAFTStereoConfig(corr_implementation="reg_tpu").corr_kind == "reg_cuda"
     assert with_eval_precision(RAFTStereoConfig(corr_implementation="reg_cuda")).mixed_precision
@@ -205,8 +276,7 @@ def test_config_choices():
         assert RAFTStereoConfig(corr_implementation=impl).corr_kind == kind
     assert with_eval_precision(RAFTStereoConfig(corr_implementation="alt_tpu")).mixed_precision
     assert not with_eval_precision(RAFTStereoConfig(corr_implementation="alt")).mixed_precision
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RAFTStereoConfig(slow_fast_gru=True)
+    assert RAFTStereoConfig(slow_fast_gru=True).slow_fast_gru
     with pytest.raises(NotImplementedError):
         RAFTStereo(RAFTStereoConfig(**SMALL))(torch.zeros(1, 32, 32, 3),
                                               torch.zeros(1, 32, 32, 3))
@@ -268,7 +338,10 @@ def test_port_imports_with_jax_blocked():
             "import raft_stereo_tpu_torch, raft_stereo_tpu_torch.demo, "
             "raft_stereo_tpu_torch.transplant, raft_stereo_tpu_torch.corr.reg_cuda, "
             "raft_stereo_tpu_torch.ops.stream, raft_stereo_tpu_torch.ops.resident, "
-            "raft_stereo_tpu_torch.ops.encoder, raft_stereo_tpu_torch.kernels, chip_smoke\n"
+            "raft_stereo_tpu_torch.ops.encoder, raft_stereo_tpu_torch.kernels, "
+            "raft_stereo_tpu_torch.bench, raft_stereo_tpu_torch.obs.ledger, "
+            "raft_stereo_tpu_torch.obs.trajectory, raft_stereo_tpu_torch.obs.profiler, "
+            "chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

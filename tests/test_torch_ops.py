@@ -6,6 +6,11 @@ Inputs come from seeded numpy and go to both sides. Tolerances:
 - bf16: counted in bf16 ulps of the reference value. An op that rounds once
   from an fp32 accumulator may land one ulp apart when the two frameworks
   sum in different orders; chains of rounded ops get a few ulps.
+
+The ops the serving layer needs (``bucket_shape``, ``upflow``,
+``avg_pool_w2``, ``pool4x``, the two samplers, ``map_chunked``) are held in
+fp32 to the same 1e-5 of scale, and the package's ``ops`` exports to the JAX
+package's.
 """
 
 import numpy as np
@@ -16,19 +21,24 @@ import jax.numpy as jnp
 
 from raft_stereo_tpu.models import extractor as jx_extractor
 from raft_stereo_tpu.models import layers as jx_layers
+import raft_stereo_tpu.ops as jx_ops
 from raft_stereo_tpu.ops import basic as jx_basic
+from raft_stereo_tpu.ops import chunked as jx_chunked
 from raft_stereo_tpu.ops import padder as jx_padder
 from raft_stereo_tpu.ops import pooling as jx_pooling
 from raft_stereo_tpu.ops import resize as jx_resize
+from raft_stereo_tpu.ops import sampler as jx_sampler
 from raft_stereo_tpu.ops import upsample as jx_upsample
 from raft_stereo_tpu.ops.coords import coords_grid as jx_coords_grid
+from raft_stereo_tpu.ops.coords import upflow as jx_upflow
 
 from raft_stereo_tpu_torch import transplant
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import ResidualBlock
-from raft_stereo_tpu_torch.ops import basic, pooling, resize, upsample
-from raft_stereo_tpu_torch.ops.coords import coords_grid
-from raft_stereo_tpu_torch.ops.padder import InputPadder
+import raft_stereo_tpu_torch.ops as port_ops
+from raft_stereo_tpu_torch.ops import basic, chunked, pooling, resize, sampler, upsample
+from raft_stereo_tpu_torch.ops.coords import coords_grid, upflow
+from raft_stereo_tpu_torch.ops.padder import InputPadder, bucket_shape
 
 import jax
 
@@ -197,6 +207,96 @@ def test_input_padder(rng, mode, bucket, hw):
     np.testing.assert_array_equal(to_np(tp.unpad(tpad)), x)
     if hw == (375, 1242) and bucket:
         assert tp.padded_shape == (384, 1248)
+
+
+@pytest.mark.parametrize("hw", [(375, 1242), (40, 64), (64, 64), (1, 1)])
+@pytest.mark.parametrize("bucket,divis", [(32, 8), (64, 32), (128, 32)])
+def test_bucket_shape(hw, bucket, divis):
+    assert bucket_shape(hw, bucket, divis) == jx_padder.bucket_shape(hw, bucket, divis)
+    assert bucket_shape((2, *hw, 3), bucket, divis) == jx_padder.bucket_shape(
+        (2, *hw, 3), bucket, divis)
+    with pytest.raises(ValueError):
+        bucket_shape(hw, divis + 1, divis)
+
+
+@pytest.mark.parametrize("factor", [4, 8])
+def test_upflow(rng, factor):
+    flow = (rng.standard_normal((2, 5, 7, 2)) * 3).astype(np.float32)
+    got = upflow(torch.from_numpy(flow), factor)
+    assert got.shape == (2, 5 * factor, 7 * factor, 2)
+    assert_close(got, jx_upflow(jnp.asarray(flow), factor), "fp32")
+
+
+@pytest.mark.parametrize("w", [20, 37])
+def test_avg_pool_w2(rng, w):
+    x = rng.standard_normal((2, 3, w, 8)).astype(np.float32)
+    jx, tx = both(x, "fp32")
+    got, ref = pooling.avg_pool_w2(tx), jx_pooling.avg_pool_w2(jx)
+    assert got.shape == ref.shape == (2, 3, w // 2, 8)
+    assert_close(got, ref, "fp32")
+
+
+@pytest.mark.parametrize("h,w", [(16, 24), (13, 19)])
+def test_pool4x(rng, h, w):
+    x = rng.standard_normal((2, h, w, 8)).astype(np.float32)
+    jx, tx = both(x, "fp32")
+    got, ref = pooling.pool4x(tx), jx_pooling.pool4x(jx)
+    assert got.shape == ref.shape
+    assert_close(got, ref, "fp32")
+
+
+def _positions(rng, shape, width):
+    """Fractional positions over and past both ends of a row, with some on
+    the integers and the two ends exactly."""
+    x = rng.uniform(-3, width + 2, shape).astype(np.float32)
+    x.flat[:4] = [0.0, width - 1, -1.0, 2.0]
+    return x
+
+
+def test_sample_1d_zeros(rng):
+    values = rng.standard_normal((2, 5, 23)).astype(np.float32)
+    x = _positions(rng, (2, 5, 9), 23)
+    got = sampler.sample_1d_zeros(torch.from_numpy(values), torch.from_numpy(x))
+    ref = jx_sampler.sample_1d_zeros(jnp.asarray(values), jnp.asarray(x))
+    assert got.shape == (2, 5, 9)
+    assert_close(got, ref, "fp32")
+
+
+def test_sample_rows_zeros(rng):
+    fmap = rng.standard_normal((2, 5, 23, 16)).astype(np.float32)
+    x = _positions(rng, (2, 5, 9), 23)
+    got = sampler.sample_rows_zeros(torch.from_numpy(fmap), torch.from_numpy(x))
+    ref = jx_sampler.sample_rows_zeros(jnp.asarray(fmap), jnp.asarray(x))
+    assert got.shape == (2, 5, 9, 16)
+    assert_close(got, ref, "fp32")
+
+
+@pytest.mark.parametrize("n,chunk,axis", [(10, 4, 0), (12, 4, 1), (3, 8, 0), (7, 3, 2)])
+def test_map_chunked(rng, n, chunk, axis):
+    """Each chunk sees ``chunk`` rows (the last zero-padded), and only real
+    rows come back, in order."""
+    shape = [3, 4, 5]
+    shape[axis] = n
+    a = rng.standard_normal(shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    seen = []
+
+    def fn_t(xs):
+        seen.append(xs[0].shape[axis])
+        return torch.tanh(xs[0]) * xs[1] + 1.0
+
+    got = chunked.map_chunked(fn_t, (torch.from_numpy(a), torch.from_numpy(b)), chunk, axis)
+    ref = jx_chunked.map_chunked(lambda xs: jnp.tanh(xs[0]) * xs[1] + 1.0,
+                                 (jnp.asarray(a), jnp.asarray(b)), chunk, axis)
+    assert got.shape == tuple(shape)
+    assert_close(got, ref, "fp32")
+    assert set(seen) == {min(n, chunk)} and len(seen) == -(-n // chunk)
+
+
+def test_ops_exports_cover_the_jax_package():
+    assert set(jx_ops.__all__) <= set(port_ops.__all__)
+    assert {"bucket_shape", "map_chunked"} <= set(port_ops.__all__)
+    assert all(callable(getattr(port_ops, name)) for name in port_ops.__all__)
 
 
 def _jax_params_to_module(module: torch.nn.Module, fill) -> None:

@@ -58,7 +58,12 @@ Phases, each fatal on failure:
    feature net layer3[1] at both sizes), whose launches are its row's; the
    realtime model's shapes (``REALTIME``, KITTI at 1/8): the head-less gru16
    step at 24x78 with one x input, and the resident kernel at 48x156 with
-   its 24x78 gru16 state upsampled;
+   its 24x78 gru16 state upsampled; and writes past a kernel's outputs
+   (``check_overruns``): one KITTI frame of 2 iterations on the default path
+   with every output and scratch map the six kernels' wrappers allocate
+   (stem, pass, point3, point2, gru16+32, resident) inside a larger buffer
+   of sentinel bytes (``guarded_allocations``), whose margins must come out
+   unchanged (compute-sanitizer refuses this card);
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
    levels, 4 corr levels, radius 4, bf16, reg_cuda) with weights from a
    seed, through the demo's inference function at 32 iterations, with the
@@ -99,10 +104,25 @@ Phases, each fatal on failure:
      pair at 32 iterations (32 gru32 steps, 64 gru16+32, 32 resident) and
      on its serial loop (equal bits);
    per-frame ms and peak memory for each;
-5. the same seeded model at 128x256 and 8 iterations on the card and on the
+5. the serving session (``phase_session``), its programs CUDA graphs: a
+   KITTI session (32 iterations, 4 segments, the 375x1242 bucket warmed
+   with its segmented and half-resolution programs, the parity canary on)
+   serves 4 random pairs, each bit for bit the eager forward on the card
+   (the first pair's whole padded flow too), with no breaker trip; a
+   deadline that fits all 4 segments gives the full request's bits, one of
+   about half the full program's time a reduced_iters:k label (0 < k <
+   32); the full program must have captured the default path's launches a
+   frame and a profiled replay show the same kernels; the realtime model
+   (7 iterations) and one Middlebury-F request the same way. Each line
+   (``"phase": "session"``) carries the card's name and power limit, frames
+   from a host pair to a host flow in turns (eager, graph, graph, eager;
+   ``eager_ms``, ``graph_ms``), the graph frame's copy in, replay and copy
+   out apart, both back to back on the card, one replay's device busy ms,
+   and each program's capture seconds, pool bytes and peak device bytes;
+6. the same seeded model at 128x256 and 8 iterations on the card and on the
    CPU (plain versions), with reg_cuda and with alt_cuda, and the realtime
    model at 7 iterations with reg_cuda, disparities held to a stated band;
-6. the bench entry point, ``python -m raft_stereo_tpu_torch.bench``, in a
+7. the bench entry point, ``python -m raft_stereo_tpu_torch.bench``, in a
    subprocess: the headline default (Middlebury-F, 32 iterations, 3 timed
    frames) and the realtime model at 384x1248 (7 iterations, 8 frames);
    each must exit 0 with one JSON line, a positive frame rate, finite
@@ -200,6 +220,12 @@ ENC_MIDDLEBURY = _by_kernel(VAR_MIDDLEBURY)  # 3 stems, 30 passes, 3 point3, 8 p
 # block (raw1, mid1, point2) and a head conv (raw1) each.
 VAR_RT = {"enc_pass:raw1/bn/128": 4, "enc_pass:mid1/bn/128": 2, "enc_point2:bn/128": 2}
 ENC_RT = _by_kernel(VAR_RT)  # 6 passes, 2 point2
+# A frame's launches on the default path: the headline frame (the feature
+# net fuses there) and the realtime model (2 gru16 steps and 1 resident
+# iteration an iteration, no gru16+32).
+LOOP = {"fused_iter": ITERS, "gru1632": ITERS}
+MIDDLEBURY_LAUNCHES = {**LOOP, **ENC_MIDDLEBURY}
+RT_LAUNCHES = {"conv_gru:gru16": 2 * RT_ITERS, "fused_iter": RT_ITERS, **ENC_RT}
 # Encoder maps on the two main paths: (H, W) of the padded frame, of layer2
 # and of layer3 and the finest heads.
 SHAPES = {"default": ((384, 1248), (192, 624), (96, 312)),
@@ -1332,6 +1358,89 @@ def lane8_checks() -> list:
     return out
 
 
+# Writes past a kernel's outputs (compute-sanitizer refuses this card): every
+# buffer a wrapper allocates (torch.empty / torch.empty_like: outputs and
+# scratch maps) is placed inside a larger one, OVERRUN_MARGIN bytes of
+# OVERRUN_SENTINEL on each side, and the margins must come out unchanged.
+OVERRUN_MARGIN = 1 << 20
+OVERRUN_SENTINEL = 0xA5
+OVERRUN_KERNELS = ("enc_stem", "enc_pass", "enc_point3", "enc_point2", "gru1632", "fused_iter")
+
+
+class guarded_allocations:
+    """While open, ``torch.empty`` and ``torch.empty_like`` on the card
+    return views into sentinel-filled buffers with margins on both sides
+    (the view's start keeps the allocator's alignment); ``intact()`` checks
+    the margins after a synchronize. The buffers are held until the
+    check, so no later allocation reuses a margin."""
+
+    def __init__(self):
+        self.buffers = []
+
+    def _alloc(self, shape, dtype):
+        n = math.prod(shape) * self._empty((), dtype=dtype).element_size()
+        buf = self._empty(2 * OVERRUN_MARGIN + n, dtype=torch.uint8, device="cuda")
+        buf.fill_(OVERRUN_SENTINEL)
+        self.buffers.append((buf, n))
+        return buf[OVERRUN_MARGIN:OVERRUN_MARGIN + n].view(dtype).view(shape)
+
+    def __enter__(self):
+        self._empty, self._empty_like = torch.empty, torch.empty_like
+
+        def empty(*size, dtype=None, device=None, **kw):
+            shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else size
+            if torch.device(device or "cpu").type != "cuda" or kw:
+                return self._empty(*size, dtype=dtype, device=device, **kw)
+            return self._alloc(shape, dtype or torch.get_default_dtype())
+
+        def empty_like(t, dtype=None, device=None, **kw):
+            if t.device.type != "cuda" or device is not None or kw:
+                return self._empty_like(t, dtype=dtype, device=device, **kw)
+            return self._alloc(tuple(t.shape), dtype or t.dtype)
+        torch.empty, torch.empty_like = empty, empty_like
+        return self
+
+    def __exit__(self, *exc):
+        torch.empty, torch.empty_like = self._empty, self._empty_like
+
+    def intact(self) -> list:
+        """The (buffer bytes, bad margin bytes) of every buffer whose
+        margins changed; empty when none did."""
+        torch.cuda.synchronize()
+        bad = []
+        for buf, n in self.buffers:
+            head, tail = buf[:OVERRUN_MARGIN], buf[OVERRUN_MARGIN + n:]
+            wrong = int((head != OVERRUN_SENTINEL).sum()) + int((tail != OVERRUN_SENTINEL).sum())
+            if wrong:
+                bad.append((n, wrong))
+        return bad
+
+
+def check_overruns(model, pair, iters: int = 2) -> dict:
+    """The default path's six kernels (stem, pass, point3, point2, gru16+32,
+    resident) at the KITTI shapes, through one frame of ``iters`` iterations
+    with every output and scratch map a wrapper allocates inside a guarded
+    buffer: no margin may change."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.demo import infer_pair
+    infer_pair(model, *pair, iters=iters)  # weight layouts cached outside the guard
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    with guarded_allocations() as guard:
+        infer_pair(model, *pair, iters=iters)
+    bad = guard.intact()
+    launched = {k: kernels.launches[k] - before.get(k, 0) for k in OVERRUN_KERNELS}
+    result = {"phase": "overrun", "ok": not bad and all(launched.values()),
+              "input": "x".join(map(str, pair[0].shape[1:3])), "iters": iters,
+              "buffers": len(guard.buffers), "margin_bytes": OVERRUN_MARGIN,
+              "launches": launched, "bad_buffers": bad}
+    del guard
+    print(json.dumps(result))
+    if not result["ok"]:
+        raise SystemExit(f"writes past a kernel's outputs, or a kernel not run: {result}")
+    return result
+
+
 def phase_kernels() -> tuple:
     from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
     from raft_stereo_tpu_torch.ops import stream
@@ -1384,6 +1493,7 @@ def phase_kernels() -> tuple:
             failed.append(r["name"])
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
+    check_overruns(seeded_model("cuda"), random_pairs(1, KITTI, seed=7)[0])
     return results, check_chains()
 
 
@@ -1530,7 +1640,7 @@ def phase_main_path() -> dict:
     bit and the encoder routes within a band."""
     model = seeded_model("cuda")
     pairs = random_pairs(N_FRAMES, KITTI, seed=7)
-    loop = {"fused_iter": ITERS, "gru1632": ITERS}
+    loop = LOOP
     serial = {"corr_lookup": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS,
               "conv_gru:gru16": ITERS, "conv_gru:gru32": ITERS}
     for knob in SWITCHES + ENCODER_SWITCHES:
@@ -1551,7 +1661,7 @@ def phase_main_path() -> dict:
         lambda: _drive(model, pairs[:1], loop, "plain encoders (RAFT_FUSED_ENCODERS=0)", {}))
     _disparity_band("plain encoders vs default", "KITTI", disp_plain[0], disp_default[0])
     big = random_pairs(1, MIDDLEBURY_F, seed=12)
-    headline, disp_big = _drive(model, big, {**loop, **ENC_MIDDLEBURY}, "default, Middlebury-F",
+    headline, disp_big = _drive(model, big, MIDDLEBURY_LAUNCHES, "default, Middlebury-F",
                                 VAR_MIDDLEBURY)
     headline_plain, disp_big_plain = _with_env(
         {"RAFT_FUSED_ENCODERS": "0"},
@@ -1589,7 +1699,7 @@ def phase_slow_fast(pair) -> dict:
       gru32 step, 2 gru16+32 and 1 resident launch an iteration and the
       context net's encoder kernels; again on the serial loop, equal bits."""
     rt_model = seeded_model("cuda", **REALTIME)
-    rt = {"conv_gru:gru16": 2 * RT_ITERS, "fused_iter": RT_ITERS, **ENC_RT}
+    rt = RT_LAUNCHES
     rt_serial = {"corr_lookup": RT_ITERS, "motion": RT_ITERS, "conv_gru:gru08": RT_ITERS,
                  "conv_gru:gru16": 2 * RT_ITERS, **ENC_RT}
     run_rt, disp_rt = _drive(rt_model, [pair], rt, "realtime", VAR_RT, RT_ITERS)
@@ -1737,6 +1847,285 @@ def phase_lane_paths(model, pair, big, disp_reg, disp_reg_big, peak_reg_big) -> 
             "lane8_headline": {**run_big, "peaks": {"lane8": peak, "reg_cuda": peak_reg_big}}}
 
 
+# The serving session (raft_stereo_tpu_torch/serve/session.py) on the card:
+# its programs are CUDA graphs. The default path's launches a KITTI frame,
+# which the KITTI session's full program must capture.
+SESSION_KITTI_LAUNCHES = {**LOOP, **ENC_KITTI}
+# The kernels a graph replay shows under torch.profiler, by counter: each
+# wrapper's own kernel (OWN_KERNELS' first name; stats_reduce_kernel runs
+# only under instance norm, which the KITTI context net does not take). A
+# graph replays the fixed set of kernels it captured, so a replay that
+# shows fewer lost events to the profiler, not launches: it is profiled
+# again, up to PROFILE_TRIES times, and every try's counts are printed.
+REPLAY_KERNELS = {k: OWN_KERNELS[k][0] for k in ("conv_gru", "fused_iter", "gru1632",
+                                                 "enc_stem", "enc_pass", "enc_point3",
+                                                 "enc_point2")}
+SESSION_ROUNDS = {"KITTI": 4, "realtime": 4, "Middlebury-F": 1}
+PROFILE_TRIES = 3
+
+
+# Loop-engine kernels (loop_conv_kernel) one conv_gru call launches: the
+# gate and the update stage, and at gru08 the flow head's two convs besides
+# (csrc/conv_gru.cu:launch_chain).
+CONV_GRU_STAGES = {"gru08": 4, "gru16": 2, "gru32": 2}
+
+
+def _replay_want(captured: dict) -> dict:
+    """The kernels a replay of a program must show, by REPLAY_KERNELS'
+    counter, from the launches its capture counted."""
+    want = dict.fromkeys(REPLAY_KERNELS, 0)
+    for counter, n in captured.items():
+        kernel, _, level = counter.partition(":")
+        if kernel in want:
+            want[kernel] += n * (CONV_GRU_STAGES[level] if kernel == "conv_gru" else 1)
+    return want
+
+
+def _np_pairs(n: int, shape, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [tuple(rng.uniform(0, 255, (1, *shape, 3)).astype(np.float32) for _ in range(2))
+            for _ in range(n)]
+
+
+def _eager_flow(model, lp, rp, iters: int) -> torch.Tensor:
+    """The port's eager forward on the card on a padded host pair: the
+    padded flow (1, H, W, 1), on the card. Its launches are not counted:
+    it is the session's reference."""
+    from raft_stereo_tpu_torch import kernels, raft_stereo_forward
+    launches, variants = kernels.launches.copy(), kernels.variants.copy()
+    left, right = (torch.from_numpy(x).cuda() for x in (lp, rp))
+    flow = raft_stereo_forward(model, left, right, iters=iters)[1]
+    kernels.launches.clear()
+    kernels.launches.update(launches)
+    kernels.variants.clear()
+    kernels.variants.update(variants)
+    return flow
+
+
+def _served_bitwise(sess, model, pairs, iters: int, name: str) -> list:
+    """Each pair through ``sess.infer`` and through the eager forward on
+    the card: the disparities equal bit for bit (the first pair's whole
+    padded flow too). Returns the results."""
+    results = []
+    for i, (left, right) in enumerate(pairs):
+        res = sess.infer(left, right)
+        padder = sess.padder_for(left.shape)
+        lp, rp = padder.pad_np(left, right)
+        eager = _eager_flow(model, lp, rp, iters)
+        ref = -padder.unpad(eager)[0, ..., 0].cpu()
+        same = res.quality == "full" and torch.equal(torch.from_numpy(res.disparity), ref)
+        if i == 0:
+            graph = torch.from_numpy(sess._run_full(padder, left, right))
+            same = same and torch.equal(graph, eager.cpu())
+        if not same or not bool(torch.isfinite(ref).all()):
+            raise SystemExit(f"session {name}: request {i} differs from the eager forward "
+                             f"(quality {res.quality}, max |d| "
+                             f"{_max_err(torch.from_numpy(res.disparity), ref)})")
+        results.append(res)
+    return results
+
+
+def _frame_times(sess, model, pair, iters: int, rounds: int) -> dict:
+    """Frames of the full program from a host pair to a host flow, eager and
+    graph in turns (eager, graph, graph, eager), each synchronized; the
+    graph frame's copy in, replay and copy out apart; each kind back to back
+    on the card (no copies, one synchronize for 4 frames); one replay's
+    device busy ms and the kernels it shows under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch.obs.profiler import device_seconds
+    padder = sess.padder_for(pair[0].shape)
+    lp, rp = padder.pad_np(*pair)
+    ph, pw = padder.padded_shape
+    prog = sess.get_program("full", ph, pw, iters)
+    left, right = (torch.from_numpy(x).cuda() for x in (lp, rp))
+
+    def eager():
+        _eager_flow(model, lp, rp, iters).cpu()
+
+    def graph():
+        prog.copy_in((lp, rp))
+        prog.replay()
+        prog.copy_out()
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    eager_ms, graph_ms, parts = [], [], {"copy_in_ms": [], "replay_ms": [], "copy_out_ms": []}
+    for _ in range(rounds):
+        eager_ms.append(timed(eager))
+        graph_ms += [timed(graph), timed(graph)]
+        eager_ms.append(timed(eager))
+        parts["copy_in_ms"].append(timed(lambda: prog.copy_in((lp, rp))))
+        parts["replay_ms"].append(timed(prog.replay))
+        parts["copy_out_ms"].append(timed(prog.copy_out))
+    n = 4
+
+    def back_to_back(fn) -> float:
+        return timed(lambda: [fn() for _ in range(n)]) / n
+    from raft_stereo_tpu_torch import raft_stereo_forward
+    b2b_graph = back_to_back(prog.replay)
+    b2b_eager = back_to_back(lambda: raft_stereo_forward(model, left, right, iters=iters))
+    # A profile has been seen to lose the first events of its window (a
+    # stem and a pass of a Middlebury-F replay): see REPLAY_KERNELS.
+    tries = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prog.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels_seen = {k: sum(own in name for name in names)
+                        for k, own in REPLAY_KERNELS.items()}
+        tries.append(kernels_seen)
+        if kernels_seen == _replay_want(prog.launches):
+            break
+    busy = device_seconds(prof)
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms,
+            "eager_ms_median": statistics.median(eager_ms),
+            "graph_ms_median": statistics.median(graph_ms),
+            **{k: statistics.median(v) for k, v in parts.items()},
+            "eager_back_to_back_ms": b2b_eager, "graph_back_to_back_ms": b2b_graph,
+            "replay_device_busy_ms": None if busy is None else busy * 1e3,
+            "replay_kernels": kernels_seen, "replay_device_events": len(names),
+            "replay_tries": tries}
+
+
+def _replay_matches(name: str, captured: dict, times: dict) -> None:
+    """A profiled replay shows each wrapper's own kernel as many times as
+    the capture counted its launches."""
+    want = _replay_want(captured)
+    if times["replay_kernels"] != want:
+        raise SystemExit(f"session {name}: a replay shows {times['replay_kernels']}, "
+                         f"the capture counted {want}")
+
+
+def _program_rows(sess) -> list:
+    """Each cached program's capture seconds, pool bytes and peak device
+    bytes (its ledger row: warm-up and capture)."""
+    rows = {r.id: r for r in sess.ledger.rows()}
+    out = []
+    for p in sess.programs():
+        row = rows.get(p["id"])
+        out.append({"program": p["id"], "capture_s": p["capture_s"],
+                    "graph_pool_bytes": p["pool_bytes"],
+                    "peak_hbm_bytes": None if row is None else row.peak_hbm_bytes,
+                    "launches": p["launches"]})
+    return out
+
+
+def _captured_is(name: str, captured: dict, want: dict) -> None:
+    """The full program captured a frame's launches of the default path,
+    as phase 4 counted them."""
+    if captured != want:
+        raise SystemExit(f"session {name}: the full program captured {captured}, "
+                         f"expected {want}")
+
+
+def _session_line(name: str, sess, smi: str, **more) -> dict:
+    st = sess.status()
+    line = {"phase": "session", "name": name, "card": smi,
+            "trips": st["breaker"]["trip_count"],
+            "kernels_only": st["breaker"]["kernels_only"], "canary": st["canary"],
+            "counts": st["counts"], "programs": _program_rows(sess), **more}
+    print(json.dumps(line))
+    if line["trips"] or not line["kernels_only"]:
+        raise SystemExit(f"session {name}: breaker trips on a clean path, or a breaker "
+                         f"that may leave the kernels: {st['breaker']}")
+    return line
+
+
+def phase_session(smi: str) -> dict:
+    """The serving session on the card, its programs CUDA graphs: a KITTI
+    session (4 requests bit for bit the eager forward, the canary, a
+    deadline that fits all segments bit for bit, one that fits about half),
+    the realtime model, one Middlebury-F request; the full program's
+    captured launches and a profiled replay's kernels; frame times in turns,
+    eager against graph."""
+    import gc
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    for knob in SWITCHES + ENCODER_SWITCHES:
+        os.environ.pop(knob, None)
+    torch.cuda.empty_cache()
+    out = {}
+    # 1-2. KITTI: warm-up (full, prepare/segment and the half bucket's) and
+    # the canary at construction; launches counted from 0 around it all.
+    model = seeded_model("cuda")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sess = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=4, warmup_shapes=(KITTI,), warmup_segmented=True,
+        canary=True))
+    setup_s = time.perf_counter() - t0
+    pairs = _np_pairs(4, KITTI, seed=21)
+    results = _served_bitwise(sess, model, pairs, ITERS, "KITTI")
+    launches = dict(kernels.launches)
+    ph, pw = results[0].padded_shape
+    captured = sess.program_launches("full", ph, pw, ITERS)
+    _captured_is("KITTI", captured, SESSION_KITTI_LAUNCHES)
+    if sess.status()["canary"]["passed"] is not True:
+        raise SystemExit(f"session KITTI: canary {sess.status()['canary']}")
+    fits = sess.infer(*pairs[0], budget_s=60.0)
+    same = fits.disparity.tobytes() == results[0].disparity.tobytes()
+    if fits.quality != "full" or not same:
+        raise SystemExit(f"session KITTI: a deadline that fits all segments gave "
+                         f"{fits.quality}, bitwise {same}")
+    full_s = sess.estimate(sess.cache_key("full", ph, pw, ITERS))
+    half = sess.infer(*pairs[1], budget_s=full_s / 2, allow_half_res=False)
+    k = int(half.quality.split(":")[1]) if half.quality.startswith("reduced_iters:") else -1
+    if not (0 < k < ITERS) or not bool(np.isfinite(half.disparity).all()):
+        raise SystemExit(f"session KITTI: a half budget gave {half.quality}")
+    times = _frame_times(sess, model, pairs[0], ITERS, SESSION_ROUNDS["KITTI"])
+    _replay_matches("KITTI", captured, times)
+    out["KITTI"] = _session_line(
+        "KITTI", sess, smi, setup_s=setup_s, launches=launches, full_launches=captured,
+        deadline_fits={"quality": fits.quality, "bitwise": True},
+        deadline_half={"budget_s": full_s / 2, "quality": half.quality,
+                       "deadline_missed": half.deadline_missed},
+        full_estimate_s=full_s, **times)
+    del sess, results
+    # 3. The realtime model.
+    rt = seeded_model("cuda", **REALTIME)
+    kernels.reset_launches()
+    sess = InferenceSession(rt, rt.cfg, SessionConfig(valid_iters=RT_ITERS, segments=1))
+    _served_bitwise(sess, rt, pairs, RT_ITERS, "realtime")
+    launches = dict(kernels.launches)
+    rt_captured = sess.program_launches("full", ph, pw, RT_ITERS)
+    _captured_is("realtime", rt_captured, RT_LAUNCHES)
+    rt_times = _frame_times(sess, rt, pairs[0], RT_ITERS, SESSION_ROUNDS["realtime"])
+    _replay_matches("realtime", rt_captured, rt_times)
+    out["realtime"] = _session_line("realtime", sess, smi, launches=launches,
+                                    full_launches=rt_captured, **rt_times)
+    del sess, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4. One Middlebury-F request.
+    kernels.reset_launches()
+    sess = InferenceSession(model, model.cfg, SessionConfig(valid_iters=ITERS, segments=4))
+    big = _np_pairs(1, MIDDLEBURY_F, seed=22)
+    _served_bitwise(sess, model, big, ITERS, "Middlebury-F")
+    launches = dict(kernels.launches)
+    big_captured = sess.program_launches("full", *MIDDLEBURY_F, ITERS)
+    _captured_is("Middlebury-F", big_captured, MIDDLEBURY_LAUNCHES)
+    big_times = _frame_times(sess, model, big[0], ITERS, SESSION_ROUNDS["Middlebury-F"])
+    _replay_matches("Middlebury-F", big_captured, big_times)
+    out["Middlebury-F"] = _session_line("Middlebury-F", sess, smi, launches=launches,
+                                        full_launches=big_captured, **big_times)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_cross_check() -> list:
     """The same seeded model at 128x256, 8 iterations, on the card and on
     the CPU (plain versions), with reg_cuda and with alt_cuda, and the
@@ -1853,10 +2242,11 @@ def main() -> int:
     import raft_stereo_tpu_torch  # noqa: F401  (fails when run without the repo)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_device()
+    smi = phase_device()["nvidia_smi"]
     phase_build()
     results, chain_run = phase_kernels()
     main_path = {**phase_main_path(), "resblock_q8": chain_run}
+    phase_session(smi)
     phase_cross_check()
     phase_bench()
     line = []

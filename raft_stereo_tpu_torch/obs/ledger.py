@@ -26,6 +26,15 @@ Where the numbers come from (:func:`analyze_program`):
   its peak, so that ``peak_hbm_bytes`` is the call's peak. ``None`` on the
   CPU and on the meta device.
 
+A serving session's program (``serve/session.py``) is a CUDA graph on the
+card. Its row (:func:`program_twin` for the flops) takes its memory from the
+caching allocator over the program's warm-up and capture: ``argument_bytes``
+its static inputs, ``temp_bytes`` the rest of the peak
+(``max_memory_allocated``), and, apart, ``graph_pool_bytes`` (what the
+graph's private pool reserved) and ``capture_s`` (the capture's seconds, in
+the place of the JAX package's compile). On the CPU a session's programs run
+eagerly and have no memory numbers.
+
 MFU is absent wherever an input is missing: a device not in the peak
 table (the CPU) has no peaks, and its MFU is never computed against a
 made-up one.
@@ -150,6 +159,45 @@ def analyze_program(fn: Callable, *args, twin: Optional[Callable[[], object]] = 
     return out
 
 
+def program_twin(kind: str, cfg, b: int, h: int, w: int, iters: int
+                 ) -> Callable[[], object]:
+    """A serving program's plain twin on the meta device, which allocates
+    nothing: the fp32 ``reg`` model at ``cfg``'s architecture, running the
+    serving program ``kind`` (``serve/session.py:PROGRAM_KINDS``) at batch
+    ``b`` and padded size ``h`` x ``w``. The carry a segment, advance or
+    epilogue program takes is made outside the returned callable, so only
+    the program's own operations are counted."""
+    import torch
+
+    from raft_stereo_tpu_torch.models import (
+        RAFTStereo, raft_stereo_epilogue, raft_stereo_forward, raft_stereo_prepare,
+        raft_stereo_segment, raft_stereo_segment_carry)
+    twin_cfg = dataclasses.replace(cfg, corr_implementation="reg", mixed_precision=False)
+    with torch.device("meta"):
+        model = RAFTStereo(twin_cfg).eval()
+        image = torch.zeros((b, h, w, 3))
+        f = twin_cfg.downsample_factor
+        flow = torch.zeros((b, h // f, w // f, 2))
+        state = (raft_stereo_prepare(model, image, image)
+                 if kind in ("segment", "advance", "epilogue") else None)
+    programs = {
+        "full": lambda: raft_stereo_forward(model, image, image, iters=iters),
+        "prepare": lambda: raft_stereo_prepare(model, image, image),
+        "prepare_warm": lambda: raft_stereo_prepare(model, image, image, flow_init=flow),
+        "segment": lambda: raft_stereo_segment(model, state, iters=iters),
+        "advance": lambda: raft_stereo_segment_carry(model, state, iters=iters),
+        "epilogue": lambda: raft_stereo_epilogue(model, state),
+    }
+    if kind not in programs:
+        raise ValueError(f"unknown program kind {kind!r}")
+    fn = programs[kind]
+
+    def run():
+        with torch.device("meta"):
+            return fn()
+    return run
+
+
 def ledger_id(key) -> str:
     """Short stable display id for a program key:
     ``kind@b<b>:<h>x<w>/it<iters>`` for a 6-tuple key, plus an 8-hex-char
@@ -191,6 +239,8 @@ class LedgerRow:
     generated_code_bytes: Optional[float] = None
     flops_est: Optional[float] = None
     bytes_est: Optional[float] = None
+    capture_s: Optional[float] = None
+    graph_pool_bytes: Optional[float] = None
 
     @property
     def peak_hbm_bytes(self) -> Optional[float]:

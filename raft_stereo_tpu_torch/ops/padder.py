@@ -4,12 +4,14 @@ Reference ``core/utils/utils.py:7-26``: replicate padding, centred in
 'sintel' mode; otherwise W is centred and H padded at the bottom. The
 optional ``bucket`` rounds H and W up to a multiple of ``bucket`` instead, so
 mixed-size inputs share shapes. ``unpad`` restores the original extent.
+``pad_np`` and ``unpad_np`` do the same on numpy arrays.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,10 +51,21 @@ class InputPadder:
         return [F.pad(x.permute(0, 3, 1, 2), (l, r, t, b), mode="replicate")
                 .permute(0, 2, 3, 1).contiguous() for x in inputs]
 
+    def pad_np(self, *inputs: np.ndarray) -> list:
+        """``pad`` for host arrays (edge replication, as ``pad``): the
+        serving session pads numpy pairs before it uploads them."""
+        l, r, t, b = self._pad
+        return [np.pad(x, ((0, 0), (t, b), (l, r), (0, 0)), mode="edge")
+                for x in inputs]
+
     def unpad(self, x: torch.Tensor) -> torch.Tensor:
         l, r, t, b = self._pad
         ht, wd = x.shape[1], x.shape[2]
         return x[:, t:ht - b, l:wd - r, :]
+
+    def unpad_np(self, x: np.ndarray) -> np.ndarray:
+        """``unpad`` for host arrays: the same slice, a view."""
+        return self.unpad(x)
 
 
 def bucket_shape(dims: Sequence[int], bucket: int, divis_by: int = 8) -> Tuple[int, int]:

@@ -1158,3 +1158,144 @@ def test_gpu_q8_exits_reject_what_they_do_not_take(cuda):
         enc.conv_pass("mid1", inputs, wt, b, stats=False, quant=True)
     with pytest.raises(ValueError):  # and never with statistics
         enc.conv_pass("raw1", [(inputs[0][0], None, None)], wt, b, stats=True, quant=True)
+
+
+def _session_model(cuda):
+    """The default full-width model, weights from seed 0, the flow head's
+    last conv tempered as chip_smoke.py does (chip_smoke.seeded_model)."""
+    import chip_smoke
+    return chip_smoke.seeded_model(cuda.type)
+
+
+@pytest.mark.gpu
+def test_gpu_session_graph_replay_equals_eager(cuda):
+    """The serving session's programs are CUDA graphs on the card: a request
+    served by replaying the full program, and one served in deadline
+    segments, equal the eager forward bit for bit; the full program
+    captured the default path's kernels."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch import kernels, raft_stereo_forward
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg, SessionConfig(valid_iters=4, segments=2),
+                            device=cuda)
+    rng = np.random.default_rng(3)
+    left, right = (rng.uniform(0, 255, (1, 100, 230, 3)).astype(np.float32)
+                   for _ in range(2))
+    kernels.reset_launches()
+    res = sess.infer(left, right)
+    padder = sess.padder_for(left.shape)
+    lp, rp = padder.pad_np(left, right)
+    _, flow = raft_stereo_forward(model, torch.from_numpy(lp).to(cuda),
+                                  torch.from_numpy(rp).to(cuda), iters=4)
+    ref = -padder.unpad(flow)[0, ..., 0].cpu()
+    assert res.quality == "full" and sess.status()["graphs"]
+    assert torch.equal(torch.from_numpy(res.disparity), ref)
+    again = sess.infer(left, right)  # a replay of the captured graph
+    assert again.disparity.tobytes() == res.disparity.tobytes()
+    seg = sess.infer(left, right, budget_s=600.0)
+    assert seg.quality == "full" and seg.disparity.tobytes() == res.disparity.tobytes()
+    captured = sess.program_launches("full", *padder.padded_shape, 4)
+    assert captured["fused_iter"] == 4 and captured["gru1632"] == 4
+    assert captured["enc_stem"] >= 1 and captured["enc_pass"] >= 1
+    assert sess.breaker.trip_count == 0
+    assert sess.breaker.kernels_only  # no rung on the card leaves the kernels
+
+
+def _eager_disparity(model, sess, left, right, iters):
+    """The eager forward on the card of a host pair, padded as ``sess``
+    pads it: the disparity the session must serve."""
+    from raft_stereo_tpu_torch import raft_stereo_forward
+    padder = sess.padder_for(left.shape)
+    lp, rp = padder.pad_np(left, right)
+    _, flow = raft_stereo_forward(model, torch.from_numpy(lp).to(sess.device),
+                                  torch.from_numpy(rp).to(sess.device), iters=iters)
+    return (-padder.unpad(flow)[0, ..., 0].cpu()).numpy()
+
+
+def _host_pairs(shapes, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [tuple(rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32) for _ in range(2))
+            for (h, w) in shapes]
+
+
+@pytest.mark.gpu
+def test_gpu_session_replays_beside_first_captures(cuda):
+    """One thread serves a warm bucket again and again, in deadline
+    segments (each segment's carry cloned on the card, allocating there)
+    and whole, until two other threads have served two new buckets, whose
+    programs are captured meanwhile, right after the capture empties the
+    allocator's cache. A capture runs alone on the card, so every result
+    equals the eager forward bit for bit and nothing fails."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg, SessionConfig(valid_iters=4, segments=2),
+                            device=cuda)
+    warm, new_a, new_b = _host_pairs(((100, 230), (60, 100), (130, 90)), seed=11)
+    sess.infer(*warm)
+    sess.infer(*warm, budget_s=600.0)
+    refs = [_eager_disparity(model, sess, *p, 4) for p in (warm, new_a, new_b)]
+    torch.cuda.synchronize(cuda)
+    done = threading.Event()
+
+    def replays():
+        served = []
+        while not done.is_set() or len(served) < 4:
+            served.append(sess.infer(*warm, budget_s=600.0))
+            served.append(sess.infer(*warm))
+        return served
+
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        again = ex.submit(replays)
+        firsts = [ex.submit(sess.infer, *p) for p in (new_a, new_b)]
+        try:
+            got = [f.result(timeout=600) for f in firsts]
+        finally:
+            done.set()
+        served = again.result(timeout=600)
+    for res in served:
+        assert res.quality == "full" and res.disparity.tobytes() == refs[0].tobytes()
+    assert got[0].disparity.tobytes() == refs[1].tobytes()
+    assert got[1].disparity.tobytes() == refs[2].tobytes()
+    m = sess.metrics()
+    assert m["compiles"] == 5 and m["requests_failed"] == 0  # full, prepare, segment + 2
+
+
+@pytest.mark.gpu
+def test_gpu_session_recaptures_after_eviction(cuda):
+    """max_programs=1 with two shapes in turns: each request evicts the
+    other bucket's graph and captures its own again, into a fresh pool;
+    every result equals the eager forward bit for bit (no host cache keyed
+    by pointer outlives the pool it points into)."""
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg,
+                            SessionConfig(valid_iters=4, segments=2, max_programs=1),
+                            device=cuda)
+    pairs = _host_pairs(((100, 230), (60, 100)), seed=12)
+    refs = [_eager_disparity(model, sess, *p, 4) for p in pairs]
+    for i in range(4):
+        res = sess.infer(*pairs[i % 2])
+        assert res.disparity.tobytes() == refs[i % 2].tobytes(), i
+    m = sess.metrics()
+    assert m["compiles"] == 4 and m["evictions"] == 3 and m["requests_failed"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_write_nothing_past_their_outputs(cuda):
+    """The default path's six kernels (stem, pass, point3, point2, gru16+32,
+    resident) with every output and scratch map inside a larger buffer of
+    sentinel bytes (chip_smoke.guarded_allocations): the margins stay as
+    they were."""
+    import chip_smoke
+    model = _session_model(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pair = tuple(torch.rand((1, 100, 230, 3), generator=g, device=cuda) * 255
+                 for _ in range(2))
+    result = chip_smoke.check_overruns(model, pair)
+    assert result["ok"] and all(result["launches"].values())

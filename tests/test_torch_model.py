@@ -341,6 +341,12 @@ def test_port_imports_with_jax_blocked():
             "raft_stereo_tpu_torch.ops.encoder, raft_stereo_tpu_torch.kernels, "
             "raft_stereo_tpu_torch.bench, raft_stereo_tpu_torch.obs.ledger, "
             "raft_stereo_tpu_torch.obs.trajectory, raft_stereo_tpu_torch.obs.profiler, "
+            "raft_stereo_tpu_torch.faults, raft_stereo_tpu_torch.analysis.knobs, "
+            "raft_stereo_tpu_torch.serve, raft_stereo_tpu_torch.serve.session, "
+            "raft_stereo_tpu_torch.serve.degrade, raft_stereo_tpu_torch.serve.heal, "
+            "raft_stereo_tpu_torch.obs.tracing, raft_stereo_tpu_torch.obs.flight, "
+            "raft_stereo_tpu_torch.obs.deck, raft_stereo_tpu_torch.obs.capacity, "
+            "raft_stereo_tpu_torch.obs.usage, "
             "chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -129,7 +129,33 @@ Phases, each fatal on failure:
    checksums inside their committed pins
    (``raft_stereo_tpu_torch/bench_checksum_ref.json``), ``device_s`` and
    ``flops`` present and ``mfu`` in (0, 1]; each line is printed again
-   with ``"phase": "bench"``.
+   with ``"phase": "bench"``;
+8. the server (``phase_server``): the same tempered model at KITTI size
+   (eight seeded 375x1242 uint8 pairs, so the padder pads them; 32
+   iterations in 4 segments; the 375x1242 bucket warmed). Each pair through
+   a ``max_batch=1`` StereoService one at a time gives the reference
+   responses; the same pairs from eight client threads through a
+   ``max_batch=4`` service (buckets 1, 2, 4, batched programs captured as
+   CUDA graphs), then two more, each held to its reference by
+   CROSS_WIDTH_PIN (set from the card's reading: bit for bit), with ticks
+   at b=2 and b=4 asserted from the scheduler's counters; within one width
+   four rows by hand at b=4 against each row beside replicas of itself, bit
+   for bit; each batched program's captured launches (prepare at b: b
+   stems, 14b passes, b point3, 4b point2; advance over one segment: a
+   fused_iter and a gru1632 an iteration, no serial kernel; epilogue none)
+   and a profiled advance replay's kernels; each batched program's device
+   ms by kernel, the carry's copy in and out of the advance graph at b=1
+   and b=4, frames/s and p50/p95 request ms from 8 closed-loop clients (32
+   requests) at max_batch 1 and 4 in turns (1, 4, 4, 1), one profiled
+   round of each with the card's idle share, the graphs' pool bytes and
+   ``max_memory_allocated`` (``"phase": "server"``). Then ``python -m
+   raft_stereo_tpu_torch.serve_stereo --http_port 0 --max_batch 4`` in a
+   subprocess on loopback (the same weights through a .pth, ``--ready_fd``):
+   /healthz, four multipart PNG requests equal byte for byte to in-process
+   submits of the same decoded arrays, /metrics, a truncated body
+   ``bad_multipart``, SIGTERM draining to exit 0 (``"phase":
+   "server_cli"``; without Pillow the PNG requests are left out and the
+   line says so).
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -262,9 +288,9 @@ def _device_ms(fn, reps: int = 20, warmup: int = 3, own: tuple = ()):
     for _ in range(warmup):
         fn()
     # A profile can come back without device events (seen on a process's
-    # first one, over a window under a millisecond): try again before giving
-    # up.
-    for _ in range(3):
+    # first ones, over a window under a millisecond: three in a row once,
+    # phase_kernels' first check): try again before giving up.
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1446,6 +1472,11 @@ def phase_kernels() -> tuple:
     from raft_stereo_tpu_torch.ops import stream
     from raft_stereo_tpu_torch.ops import resident
     from raft_stereo_tpu_torch.ops import encoder as enc
+    # The process's first profiles, on a matmul of a few ms, before any
+    # timing depends on one (the first ones have come back empty).
+    x = torch.randn(2048, 2048, device="cuda")
+    _device_ms(lambda: x @ x, reps=2, warmup=1)
+    del x
     results = [check_lookup(), check_gru("gru08"), check_gru("gru16"),
                check_gru("gru32"), check_motion(), check_gru1632(),
                check_gru1632(headline=True), check_resident(),
@@ -1932,8 +1963,6 @@ def _frame_times(sess, model, pair, iters: int, rounds: int) -> dict:
     graph frame's copy in, replay and copy out apart; each kind back to back
     on the card (no copies, one synchronize for 4 frames); one replay's
     device busy ms and the kernels it shows under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from raft_stereo_tpu_torch.obs.profiler import device_seconds
     padder = sess.padder_for(pair[0].shape)
     lp, rp = padder.pad_np(*pair)
@@ -1972,19 +2001,8 @@ def _frame_times(sess, model, pair, iters: int, rounds: int) -> dict:
     b2b_eager = back_to_back(lambda: raft_stereo_forward(model, left, right, iters=iters))
     # A profile has been seen to lose the first events of its window (a
     # stem and a pass of a Middlebury-F replay): see REPLAY_KERNELS.
-    tries = []
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prog.replay()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        kernels_seen = {k: sum(own in name for name in names)
-                        for k, own in REPLAY_KERNELS.items()}
-        tries.append(kernels_seen)
-        if kernels_seen == _replay_want(prog.launches):
-            break
+    tries, prof, n_events = _replay_profile(prog)
+    kernels_seen = tries[-1]
     busy = device_seconds(prof)
     return {"eager_ms": eager_ms, "graph_ms": graph_ms,
             "eager_ms_median": statistics.median(eager_ms),
@@ -1992,7 +2010,7 @@ def _frame_times(sess, model, pair, iters: int, rounds: int) -> dict:
             **{k: statistics.median(v) for k, v in parts.items()},
             "eager_back_to_back_ms": b2b_eager, "graph_back_to_back_ms": b2b_graph,
             "replay_device_busy_ms": None if busy is None else busy * 1e3,
-            "replay_kernels": kernels_seen, "replay_device_events": len(names),
+            "replay_kernels": kernels_seen, "replay_device_events": n_events,
             "replay_tries": tries}
 
 
@@ -2126,6 +2144,468 @@ def phase_session(smi: str) -> dict:
     return out
 
 
+# Phase 8: the server. KITTI pairs (seeded uint8, 375x1242: the padder pads
+# them) through StereoService at max_batch 1 (the reference responses) and
+# at max_batch 4 (buckets 1, 2, 4) on batched CUDA-graph programs, then the
+# CLI over HTTP.
+SERVER_PAIRS = 8
+SERVER_SEGMENTS = 4
+SERVER_ITERS_PER_TICK = ITERS // SERVER_SEGMENTS
+SERVER_BUCKETS = (1, 2, 4)
+SERVER_CLIENTS = 8
+SERVER_RATE_REQUESTS = 32
+SERVER_ROUNDS = (1, 4, 4, 1)
+# A row's disparity at B=2 or B=4 against the same pair at B=1: "bitwise", or
+# "band" (the canary band, serve/guard.py) where an op picks its summation
+# order by batch. Read on the H100: the prepare (row by row) and the advance
+# are bit for bit across widths at 384x1248 and 128x256, and so is every
+# KITTI row this phase serves; at 128x256 the epilogue's convex upsample (an
+# fp32 einsum, a cuBLAS batched matmul) sums in another order at B=4, up to
+# 4.8e-7 px (ROADMAP Queue C). Within one batch width a row is always bit
+# for bit the same whatever its batchmates or pad rows.
+CROSS_WIDTH_PIN = "band"
+CLI_WAIT_S = 300
+# The CLI's device and extra flags (a rehearsal on the CPU sets them).
+CLI_DEVICE = "cuda"
+CLI_ARCH: tuple = ()
+
+
+def _server_pairs(n: int, seed: int) -> list:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [tuple(rng.integers(0, 256, (1, *KITTI, 3), dtype=np.uint8) for _ in range(2))
+            for _ in range(n)]
+
+
+def _request(i, pair) -> dict:
+    import numpy as np
+    return {"id": i, "left": pair[0].astype(np.float32), "right": pair[1].astype(np.float32)}
+
+
+def _served(svc, pairs, clients: int) -> list:
+    """Every pair through ``svc.submit`` from ``clients`` threads at once;
+    the responses in pair order, each required ok and full."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=clients) as ex:
+        resps = list(ex.map(lambda ip: svc.submit(_request(*ip)).result(timeout=600),
+                            enumerate(pairs)))
+    for i, r in enumerate(resps):
+        if r["status"] != "ok" or r["quality"] != "full":
+            raise SystemExit(f"server: request {i} gave {r.get('status')} "
+                             f"{r.get('code') or r.get('quality')}: {r.get('message')}")
+    return resps
+
+
+def _rate(svc, pairs) -> dict:
+    """SERVER_RATE_REQUESTS requests from SERVER_CLIENTS closed-loop client
+    threads: frames/s over the wall seconds, and each request's ms from
+    submit to its response."""
+    import threading
+    lat, lock = [], threading.Lock()
+    per_client = SERVER_RATE_REQUESTS // SERVER_CLIENTS
+
+    def client(k: int) -> None:
+        for j in range(per_client):
+            i = k * per_client + j
+            t0 = time.perf_counter()
+            r = svc.submit(_request(i, pairs[i % len(pairs)])).result(timeout=600)
+            ms = (time.perf_counter() - t0) * 1e3
+            if r["status"] != "ok":
+                raise SystemExit(f"server rate: request {i} gave {r.get('code')}")
+            with lock:
+                lat.append(ms)
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVER_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if len(lat) != SERVER_RATE_REQUESTS:
+        raise SystemExit(f"server rate: {len(lat)} of {SERVER_RATE_REQUESTS} requests served")
+    lat.sort()
+    return {"frames_per_s": SERVER_RATE_REQUESTS / wall, "wall_s": wall,
+            "p50_ms": statistics.median(lat),
+            "p95_ms": lat[math.ceil(0.95 * len(lat)) - 1]}
+
+
+def _replay_profile(prog) -> tuple:
+    """A profiled replay of ``prog``: the kernels it shows by
+    REPLAY_KERNELS' counter, tried up to PROFILE_TRIES times until they are
+    the capture's (a shorter list lost events), every try kept; and the
+    last try's profile."""
+    from torch.profiler import ProfilerActivity, profile
+    tries = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prog.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(own in name for name in names) for k, own in REPLAY_KERNELS.items()}
+        tries.append(seen)
+        if seen == _replay_want(prog.launches):
+            break
+    return tries, prof, len(names)
+
+
+def _replay_breakdown(prog, reps: int = 5) -> dict:
+    """Device ms of one replay of ``prog`` (``reps`` replays after one,
+    torch.profiler): the sum of its device events, and that sum by
+    REPLAY_KERNELS' kernel (the rest "other": cuBLAS, cuDNN, torch)."""
+    from torch.profiler import ProfilerActivity, profile
+    prog.replay()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                prog.replay()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    total = sum(us for _, us in events) / 1e3 / reps
+    by = {k: sum(us for name, us in events if own in name) / 1e3 / reps
+          for k, own in REPLAY_KERNELS.items()}
+    by = {k: v for k, v in by.items() if v}
+    by["other"] = total - sum(by.values())
+    return {"device_ms": total, "by_kernel_ms": by}
+
+
+# Device events of a profiled rate round by kind: the first group whose
+# name part a kernel's name holds.
+EVENT_GROUPS = (("memcpy_htod", ("Memcpy HtoD",)), ("memcpy_dtoh", ("Memcpy DtoH",)),
+                ("memcpy_dtod", ("Memcpy DtoD",)), ("memset", ("Memset",)),
+                *((k, (own,)) for k, own in REPLAY_KERNELS.items()),
+                ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
+                ("conv", ("conv", "cudnn", "implicit", "winograd")))
+
+
+def _busy_share(svc, pairs) -> dict:
+    """One more rate round under torch.profiler: the card's busy seconds
+    (the union of its device intervals) over the round's wall seconds, and
+    the device ms a frame by EVENT_GROUPS (the rest "other": torch's
+    elementwise, reduction, index and cat kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch.obs.profiler import device_seconds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rate = _rate(svc, pairs)
+        torch.cuda.synchronize()
+    busy = device_seconds(prof)
+    by = dict.fromkeys([g for g, _ in EVENT_GROUPS] + ["other"], 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = next((g for g, parts in EVENT_GROUPS if any(p in e.name for p in parts)),
+                     "other")
+        by[group] += (e.time_range.end - e.time_range.start) / 1e3 / SERVER_RATE_REQUESTS
+    return {"wall_s": rate["wall_s"], "busy_s": busy,
+            "idle_share": None if busy is None else 1.0 - busy / rate["wall_s"],
+            "device_ms_per_frame": {k: v for k, v in by.items() if v}}
+
+
+def _carry_copy(sess, ph: int, pw: int, b: int) -> dict:
+    """The advance program at batch ``b``: the carry's bytes, and the ms of
+    its copy into the graph's static buffers and of the clone out (each
+    synchronized, median of 5)."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve.session import _nbytes
+    z = np.zeros((b, ph, pw, 3), np.float32)
+    (state,) = sess.invoke(sess.get_program("prepare", ph, pw, 0, b=b), z, z)
+    prog = sess.get_program("advance", ph, pw, SERVER_ITERS_PER_TICK, b=b)
+    with prog.lock, sess.device_ops():
+        def timed(fn) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        copy_in = [timed(lambda: prog.copy_in((state,))) for _ in range(5)]
+        copy_out = [timed(prog.copy_out) for _ in range(5)]
+    return {"b": b, "carry_bytes": _nbytes(state),
+            "copy_in_ms": statistics.median(copy_in), "copy_out_ms": statistics.median(copy_out)}
+
+
+def _by_hand(sess, pairs, ph: int, pw: int) -> list:
+    """Four pairs through the session's b=4 programs by hand (prepare, the
+    segments' advances, epilogue): the padded flows of the four rows."""
+    import numpy as np
+    padder = sess.padder_for(pairs[0][0].shape)
+    lp, rp = (np.concatenate(x) for x in zip(*(padder.pad_np(
+        p[0].astype(np.float32), p[1].astype(np.float32)) for p in pairs)))
+    (state,) = sess.invoke(sess.get_program("prepare", ph, pw, 0, b=4), lp, rp)
+    adv = sess.get_program("advance", ph, pw, SERVER_ITERS_PER_TICK, b=4)
+    for _ in range(SERVER_SEGMENTS):
+        state, _, _ = sess.invoke(adv, state)
+    flow_up, _ = sess.invoke(sess.get_program("epilogue", ph, pw, 0, b=4), state)
+    return [-padder.unpad_np(flow_up[i:i + 1])[0, ..., 0] for i in range(4)]
+
+
+def _program_launches_checked(sess, ph: int, pw: int) -> dict:
+    """Each batched program's captured launches, held to a frame's: prepare
+    at b has b stems, 14b passes, b point3, 4b point2 (ENC_KITTI a row);
+    advance at b, one segment, a fused_iter and a gru1632 an iteration and
+    none of the serial kernels; epilogue none."""
+    out = {}
+    for b in SERVER_BUCKETS:
+        got = {kind: sess.program_launches(kind, ph, pw, it, b=b)
+               for kind, it in (("prepare", 0), ("advance", SERVER_ITERS_PER_TICK),
+                                ("epilogue", 0))}
+        want = {"prepare": {k: b * n for k, n in ENC_KITTI.items()},
+                "advance": {"fused_iter": SERVER_ITERS_PER_TICK,
+                            "gru1632": SERVER_ITERS_PER_TICK},
+                "epilogue": {}}
+        if got != want:
+            raise SystemExit(f"server: batched programs at b={b} captured {got}, "
+                             f"expected {want}")
+        out[str(b)] = got
+    return out
+
+
+def _http(port: int, path: str, body: bytes = None, ct: str = None) -> tuple:
+    """(status, body bytes) of one request to the CLI on loopback."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET",
+                                 headers={"Content-Type": ct} if ct else {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _read_handshake(fd: int, proc) -> int:
+    import select
+    deadline = time.monotonic() + CLI_WAIT_S
+    data = b""
+    while not data.endswith(b"\n"):
+        if proc.poll() is not None:
+            raise SystemExit(f"server CLI: exited {proc.returncode} before its handshake")
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise SystemExit("server CLI: no handshake within CLI_WAIT_S")
+        ready, _, _ = select.select([fd], [], [], min(left, 1.0))
+        if ready:
+            chunk = os.read(fd, 64)
+            if not chunk:
+                raise SystemExit("server CLI: handshake pipe closed empty")
+            data += chunk
+    key, _, port = data.decode().strip().partition("=")
+    if key != "RAFT_HTTP_PORT":
+        raise SystemExit(f"server CLI: handshake {data!r}")
+    return int(port)
+
+
+def phase_cli(model, pairs, refs) -> dict:
+    """``python -m raft_stereo_tpu_torch.serve_stereo --http_port`` in a
+    subprocess on loopback (the same tempered weights through a .pth, the
+    same session config as the in-process service, ``--ready_fd``):
+    /healthz 200, four multipart PNG requests whose disparities equal
+    ``refs`` (in-process submits of the same decoded arrays) byte for byte,
+    /metrics with the request counters, a truncated multipart body
+    ``bad_multipart`` 400, and SIGTERM draining to exit 0. Without Pillow
+    on the machine the PNG requests are left out, and the line says so."""
+    import importlib.util
+    import signal
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import wire
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "chip_smoke_server"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pth = out_dir / "model.pth"
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, pth)
+    pillow = importlib.util.find_spec("PIL") is not None
+    if not pillow:
+        print(json.dumps({"phase": "server_cli", "note": "no Pillow on this machine: the "
+                          "PNG requests are left out"}))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAFT_") and
+           k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(root)
+    r_fd, w_fd = os.pipe()
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.serve_stereo", "--restore_ckpt",
+           str(pth), "--corr_implementation", "reg_cuda", "--mixed_precision", "--bucket", "32",
+           "--http_port", "0", "--ready_fd", str(w_fd), "--max_batch", "4",
+           "--warmup", f"{KITTI[0]}x{KITTI[1]}", "--valid_iters", str(ITERS),
+           "--segments", str(SERVER_SEGMENTS), "--device", CLI_DEVICE, *CLI_ARCH]
+    t0 = time.perf_counter()
+    with open(out_dir / "stdout.txt", "w") as so, open(out_dir / "stderr.txt", "w") as se:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, pass_fds=(w_fd,), stdout=so,
+                                stderr=se, text=True)
+    os.close(w_fd)
+    result = {"phase": "server_cli", "pillow": pillow}
+    try:
+        port = _read_handshake(r_fd, proc)
+        result["ready_s"] = time.perf_counter() - t0
+        status, body = _http(port, "/healthz")
+        health = json.loads(body)
+        if status != 200 or not isinstance(health.get("fingerprint_id"), str):
+            raise SystemExit(f"server CLI: /healthz {status}")
+        same = []
+        if pillow:
+            for i, (left, right) in enumerate(pairs[:4]):
+                ct, payload = wire.build_multipart({
+                    "left": wire.encode_image_png(left[0]),
+                    "right": wire.encode_image_png(right[0]), "id": f"http-{i}".encode()})
+                status, body = _http(port, "/v1/stereo", payload, ct)
+                resp = wire.decode_response(body)
+                if status != 200 or resp["status"] != "ok":
+                    raise SystemExit(f"server CLI: POST {i} gave {status} {resp.get('code')}")
+                got = np.asarray(resp["disparity"], np.float32)
+                same.append(got.tobytes() == np.asarray(refs[i], np.float32).tobytes())
+                if not same[-1]:
+                    raise SystemExit(f"server CLI: POST {i} differs from the in-process "
+                                     f"response, max |d| {np.abs(got - refs[i]).max()}")
+        ct, payload = wire.build_multipart({"left": b"L" * 64, "right": b"R" * 64})
+        status, body = _http(port, "/v1/stereo", payload[:len(payload) // 2], ct)
+        bad = json.loads(body)
+        if status != 400 or bad.get("code") != "bad_multipart":
+            raise SystemExit(f"server CLI: a truncated body gave {status} {bad}")
+        status, body = _http(port, "/metrics")
+        metrics = body.decode()
+        if status != 200 or "raft_requests_total" not in metrics or \
+                "raft_http_responses_total" not in metrics:
+            raise SystemExit(f"server CLI: /metrics {status} lacks the request counters")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=CLI_WAIT_S)
+    finally:
+        os.close(r_fd)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    events = [json.loads(line) for line in (out_dir / "stdout.txt").read_text().splitlines()
+              if line.startswith('{"event"')]
+    drained = [e for e in events if e.get("event") == "drained"]
+    if rc != 0 or not drained or not drained[0]["clean"]:
+        raise SystemExit(f"server CLI: exit {rc}, events {events}\n"
+                         f"{(out_dir / 'stderr.txt').read_text()[-3000:]}")
+    result.update(posts_bitwise=same, truncated={"status": 400, "code": "bad_multipart"},
+                  exit_code=rc, events=[e["event"] for e in events],
+                  health_requests=health.get("requests"))
+    print(json.dumps(result))
+    return result
+
+
+def phase_server(smi: str) -> dict:
+    """The server (see the module docstring, phase 8)."""
+    import gc
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.serve import (InferenceSession, ServiceConfig, SessionConfig,
+                                             StereoService)
+    from raft_stereo_tpu_torch.serve.guard import CANARY_ATOL, CANARY_RTOL
+    for knob in SWITCHES + ENCODER_SWITCHES:
+        os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = seeded_model("cuda")
+    pairs = _server_pairs(SERVER_PAIRS, seed=31)
+    t0 = time.perf_counter()
+    sess1 = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=SERVER_SEGMENTS, warmup_shapes=(KITTI,)))
+    kernels.reset_launches()
+    sess4 = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=SERVER_SEGMENTS, max_batch=4, warmup_shapes=(KITTI,)))
+    setup_s = time.perf_counter() - t0
+    if tuple(sess4.batch_buckets) != SERVER_BUCKETS:
+        raise SystemExit(f"server: batch buckets {sess4.batch_buckets}")
+    ph, pw = sess4.padder_for(pairs[0][0].shape).padded_shape
+    svc1 = StereoService(sess1, ServiceConfig(max_queue=2 * SERVER_CLIENTS)).start()
+    svc4 = StereoService(sess4, ServiceConfig(max_queue=2 * SERVER_CLIENTS)).start()
+    try:
+        # 1. Alone: the reference responses, one request at a time.
+        alone = _served(svc1, pairs, clients=1)
+        # 2. Batched: eight clients at once, then two (a tick at b=2).
+        batched = _served(svc4, pairs, clients=SERVER_CLIENTS)
+        batched += _served(svc4, pairs[:2], clients=2)
+        refs = [r["disparity"] for r in alone] + [alone[0]["disparity"], alone[1]["disparity"]]
+        rows = []
+        for r, ref in zip(batched, refs):
+            d = float(np.abs(r["disparity"] - ref).max())
+            rows.append({"bitwise": r["disparity"].tobytes() == ref.tobytes(),
+                         "max_abs_diff": d,
+                         "in_band": bool(np.allclose(r["disparity"], ref, rtol=CANARY_RTOL,
+                                                     atol=CANARY_ATOL))})
+        ticks = svc4.status()["batching"]["ticks_by_bucket"]
+        # Within one width: four rows by hand at b=4, distinct batchmates
+        # and each against replicas of itself (pad rows).
+        mates = _by_hand(sess4, pairs[:4], ph, pw)
+        within = [mates[i].tobytes() == _by_hand(sess4, [pairs[i]] * 4, ph, pw)[0].tobytes()
+                  for i in range(4)]
+        launches = _program_launches_checked(sess4, ph, pw)
+        adv = sess4.get_program("advance", ph, pw, SERVER_ITERS_PER_TICK, b=4)
+        tries, prof, events = _replay_profile(adv)
+        from raft_stereo_tpu_torch.obs.profiler import device_seconds
+        busy = device_seconds(prof)
+        copies = [_carry_copy(sess4, ph, pw, b) for b in (1, 4)]
+        device = {f"{kind}@b{b}": _replay_breakdown(sess4.get_program(kind, ph, pw, it, b=b))
+                  for kind, it in (("prepare", 0), ("advance", SERVER_ITERS_PER_TICK),
+                                   ("epilogue", 0)) for b in SERVER_BUCKETS}
+        # 3. Rate and latency, max_batch 1 and 4 in turns.
+        rounds = [{"max_batch": mb, **_rate(svc1 if mb == 1 else svc4, pairs)}
+                  for mb in SERVER_ROUNDS]
+        profiled = {mb: _busy_share(svc1 if mb == 1 else svc4, pairs) for mb in (1, 4)}
+        pools = {name: sum(p["pool_bytes"] or 0.0 for p in s.programs())
+                 for name, s in (("max_batch_1", sess1), ("max_batch_4", sess4))}
+        peak = torch.cuda.max_memory_allocated()
+        # The in-process references of the CLI's requests: the same decoded
+        # arrays (PNG is lossless) one at a time through max_batch 4.
+        cli_refs = [svc4.submit(_request(f"ref-{i}", p)).result(timeout=600)["disparity"]
+                    for i, p in enumerate(pairs[:4])]
+        line = {"phase": "server", "card": smi, "setup_s": setup_s,
+                "padded": [ph, pw], "buckets": list(sess4.batch_buckets),
+                "ticks_by_bucket": ticks, "rows": rows,
+                "bitwise_across_widths": all(r["bitwise"] for r in rows),
+                "max_abs_diff_across_widths": max(r["max_abs_diff"] for r in rows),
+                "cross_width_pin": CROSS_WIDTH_PIN, "within_width_bitwise": within,
+                "program_launches": launches, "advance_replay_tries": tries,
+                "advance_replay_device_events": events,
+                "advance_b4_replay_busy_ms": None if busy is None else busy * 1e3,
+                "carry_copy": copies, "program_device_ms": device, "rate": rounds,
+                "rate_ratio": (statistics.median(r["frames_per_s"] for r in rounds
+                                                 if r["max_batch"] == 4)
+                               / statistics.median(r["frames_per_s"] for r in rounds
+                                                   if r["max_batch"] == 1)),
+                "profiled_rounds": profiled, "graph_pool_bytes": pools,
+                "max_memory_allocated": peak,
+                "batching": svc4.status()["batching"],
+                "trips": [s.breaker.trip_count for s in (sess1, sess4)],
+                "kernels_only": [s.breaker.kernels_only for s in (sess1, sess4)]}
+        print(json.dumps(line))
+    finally:
+        svc1.stop()
+        svc4.stop()
+    if not ("2" in ticks and "4" in ticks):
+        raise SystemExit(f"server: no tick at b=2 and at b=4: {ticks}")
+    if not all(within):
+        raise SystemExit(f"server: rows at b=4 depend on their batchmates: {within}")
+    pin_ok = all(r["bitwise"] if CROSS_WIDTH_PIN == "bitwise" else r["in_band"] for r in rows)
+    if not pin_ok:
+        raise SystemExit(f"server: rows across widths break the {CROSS_WIDTH_PIN} pin: {rows}")
+    if tries[-1] != _replay_want(adv.launches):
+        raise SystemExit(f"server: an advance replay shows {tries}, the capture counted "
+                         f"{_replay_want(adv.launches)}")
+    if any(line["trips"]) or not all(line["kernels_only"]):
+        raise SystemExit(f"server: breaker trips on a clean path: {line['trips']}")
+    del sess1, svc1
+    del sess4, svc4
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_cli(model, pairs, cli_refs)
+    return {"server": line, "cli": cli}
+
+
 def phase_cross_check() -> list:
     """The same seeded model at 128x256, 8 iterations, on the card and on
     the CPU (plain versions), with reg_cuda and with alt_cuda, and the
@@ -2249,6 +2729,7 @@ def main() -> int:
     phase_session(smi)
     phase_cross_check()
     phase_bench()
+    phase_server(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

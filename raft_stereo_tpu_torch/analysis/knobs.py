@@ -30,14 +30,22 @@ ENV_KNOBS: Tuple[str, ...] = (
                             # ops/stream.py, default off)
 )
 
-# Serving knobs that change no program: each steers host-side supervision
-# (serve/supervise.py, read at construction), so none is in a cache key.
-# The JAX package's scheduler, HTTP and batch-bucket knobs come with the
-# port's scheduler and frontends.
+# Serving knobs that change no program: each steers host-side serving
+# (the batch sizes that are built, the scheduler's idle poll, supervision,
+# the HTTP ingress), read once at construction, so none is in a cache key
+# (the batch is a key component of its own).
 SERVE_ENV_KNOBS: Tuple[str, ...] = (
+    "RAFT_BATCH_BUCKETS",   # batch-bucket ladder, e.g. "1,2,4,8"
+                            # (serve/session.py, at construction)
+    "RAFT_SCHED_TICK_MS",   # scheduler idle poll, ms (serve/service.py)
     "RAFT_WATCHDOG_MS",     # hang-watchdog deadline floor, ms; 0 = off
     "RAFT_RETRY_BUDGET",    # bounded per-request re-admissions
     "RAFT_DRAIN_GRACE_MS",  # graceful-drain hard deadline, ms
+    "RAFT_HTTP_PORT",       # listen port of an embedded HttpConfig
+                            # (serve/http.py; 0 = ephemeral)
+    "RAFT_HTTP_BODY_MAX",   # content-length cap, bytes (serve/http.py)
+    "RAFT_HTTP_READ_TIMEOUT_MS",  # per-read socket timeout, ms
+    "RAFT_TENANT_RATE",     # per-tenant quota "rate[:burst]" requests/s
 )
 
 # Host knobs: telemetry sinks, telemetry sizing and recovery pacing. No
@@ -56,4 +64,6 @@ HOST_ENV_KNOBS: Tuple[str, ...] = (
     "RAFT_HEAL_FLAP_CAP",
     "RAFT_HEAL_WINDOW_MS",
     "RAFT_HEAL_REFILL_MS",
+    "RAFT_DECODE_MAX_PIXELS",  # decompression-bomb guard: cap on an image's
+                            # header-declared pixels (data/frame_utils.py)
 )

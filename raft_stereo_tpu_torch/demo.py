@@ -19,6 +19,7 @@ import torch
 
 from raft_stereo_tpu_torch.config import (
     RAFTStereoConfig, add_model_args, resolve_device, with_eval_precision)
+from raft_stereo_tpu_torch.data.frame_utils import read_image_rgb
 from raft_stereo_tpu_torch.models import RAFTStereo, raft_stereo_forward
 from raft_stereo_tpu_torch.ops.padder import InputPadder
 
@@ -49,17 +50,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels' plain torch versions)")
     add_model_args(parser)
     return parser
-
-
-def read_image_rgb(path) -> np.ndarray:
-    """An image as (H, W, 3) uint8: grayscale tiled to 3 channels, alpha
-    dropped."""
-    from PIL import Image
-    with Image.open(path) as im:
-        img = np.asarray(im).astype(np.uint8)
-    if img.ndim == 2:
-        return np.tile(img[..., None], (1, 1, 3))
-    return img[..., :3]
 
 
 def infer_pair(model: RAFTStereo, image1, image2, *, iters: int = 32,

@@ -13,7 +13,11 @@ does not die.
 The port's ladder keeps the JAX ladder's rungs whose switch the port has, in
 the JAX order. It drops three:
 
-- ``stream_batch``: the port engages no kernel at B > 1;
+- ``stream_batch``: the JAX rung sends B > 1 loop calls to XLA, a TPU
+  policy (``RAFT_STREAM_BATCH``). The port's loop kernels engage at every
+  batch (the encoder kernels at B=1, and a batched serving ``prepare``
+  runs row by row, ``serve/session.py``), and the rung's fallback would be
+  plain PyTorch, which the card's ``kernels_only`` breaker never serves;
 - ``packed_l2``: a TPU bit layout the port never had;
 - ``fused_update``: the port's config has no such field, so the bottom rung
   still launches the serial loop kernels (``conv_gru.cu``, ``motion.cu``).

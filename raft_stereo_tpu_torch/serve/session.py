@@ -46,11 +46,18 @@ and capture on the card, at every call on the CPU. Both happen under one
 process-wide lock with the program's own resolved switch set exported, so
 what runs is what the key says.
 
-The session serves one pair at a time (``max_batch`` 1) on one device
-(``mesh_data`` 1); batched programs and the pod mesh are not ported. The
-streaming programs (``prepare_warm``, ``advance``, ``epilogue``) can be
-built and run, but no warm-up builds them: the stream layer that drives
-them is not ported either.
+**Batched programs** (``max_batch > 1``) serve the continuous-batching
+scheduler (``serve/scheduler.py``): ``prepare``, ``prepare_warm``,
+``advance`` and ``epilogue`` are built at every batch bucket (the batch is
+part of the cache key), and the warm-up builds them all for each warm-up
+shape. A batched ``prepare`` runs its rows one at a time, the B=1 prepare
+for each, and stacks the carries (all inside the one captured graph): the
+encoder kernels take one image at a time, and a B>1 encoder would run
+cuDNN convolutions and torch norms, the plain route the card's breaker
+exists never to serve. A row's carry is so bit for bit its B=1 prepare's.
+``advance`` and ``epilogue`` run the whole batch: the loop kernels take it
+in one launch each. The session drives one card (``mesh_data`` 1); the pod
+mesh is not ported.
 
 All faults are plan-driven (``faults.ServeFaultPlan``), so every recovery
 path here is testable on the CPU with deterministic injected faults.
@@ -80,7 +87,8 @@ from raft_stereo_tpu_torch.faults import (RealClock, ServeFaultPlan, ServeFaults
                                           poison_disparity)
 from raft_stereo_tpu_torch.models.raft_stereo import (
     RAFTStereo, _map_carry, raft_stereo_epilogue, raft_stereo_forward,
-    raft_stereo_prepare, raft_stereo_segment, raft_stereo_segment_carry)
+    raft_stereo_prepare, raft_stereo_segment, raft_stereo_segment_carry,
+    stack_refinement_states)
 from raft_stereo_tpu_torch.obs.capacity import resolve_capacity_window_s
 from raft_stereo_tpu_torch.obs.deck import TickDeck
 from raft_stereo_tpu_torch.obs.flight import FlightRecorder
@@ -96,7 +104,8 @@ from raft_stereo_tpu_torch.serve.guard import (CANARY_ATOL, CANARY_RTOL, CAPTURE
                                                KernelCircuitBreaker, fatal_code,
                                                is_kernel_failure)
 from raft_stereo_tpu_torch.serve.heal import (resolve_heal_backoff_max_ms,
-                                              resolve_heal_backoff_ms, resolve_heal_enabled)
+                                              resolve_heal_backoff_ms, resolve_heal_enabled,
+                                              resolve_heal_flap_cap, resolve_heal_window_ms)
 from raft_stereo_tpu_torch.serve.supervise import InvocationWatch
 from raft_stereo_tpu_torch.serve.validate import AdmissionConfig, validate_pair
 
@@ -197,7 +206,13 @@ class SessionConfig:
     canary_shape / canary_iters: geometry of the canary forward.
     allow_half_res: let the degrade policy drop to half resolution when the
         budget cannot fit even one full-resolution segment.
-    max_batch: 1. Batched programs come with the scheduler; more raises.
+    max_batch: the continuous-batching scheduler's device-batch ceiling
+        (1: the sequential path, no batched program is built). With more,
+        the LRU bound is raised to hold one warm shape bucket's batched
+        programs (``4 * len(batch_buckets) + 2``).
+    batch_buckets: the batch sizes programs are built at; a batch pads up
+        to the smallest that fits. Empty: ``RAFT_BATCH_BUCKETS`` if set,
+        else powers of two up to ``max_batch``.
     mesh_data: None or 1. The pod mesh is one process per card; more
         raises.
     heal: the recovery plane's switch (None: ``RAFT_HEAL``, else on).
@@ -214,6 +229,7 @@ class SessionConfig:
     canary_iters: int = 2
     allow_half_res: bool = True
     max_batch: int = 1
+    batch_buckets: Tuple[int, ...] = ()
     mesh_data: Optional[int] = None
     heal: Optional[bool] = None
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
@@ -224,24 +240,29 @@ class SessionConfig:
         if self.valid_iters % self.segments:
             raise ValueError(f"segments ({self.segments}) must divide valid_iters "
                              f"({self.valid_iters})")
-        if self.max_batch != 1:
-            raise NotImplementedError(
-                f"max_batch={self.max_batch}: the port's session serves one pair at a "
-                "time; batched programs come with the scheduler")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.batch_buckets:
+            bb = tuple(self.batch_buckets)
+            if list(bb) != sorted(set(bb)) or bb[0] < 1:
+                raise ValueError(f"batch_buckets must be strictly increasing positive "
+                                 f"ints, got {bb}")
         if self.mesh_data not in (None, 1):
             raise NotImplementedError(
                 f"mesh_data={self.mesh_data}: the port's session drives one card; "
                 "the pod mesh is one process per card")
-        if self.max_programs < self.warmup_programs:
+        if self.max_batch == 1 and self.max_programs < self.warmup_programs:
             raise ValueError(f"max_programs={self.max_programs} is below the "
                              f"{self.warmup_programs} programs the warm-up and the "
                              "canary build")
 
     @property
     def warmup_programs(self) -> int:
-        """The programs built at construction: a full program for each
-        warm-up shape, with ``warmup_segmented`` its prepare and segment and
-        those of its half bucket, and the canary's."""
+        """The programs built at construction at ``max_batch`` 1: a full
+        program for each warm-up shape, with ``warmup_segmented`` its
+        prepare and segment and those of its half bucket, and the canary's.
+        (Batched sessions count theirs against the session's own bound,
+        which depends on the resolved batch buckets.)"""
         per_shape = 1 + (2 + 2 * self.allow_half_res) * self.warmup_segmented
         return len(self.warmup_shapes) * per_shape + self.canary
 
@@ -345,7 +366,7 @@ def build_program(kind: str, model: RAFTStereo, iters: int):
         return fwd
     if kind == "prepare":
         def prep(image1, image2):
-            return (raft_stereo_prepare(model, image1, image2),)
+            return (_prepare_rows(model, image1, image2),)
         return prep
     if kind == "prepare_warm":
         # Streaming warm start: coords1 seeded from an x-only 1/f flow
@@ -354,7 +375,7 @@ def build_program(kind: str, model: RAFTStereo, iters: int):
         # epilogue programs (the kernels' motion encoder drops flow y).
         def prep_warm(image1, image2, flow_x):
             flow_init = torch.cat([flow_x.float(), torch.zeros_like(flow_x)], dim=-1)
-            return (raft_stereo_prepare(model, image1, image2, flow_init=flow_init),)
+            return (_prepare_rows(model, image1, image2, flow_init),)
         return prep_warm
     if kind == "segment":
         def seg(state):
@@ -373,6 +394,18 @@ def build_program(kind: str, model: RAFTStereo, iters: int):
             return flow_up, flow_low[..., :1].float()
         return epi
     raise ValueError(f"unknown program kind {kind!r}")
+
+
+def _prepare_rows(model: RAFTStereo, image1, image2, flow_init=None) -> dict:
+    """The prepare step, one row at a time: each row's carry is its B=1
+    prepare's, bit for bit, and the encoder kernels (B=1 only) run for
+    every row; the carries are stacked along the batch."""
+    if image1.shape[0] == 1:
+        return raft_stereo_prepare(model, image1, image2, flow_init=flow_init)
+    return stack_refinement_states([
+        raft_stereo_prepare(model, image1[i:i + 1], image2[i:i + 1],
+                            flow_init=None if flow_init is None else flow_init[i:i + 1])
+        for i in range(image1.shape[0])])
 
 
 def _static_like(arg, device: torch.device):
@@ -522,6 +555,27 @@ class InferenceSession:
             enabled=self._heal_enabled, clock=self.clock,
             backoff_s=resolve_heal_backoff_ms() / 1e3,
             backoff_max_s=resolve_heal_backoff_max_ms() / 1e3)
+        self._heal_backoff_s = resolve_heal_backoff_ms() / 1e3
+        self._heal_backoff_max_s = resolve_heal_backoff_max_ms() / 1e3
+        self._heal_flap_cap = resolve_heal_flap_cap()
+        self._heal_window_s = resolve_heal_window_ms() / 1e3
+        # The batch-bucket ladder, resolved once (SessionConfig >
+        # RAFT_BATCH_BUCKETS > powers of two up to max_batch): the batch is
+        # a cache-key component, so this selects which batch sizes are
+        # built, never what one program computes.
+        self._batch_buckets = self._resolve_batch_buckets()
+        # With max_batch > 1 the LRU bound holds one warm shape bucket's
+        # batched programs (prepare, prepare_warm, advance, epilogue at
+        # every batch bucket) and two more, or the warm-up would evict its
+        # own programs and the scheduler would capture again every tick.
+        self._max_programs = self.cfg.max_programs
+        if self.cfg.max_batch > 1:
+            self._max_programs = max(self.cfg.max_programs, 4 * len(self._batch_buckets) + 2)
+            need = (len(self.cfg.warmup_shapes) * (1 + 4 * len(self._batch_buckets))
+                    + self.cfg.canary)
+            if self._max_programs < need:
+                raise ValueError(f"max_programs={self._max_programs} is below the {need} "
+                                 "programs the batched warm-up and the canary build")
         self.faults = ServeFaults(fault_plan, clock=self.clock)
         self.watch = InvocationWatch(self.clock)
         self._cache: "OrderedDict[Tuple, _Program]" = OrderedDict()
@@ -624,6 +678,65 @@ class InferenceSession:
     def padder_for(self, shape) -> InputPadder:
         return InputPadder(shape, divis_by=32, bucket=self.cfg.bucket)
 
+    def _resolve_batch_buckets(self) -> Tuple[int, ...]:
+        buckets = tuple(self.cfg.batch_buckets)
+        if not buckets:
+            spec = os.environ.get("RAFT_BATCH_BUCKETS", "").strip()
+            if spec:
+                try:
+                    buckets = tuple(sorted({int(p) for p in spec.split(",") if p.strip()}))
+                except ValueError:
+                    raise ValueError(f"RAFT_BATCH_BUCKETS must be comma-separated positive "
+                                     f"ints, got {spec!r}") from None
+                if not buckets or buckets[0] < 1:
+                    raise ValueError(f"RAFT_BATCH_BUCKETS must be positive ints, got {spec!r}")
+            else:
+                powers, b = [], 1
+                while b < self.cfg.max_batch:
+                    powers.append(b)
+                    b *= 2
+                buckets = tuple(powers) + (self.cfg.max_batch,)
+        # Capped at max_batch, keeping one bucket that covers it.
+        capped = tuple(b for b in buckets if b < self.cfg.max_batch)
+        covering = min((b for b in buckets if b >= self.cfg.max_batch),
+                       default=self.cfg.max_batch)
+        return capped + (covering,)
+
+    @property
+    def batch_buckets(self) -> Tuple[int, ...]:
+        return self._batch_buckets
+
+    def batch_bucket(self, n: int) -> int:
+        """The smallest batch bucket that fits ``n`` rows."""
+        for b in self._batch_buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"batch of {n} exceeds the largest batch bucket "
+                         f"{self._batch_buckets[-1]} (max_batch={self.cfg.max_batch})")
+
+    # The pod mesh is not ported: one card, so the service's mesh branches
+    # (chip probes and quarantine on a device hang) are never taken.
+    @property
+    def mesh_active(self) -> bool:
+        return False
+
+    @property
+    def mesh_chips(self) -> int:
+        return 1
+
+    @contextlib.contextmanager
+    def device_ops(self):
+        """Around device work done outside a program (the scheduler's row
+        gathers and joins, the uploader's copies): on the card it shares
+        the card with replays and waits out a capture (``_CaptureGate``),
+        which another thread's allocation or synchronizing copy would
+        invalidate. Never hold it across :meth:`invoke`."""
+        if not self._graphs:
+            yield
+            return
+        with _GATE.shared():
+            yield
+
     # -- program cache ----------------------------------------------------
 
     def _resolve(self, env: Dict[str, str]) -> Dict[str, Optional[str]]:
@@ -689,7 +802,7 @@ class InferenceSession:
             evicted = []
             with self._cache_lock:
                 self._cache[key] = prog
-                while len(self._cache) > self.cfg.max_programs:
+                while len(self._cache) > self._max_programs:
                     old_key, old = self._cache.popitem(last=False)
                     self._key_locks.pop(old_key, None)
                     with self._est_lock:
@@ -867,10 +980,11 @@ class InferenceSession:
                 out = out[:flow_i] + (poison_disparity(out[flow_i]),) + out[flow_i + 1:]
         return out
 
-    def program_launches(self, kind: str, h: int, w: int, iters: int) -> Dict[str, int]:
+    def program_launches(self, kind: str, h: int, w: int, iters: int,
+                         b: int = 1) -> Dict[str, int]:
         """The kernel launches captured in this program under the current
         run config (empty on the CPU, or before its first call)."""
-        key = self.cache_key(kind, h, w, iters)
+        key = self.cache_key(kind, h, w, iters, b=b)
         with self._cache_lock:
             prog = self._cache.get(key)
         return dict(prog.launches) if prog is not None else {}
@@ -981,12 +1095,33 @@ class InferenceSession:
         for _ in range(len(self.breaker.ladder) + 1):
             try:
                 self._run_full(padder, zeros, zeros)
-                if self.cfg.warmup_segmented:
+                if self.cfg.max_batch > 1:
+                    # The scheduler runs neither the b=1 segment program
+                    # nor the half-resolution route: its programs only.
+                    self._warm_batched(padder, zeros)
+                elif self.cfg.warmup_segmented:
                     degrade.warm_segmented(self, padder, zeros)
                 return
             except Exception as e:  # noqa: BLE001 — _handle_failure filters
                 self._handle_failure(e)
         raise InferenceFailed("ladder_exhausted", f"warm-up for bucket {h}x{w} never succeeded")
+
+    def _warm_batched(self, padder: InputPadder, zeros: np.ndarray) -> None:
+        """Build and run once the continuous-batching programs of one shape
+        bucket at every batch bucket: prepare, prepare_warm, advance,
+        epilogue. A first call's time stays out of the estimates."""
+        m = self.cfg.valid_iters // self.cfg.segments
+        ph, pw = padder.padded_shape
+        lp, rp = padder.pad_np(zeros, zeros)
+        factor = self._run_cfg.downsample_factor
+        for b in self._batch_buckets:
+            lb = np.ascontiguousarray(np.concatenate([lp] * b, axis=0))
+            rb = np.ascontiguousarray(np.concatenate([rp] * b, axis=0))
+            (state,) = self.invoke(self.get_program("prepare", ph, pw, 0, b=b), lb, rb)
+            fz = np.zeros((b, ph // factor, pw // factor, 1), np.float32)
+            self.invoke(self.get_program("prepare_warm", ph, pw, 0, b=b), lb, rb, fz)
+            state, _, _ = self.invoke(self.get_program("advance", ph, pw, m, b=b), state)
+            self.invoke(self.get_program("epilogue", ph, pw, 0, b=b), state)
 
     def _canary_pair(self):
         h, w = self.cfg.canary_shape
@@ -1056,6 +1191,20 @@ class InferenceSession:
         self._canary_state["passed"] = False
         raise InferenceFailed("canary_failed", "canary never converged")
 
+    def heal_status(self) -> Dict:
+        """The /healthz ``heal`` block: the pacing knobs and the breaker's
+        per-rung probation state (one card: no chip rows, no MTTR events)."""
+        return {
+            "enabled": self._heal_enabled,
+            "backoff_ms": self._heal_backoff_s * 1e3,
+            "backoff_max_ms": self._heal_backoff_max_s * 1e3,
+            "flap_cap": self._heal_flap_cap,
+            "window_ms": self._heal_window_s * 1e3,
+            "breaker": self.breaker.heal_status(),
+            "chips": {},
+            "mttr": {"last_s": None, "events": 0},
+        }
+
     def heal_breaker(self) -> Optional[Dict]:
         """One half-open canary probe of the most recently tripped eligible
         rung: the candidate projection (current trips minus the rung) runs
@@ -1093,6 +1242,12 @@ class InferenceSession:
         return out
 
     # -- device ledger / memory accounting --------------------------------
+
+    def ledger_key_id(self, kind: str, h: int, w: int, iters: int, b: int = 1) -> str:
+        """The ledger id of the program (kind, geometry, batch) resolves to
+        under the current run config: the scheduler stamps it on its spans,
+        so a flight record joins a request to the programs it rode."""
+        return ledger_id(self.cache_key(kind, h, w, iters, b=b))
 
     def _cache_hbm_parts(self) -> Tuple[Dict[str, float], float, int]:
         """(by_bucket, total, unknown_rows): summed ledger peaks of the
@@ -1174,6 +1329,19 @@ class InferenceSession:
 
     # -- reporting --------------------------------------------------------
 
+    def count_request(self, ok: bool, degraded: bool = False,
+                      nonfinite: bool = False) -> None:
+        """Count one request the scheduler served (it resolves its own
+        responses), so the session counters are one truth in both modes."""
+        if ok:
+            self._ctr["requests_ok"].inc()
+            if degraded:
+                self._ctr["degraded"].inc()
+        else:
+            self._ctr["requests_failed"].inc()
+            if nonfinite:
+                self._ctr["nonfinite_outputs"].inc()
+
     def metrics(self) -> Dict:
         """The short-name counter dict, read off the registry."""
         return {k: int(c.value) for k, c in self._ctr.items()}
@@ -1189,7 +1357,8 @@ class InferenceSession:
             "session_cfg": dataclasses.asdict(self.cfg),
             "env_knobs": {k: env.get(k) for k in sorted(env)},
             "breaker": self.breaker.status(),
-            "max_programs": self.cfg.max_programs,
+            "batch_buckets": list(self._batch_buckets),
+            "max_programs": self._max_programs,
             "programs": self.programs(),
             "deck": self.deck.status(),
             "capacity_window_s": self._capacity_window_s,
@@ -1215,8 +1384,10 @@ class InferenceSession:
             "bucket": self.cfg.bucket,
             "valid_iters": self.cfg.valid_iters,
             "segments": self.cfg.segments,
+            "max_batch": self.cfg.max_batch,
+            "batch_buckets": list(self._batch_buckets),
             "fatal": None if self._fatal is None else self._fatal[0],
-            "programs": {"cached": cached, "capacity": self.cfg.max_programs,
+            "programs": {"cached": cached, "capacity": self._max_programs,
                          **{k: v for k, v in counts.items()
                             if k in ("compiles", "evictions")}},
             "breaker": self.breaker.status_with_heal(),

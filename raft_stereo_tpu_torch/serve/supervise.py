@@ -1,7 +1,19 @@
 """Supervised self-healing serving (DESIGN.md "Supervision & self-healing
 (r13)").
 
-A copy of the JAX package's ``serve/supervise.py`` (host code only).
+A copy of the JAX package's ``serve/supervise.py`` (host code only),
+driven by the port's ``StereoService``.
+
+**On the card a replay cannot be cancelled.** A program there is a CUDA
+graph, and nothing stops a launched replay short of losing the context. So
+the watchdog's bounce does on the card what it does in the JAX package to a
+wedged device call: it abandons the wedged thread. The old generation is
+marked defunct, its rows are harvested and re-admitted from their host
+inputs, and a fresh scheduler thread serves them; the abandoned thread, if
+its replay ever returns, discards its results. A replay that never returns
+keeps the card and its program's lock: later requests for that program
+wait behind it, the HTTP ingress answers them with its structured timeout,
+and only a new process frees the card.
 
 The breaker ladder (serve/guard.py) survives *kernel* failures, but
 nothing supervised the threads and device calls the ladder rides on: a

@@ -1299,3 +1299,163 @@ def test_gpu_kernels_write_nothing_past_their_outputs(cuda):
                  for _ in range(2))
     result = chip_smoke.check_overruns(model, pair)
     assert result["ok"] and all(result["launches"].values())
+
+
+def _padded_batch(sess, pairs):
+    import numpy as np
+    padder = sess.padder_for(pairs[0][0].shape)
+    lp, rp = (np.ascontiguousarray(np.concatenate(x))
+              for x in zip(*(padder.pad_np(*p) for p in pairs)))
+    return padder, lp, rp
+
+
+def _carry_bytes(state) -> list:
+    from raft_stereo_tpu_torch.models.raft_stereo import _map_carry
+    out = []
+    _map_carry(lambda x: out.append(x.detach().cpu().contiguous().view(torch.uint8)), state)
+    return out
+
+
+def _same_carry(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_carry_bytes(a), _carry_bytes(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [2, 4])
+def test_gpu_batched_programs_graph_equals_eager(cuda, b):
+    """The scheduler's batched programs as CUDA graphs at 100x230: prepare
+    and advance equal their eager runs bit for bit; the prepare runs row by
+    row (each row the B=1 prepare's bits, the encoder kernels launched once
+    a row) and the advance launches the loop kernels once an iteration;
+    within the width a row does not depend on its batchmates (replicas of
+    it as pad rows give its bits); against the B=1 programs each row's
+    advance carry is bit for bit, and its upsampled flow holds to
+    chip_smoke.CROSS_WIDTH_PIN (at this geometry the epilogue's fp32
+    upsample einsum sums in another order at B=4)."""
+    import numpy as np
+
+    import chip_smoke
+    from raft_stereo_tpu_torch.models import take_refinement_rows
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    from raft_stereo_tpu_torch.serve.guard import CANARY_ATOL, CANARY_RTOL
+    from raft_stereo_tpu_torch.serve.session import build_program
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg,
+                            SessionConfig(valid_iters=4, segments=2, max_batch=4), device=cuda)
+    pairs = _host_pairs([(100, 230)] * b, seed=13)
+    padder, lp, rp = _padded_batch(sess, pairs)
+    ph, pw = padder.padded_shape
+    (state,) = sess.invoke(sess.get_program("prepare", ph, pw, 0, b=b), lp, rp)
+    with torch.no_grad():
+        (eager,) = build_program("prepare", model, 0)(torch.from_numpy(lp).to(cuda),
+                                                      torch.from_numpy(rp).to(cuda))
+    assert _same_carry(state, eager)
+    solo = []
+    for i in range(b):
+        (s1,) = sess.invoke(sess.get_program("prepare", ph, pw, 0), lp[i:i + 1], rp[i:i + 1])
+        assert _same_carry(take_refinement_rows(state, [i]), s1), i
+        solo.append(s1)
+    one = sess.program_launches("prepare", ph, pw, 0)
+    assert one["enc_stem"] == 1 and one["enc_pass"] >= 1
+    assert sess.program_launches("prepare", ph, pw, 0, b=b) == {k: b * n for k, n in one.items()}
+    adv = sess.get_program("advance", ph, pw, 2, b=b)
+    got, _, dnorm = sess.invoke(adv, state)
+    with torch.no_grad():
+        ref, _, ref_dnorm = build_program("advance", model, 2)(
+            take_refinement_rows(eager, list(range(b))))
+    assert _same_carry(got, ref) and torch.equal(torch.from_numpy(dnorm), ref_dnorm.cpu())
+    assert sess.program_launches("advance", ph, pw, 2, b=b) == {"fused_iter": 2, "gru1632": 2}
+    up, _ = sess.invoke(sess.get_program("epilogue", ph, pw, 0, b=b), got)
+    adv1 = sess.get_program("advance", ph, pw, 2)
+    epi1 = sess.get_program("epilogue", ph, pw, 0)
+    for i in range(b):
+        pad, _, _ = sess.invoke(adv, take_refinement_rows(state, [i] * b))
+        assert _same_carry(take_refinement_rows(pad, [0]), take_refinement_rows(got, [i])), i
+        s1, _, _ = sess.invoke(adv1, solo[i])
+        assert _same_carry(take_refinement_rows(got, [i]), s1), i
+        up1, _ = sess.invoke(epi1, s1)
+        if chip_smoke.CROSS_WIDTH_PIN == "bitwise":
+            assert up1.tobytes() == up[i:i + 1].tobytes(), i
+        else:
+            assert np.allclose(up[i:i + 1], up1, rtol=CANARY_RTOL, atol=CANARY_ATOL), (
+                i, float(np.abs(up[i:i + 1] - up1).max()))
+    assert sess.breaker.trip_count == 0
+
+
+@pytest.mark.gpu
+def test_gpu_scheduler_uploads_beside_first_captures(cuda):
+    """One scheduler's first ticks capture its batched programs while a
+    second scheduler's uploader copies pairs to the card on its own stream
+    the whole time: the captures hold (the uploads wait on the session's
+    device_ops gate), every served row equals the eager b=4 run bit for
+    bit, and every upload equals its host pair."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import BatchScheduler, InferenceSession, SessionConfig
+    from raft_stereo_tpu_torch.serve.session import build_program
+    from raft_stereo_tpu_torch.serve.validate import AdmissionConfig, validate_pair
+    model = _session_model(cuda)
+    scfg = SessionConfig(valid_iters=4, segments=2, max_batch=4)
+    sess_a = InferenceSession(model, model.cfg, scfg, device=cuda)
+    sess_b = InferenceSession(model, model.cfg, scfg, device=cuda)
+    pairs_a = _host_pairs([(100, 230)] * 4, seed=14)
+    pairs_b = _host_pairs([(60, 100)] * 6, seed=15)
+    out = []
+    sched_a = BatchScheduler(sess_a, resolve=lambda req, resp: out.append(resp))
+    sched_b = BatchScheduler(sess_b, resolve=lambda req, resp: None)
+
+    def request(i, p):
+        left, right = validate_pair(p[0], p[1], AdmissionConfig())
+        return {"id": i, "left": left, "right": right, "_deadline": None}
+
+    for i, p in enumerate(pairs_a):
+        sched_a.submit(request(i, p))
+    for bucket in sched_a._buckets.values():
+        for row in list(bucket.pending):
+            assert row.uploaded.wait(timeout=60)
+    done = threading.Event()
+    submitted = []
+
+    def upload_storm():
+        k = 0
+        while not done.is_set():
+            sched_b.submit(request(k, pairs_b[k % len(pairs_b)]))
+            submitted.append(k)
+            k += 1
+            time.sleep(0.001)
+
+    storm = threading.Thread(target=upload_storm)
+    storm.start()
+    try:
+        spins = 0
+        while len(out) < 4:
+            if not sched_a.run_tick():
+                time.sleep(0.002)
+            spins += 1
+            assert spins < 2000
+    finally:
+        done.set()
+        storm.join(timeout=60)
+    assert submitted and sess_a.metrics()["compiles"] == 3  # prepare, advance, epilogue
+    padder, lp, rp = _padded_batch(sess_a, pairs_a)
+    with torch.no_grad():
+        (state,) = build_program("prepare", model, 0)(torch.from_numpy(lp).to(cuda),
+                                                      torch.from_numpy(rp).to(cuda))
+        _, flow, _ = build_program("segment", model, 4)(state)
+    for r in out:
+        ref = (-padder.unpad(flow[r["id"]:r["id"] + 1])[0, ..., 0]).cpu().numpy()
+        assert r["status"] == "ok" and r["disparity"].tobytes() == ref.tobytes(), r["id"]
+    pad_b = sess_b.padder_for(pairs_b[0][0].shape)
+    rows = [row for bucket in sched_b._buckets.values() for row in bucket.pending]
+    assert len(rows) == len(submitted)
+    for row in rows:
+        assert row.uploaded.wait(timeout=60) and row.upload_error is None
+        row.dev_event.synchronize()
+        host = pad_b.pad_np(row.request["left"], row.request["right"])
+        for dev, h in zip(row.dev_pair, host):
+            assert np.array_equal(dev.cpu().numpy(), h)
+    sched_b.shutdown()
+    sched_a.shutdown()

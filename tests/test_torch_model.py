@@ -347,6 +347,10 @@ def test_port_imports_with_jax_blocked():
             "raft_stereo_tpu_torch.obs.tracing, raft_stereo_tpu_torch.obs.flight, "
             "raft_stereo_tpu_torch.obs.deck, raft_stereo_tpu_torch.obs.capacity, "
             "raft_stereo_tpu_torch.obs.usage, "
+            "raft_stereo_tpu_torch.serve.scheduler, raft_stereo_tpu_torch.serve.service, "
+            "raft_stereo_tpu_torch.serve.supervise, raft_stereo_tpu_torch.serve.wire, "
+            "raft_stereo_tpu_torch.serve.http, raft_stereo_tpu_torch.data.frame_utils, "
+            "raft_stereo_tpu_torch.serve_stereo, "
             "chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))

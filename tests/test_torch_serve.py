@@ -195,8 +195,11 @@ def test_device_defaults_to_the_card(tiny_model, tiny_cfg):
 
 
 def test_unported_serving_modes_raise():
-    with pytest.raises(NotImplementedError, match="max_batch"):
-        SessionConfig(max_batch=2)
+    """The pod mesh is not ported; batched programs are (the scheduler,
+    tests/test_torch_scheduler.py), and a batch below one is refused."""
+    SessionConfig(max_batch=2)
+    with pytest.raises(ValueError, match="max_batch"):
+        SessionConfig(max_batch=0)
     with pytest.raises(NotImplementedError, match="mesh_data"):
         SessionConfig(mesh_data=2)
     SessionConfig(mesh_data=1)
@@ -362,8 +365,9 @@ def test_capture_gate_runs_a_capture_alone():
 
 def test_port_ladder_is_pinned():
     """The port keeps the JAX rungs whose switch it has, in the JAX order,
-    and drops stream_batch (no B>1 engagement), packed_l2 (a TPU layout)
-    and fused_update (no such config field)."""
+    and drops stream_batch (a TPU batch policy: the port's loop kernels
+    engage at every batch, and its fallback would be plain PyTorch),
+    packed_l2 (a TPU layout) and fused_update (no such config field)."""
     from raft_stereo_tpu.serve.guard import DEFAULT_LADDER as JAX_LADDER
     jax_names = [p.name for p in JAX_LADDER]
     assert tuple(p.name for p in DEFAULT_LADDER) == LADDER_NAMES

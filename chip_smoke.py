@@ -156,6 +156,43 @@ Phases, each fatal on failure:
    ``bad_multipart``, SIGTERM draining to exit 0 (``"phase":
    "server_cli"``; without Pillow the PNG requests are left out and the
    line says so).
+9. streams, the response cache and the fleet (``phase_streams``): the
+   tempered model at KITTI size, 32 iterations in 4 segments. (a) A stream
+   of 8 frames (one seeded uint8 375x1242 pair, its right image shifted by
+   0-7 px: a slowly panning rig) through a ``StreamRunner`` at the default
+   tolerance and at 1e9 (every warm frame leaves at its first segment
+   boundary, ``converged:8``): frame 1 bit for bit its stateless response,
+   every frame bit for bit the eager prepare[_warm] → advance → epilogue
+   composition on the card, every warm frame within WARM_ROUTE_BAND of the
+   forward with the same ``flow_init`` (frame 1 gives the route's baseline
+   with a zero seed), with ``dnorm`` by segment, iterations, request ms and
+   label by frame; ``prepare_warm`` captured the cold prepare's launches
+   (1 stem, 14 passes, 1 point3, 4 point2), ``advance`` 8 resident + 8
+   gru16+32; frames/s of the stream against the same frames served cold,
+   in turns (STREAM_ROUNDS). Then two streams through a ``max_batch=4``
+   service among cold requests (B at 1e9 from its first warm frame): frame
+   1 of each bit for bit its stateless twin in the same tick, each warm
+   frame held to its eager composition by CROSS_WIDTH_PIN; a warm row at
+   b=4 with the same bits beside two and three cold rows. (b) The cache:
+   an exact repeat ``cache:exact``, bit for bit, with no program call, no
+   device second and no launch (its ms printed); a near repeat
+   ``warm:cache:8``; an entry evicted to a ``cache_dir`` served again,
+   bit for bit, after the service restarts. ``demo --video``'s frames in
+   process over 3 PNG frames (``demo.disparities``; the card's machine has
+   no matplotlib for the PNG save): frame 1 bit for bit the single-pair
+   output. (c)
+   ``python -m raft_stereo_tpu_torch.fleet_stereo`` with 2 instances at
+   ``max_batch 1`` and a shared ``--cache_dir``: both handshakes, a stream
+   pinned to one instance and its frame 1 bit for bit in process, two cold
+   pairs straight to that instance (its one-entry budget spills the
+   first), ``kill -9`` of it with 4 stream frames in flight (each answered:
+   200 from the survivor, to which the fleet retries once, or a structured
+   502/503), the stream then served by the survivor cold and then warm,
+   the replacement in the same slot serving the spilled pair
+   ``cache:exact`` bit for bit; the seconds from the kill to the first
+   response served by the survivor and to the replacement's readiness,
+   then SIGTERM, exit 0 (``"phase": "streams"``, ``"demo_video"``,
+   ``"fleet"`` and ``"streams_seconds"`` lines).
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -2606,6 +2643,688 @@ def phase_server(smi: str) -> dict:
     return {"server": line, "cli": cli}
 
 
+# -- phase 9: streams, the response cache and the fleet ------------------------------
+
+STREAM_FRAMES = 8
+STREAM_SEGMENTS = 4
+STREAM_ITERS_PER_SEGMENT = ITERS // STREAM_SEGMENTS
+FORCED_TOL = 1e9  # every warm frame exits at its first segment boundary
+STREAM_ROUNDS = (("cold", None), ("stream", None), ("stream", FORCED_TOL), ("cold", None),
+                 ("stream", FORCED_TOL), ("stream", None))
+CACHE_NEAR_TOL = 8.0  # gray levels; the frames of a stream share their left image
+
+
+def _spill_budget() -> int:
+    """A cache budget that holds one KITTI entry (the fp32 disparity,
+    1.86e6 bytes, its signature and seed) and not two: a second deposit
+    spills the first."""
+    return int(1.5 * KITTI[0] * KITTI[1] * 4)
+
+FLEET_INSTANCES = 2
+FLEET_WAIT_S = 300
+FLEET_INFLIGHT = 4
+# The fleet's stdout, and the in-process checks' files, live here.
+STREAMS_DIR = ("build", "chip_smoke_streams")
+
+
+def _stream_frames(n: int, seed: int) -> list:
+    """One random uint8 KITTI pair, its right image shifted by 0..n-1 px:
+    the frames of a slowly panning rig."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    left, right = (rng.integers(0, 256, (1, *KITTI, 3), dtype=np.uint8) for _ in range(2))
+    return [(left, np.ascontiguousarray(np.roll(right, k, axis=2))) for k in range(n)]
+
+
+def _f32(pair) -> tuple:
+    import numpy as np
+    return tuple(np.ascontiguousarray(x.astype(np.float32)) for x in pair)
+
+
+def _eager_stream(model, sess, pair, seed, segments: int):
+    """The eager composition on the card of one stream frame, as the
+    session's b=1 programs compose it: prepare (or prepare_warm with
+    ``seed``), ``segments`` advance segments, the epilogue. Returns the
+    served disparity."""
+    from raft_stereo_tpu_torch.serve.session import build_program
+    left, right = _f32(pair)
+    padder = sess.padder_for(left.shape)
+    lp, rp = padder.pad_np(left, right)
+    dev = sess.device
+    with torch.no_grad():
+        t1, t2 = torch.from_numpy(lp).to(dev), torch.from_numpy(rp).to(dev)
+        if seed is None:
+            (state,) = build_program("prepare", model, 0)(t1, t2)
+        else:
+            (state,) = build_program("prepare_warm", model, 0)(
+                t1, t2, torch.from_numpy(seed).to(dev))
+        adv = build_program("advance", model, STREAM_ITERS_PER_SEGMENT)
+        for _ in range(segments):
+            state, _, _ = adv(state)
+        up, _ = build_program("epilogue", model, 0)(state)
+    return (-padder.unpad(up)[0, ..., 0]).cpu().numpy()
+
+
+def _flow_init_forward(model, sess, pair, seed, iters: int):
+    """The model's forward with ``flow_init`` (the seed, y = 0) on the card:
+    its warm-start mode, the serial chain with the torch motion encoder."""
+    from raft_stereo_tpu_torch import raft_stereo_forward
+    left, right = _f32(pair)
+    padder = sess.padder_for(left.shape)
+    lp, rp = padder.pad_np(left, right)
+    dev = sess.device
+    with torch.no_grad():
+        fx = torch.from_numpy(seed).to(dev)
+        _, up = raft_stereo_forward(model, torch.from_numpy(lp).to(dev),
+                                    torch.from_numpy(rp).to(dev), iters=iters,
+                                    flow_init=torch.cat([fx, torch.zeros_like(fx)], dim=-1))
+    return (-padder.unpad(up)[0, ..., 0]).cpu().numpy()
+
+
+# A warm frame against the model's forward with the same flow_init: the
+# warm chain keeps the loop kernels (the resident kernel's motion encoder,
+# legal since the seed's y channel is zero), the forward takes the serial
+# chain with the torch motion encoder, so the two round apart, and the
+# seeded model's loop, which does not contract, grows the difference with
+# the iterations (as _disparity_band's routes do) and with the disparity
+# the frames accumulate (25.7 px mean at frame 1, 137 at frame 8). Not the
+# canary band (0.05 px + 0.5%): read on an H100, mean 0.026-0.112 px and
+# max 0.15-0.93 px over both runs' frames (the zero-seed baseline of frame 1
+# 0.112 and 0.398); the band is twice the largest reading. (mean, max) px.
+WARM_ROUTE_BAND = (0.25, 2.0)
+
+
+def _warm_route_band(got, ref, baseline: bool = False) -> dict:
+    import numpy as np
+    d = np.abs(got - ref)
+    mean_tol, max_tol = WARM_ROUTE_BAND
+    return {"flow_init_forward_mean_abs_diff": float(d.mean()),
+            "flow_init_forward_max_abs_diff": float(d.max()),
+            "disparity_abs_mean": float(np.abs(ref).mean()),
+            "flow_init_forward_in_band": bool(d.mean() <= mean_tol and d.max() <= max_tol),
+            "zero_seed_baseline": baseline}
+
+
+def _in_band(a, b) -> bool:
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve.guard import CANARY_ATOL, CANARY_RTOL
+    return bool(np.allclose(a, b, rtol=CANARY_RTOL, atol=CANARY_ATOL))
+
+
+def _stream_run(sess, model, frames, tol) -> list:
+    """The frames through a StreamRunner at tolerance ``tol`` (None: the
+    default, RAFT_CONVERGE_TOL or 0.01), each held to the eager composition
+    bit for bit, frame 1 to the stateless response, every warm frame to the
+    flow_init forward within the canary band. One row a frame."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import StreamRunner
+    runner = StreamRunner(sess, converge_tol=tol)
+    rows = []
+    for k, pair in enumerate(frames):
+        seed = None if runner.last is None else runner.last.flow_low
+        t0 = time.perf_counter()
+        res = runner.infer(*_f32(pair))
+        ms = (time.perf_counter() - t0) * 1e3
+        out = runner.last
+        segs = res.iters // STREAM_ITERS_PER_SEGMENT
+        eager = _eager_stream(model, sess, pair, seed, segs)
+        row = {"frame": k + 1, "label": res.quality, "iters": res.iters, "warm": out.warm,
+               "dnorm_by_segment": list(out.dnorms), "request_ms": ms,
+               "eager_bitwise": res.disparity.tobytes() == eager.tobytes()}
+        if seed is None:
+            ref = sess.infer(*_f32(pair)).disparity
+            row["stateless_bitwise"] = res.disparity.tobytes() == ref.tobytes()
+            # The route's own difference, with no seed: the forward in its
+            # warm-start mode (a zero flow_init) against the cold frame.
+            zero = np.zeros_like(out.flow_low)
+            row.update(_warm_route_band(res.disparity, _flow_init_forward(
+                model, sess, pair, zero, res.iters), baseline=True))
+        else:
+            row.update(_warm_route_band(res.disparity, _flow_init_forward(
+                model, sess, pair, seed, res.iters)))
+        rows.append(row)
+    bad = [r for r in rows if not (r["eager_bitwise"] and r.get("stateless_bitwise", True)
+                                   and r["flow_init_forward_in_band"])]
+    if bad or rows[0]["warm"] or not all(r["warm"] for r in rows[1:]):
+        raise SystemExit(f"streams: a frame breaks its pins: {bad or rows}")
+    if tol == FORCED_TOL and any(r["label"] != f"converged:{STREAM_ITERS_PER_SEGMENT}"
+                                 for r in rows[1:]):
+        raise SystemExit(f"streams: tolerance {tol} did not exit at the first boundary: "
+                         f"{[r['label'] for r in rows]}")
+    return rows
+
+
+def _stream_rounds(sess, frames) -> list:
+    """Frames/s of the stream against the same frames served cold, in turns
+    (STREAM_ROUNDS), at the default tolerance and at FORCED_TOL."""
+    from raft_stereo_tpu_torch.serve import StreamRunner
+    pairs = [_f32(p) for p in frames]
+    out = []
+    for kind, tol in STREAM_ROUNDS:
+        runner = StreamRunner(sess, converge_tol=tol) if kind == "stream" else None
+        iters = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for left, right in pairs:
+            res = runner.infer(left, right) if runner else sess.infer(left, right)
+            iters.append(res.iters)
+        dt = time.perf_counter() - t0
+        out.append({"kind": kind, "tol": tol, "frames_per_s": len(pairs) / dt,
+                    "iters": iters})
+    return out
+
+
+def _service_streams(sess4, model, frames_a, frames_b) -> dict:
+    """Two streams at max_batch 4 (A at the default tolerance, B at
+    FORCED_TOL), frame by frame, each frame submitted with a cold request
+    of its pair, all at once; frame 1 of each beside its stateless twin.
+    Frame 1 must be bit for bit its stateless response; each warm frame
+    holds to the eager b=1 composition by CROSS_WIDTH_PIN."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_stereo_tpu_torch.serve import ServiceConfig, StereoService
+    svc = StereoService(sess4, ServiceConfig(max_queue=16)).start()
+    rows = []
+    try:
+        seeds = {"A": None, "B": None}
+        for k in range(STREAM_FRAMES):
+            reqs = []
+            for sid, frames in (("A", frames_a), ("B", frames_b)):
+                req = {"id": f"{sid}{k}", "left": _f32(frames[k])[0],
+                       "right": _f32(frames[k])[1], "stream": sid}
+                if sid == "B" and k:
+                    # From its first warm frame on (a tolerance on a cold
+                    # frame would exit it too).
+                    req["converge_tol"] = FORCED_TOL
+                reqs.append(req)
+            reqs.append({"id": f"cold-A{k}", "left": reqs[0]["left"], "right": reqs[0]["right"]})
+            if k == 0:
+                reqs.append({"id": "cold-B0", "left": reqs[1]["left"],
+                             "right": reqs[1]["right"]})
+            with ThreadPoolExecutor(max_workers=len(reqs)) as ex:
+                resps = {r["id"]: r for r in ex.map(
+                    lambda q: svc.submit(q).result(timeout=600), reqs)}
+            for sid, frames in (("A", frames_a), ("B", frames_b)):
+                r = resps[f"{sid}{k}"]
+                if r["status"] != "ok":
+                    raise SystemExit(f"streams: service frame {sid}{k}: {r}")
+                row = {"stream": sid, "frame": k + 1, "label": r["quality"], "iters": r["iters"],
+                       "request_ms": r["elapsed_ms"]}
+                if k == 0:
+                    row["stateless_bitwise"] = (r["disparity"].tobytes()
+                                                == resps[f"cold-{sid}0"]["disparity"].tobytes())
+                else:
+                    eager = _eager_stream(model, sess4, frames[k], seeds[sid],
+                                          r["iters"] // STREAM_ITERS_PER_SEGMENT)
+                    row["eager_bitwise"] = r["disparity"].tobytes() == eager.tobytes()
+                    row["eager_max_abs_diff"] = float(np.abs(r["disparity"] - eager).max())
+                    row["eager_in_band"] = _in_band(r["disparity"], eager)
+                rows.append(row)
+            # The seeds the service's next frames get, for the eager twins:
+            # each stream's flow as its session holds it.
+            with svc.stream._lock:
+                for sid in ("A", "B"):
+                    seeds[sid] = svc.stream._table[("default", sid)].flow
+        status = svc.status()["stream"]
+    finally:
+        svc.stop()
+    pin = CROSS_WIDTH_PIN == "bitwise"
+    bad = [r for r in rows if not r.get("stateless_bitwise", True)
+           or not (r.get("eager_bitwise", True) if pin else r.get("eager_in_band", True))]
+    if bad:
+        raise SystemExit(f"streams: service frames break their pins: {bad}")
+    if any(r["label"] != f"converged:{STREAM_ITERS_PER_SEGMENT}"
+           for r in rows if r["stream"] == "B" and r["frame"] > 1):
+        raise SystemExit(f"streams: stream B did not exit at the first boundary: {rows}")
+    if status["warm_joins"] != 2 * (STREAM_FRAMES - 1):
+        raise SystemExit(f"streams: warm joins {status}")
+    return {"rows": rows, "stream_status": status}
+
+
+def _warm_row_compositions(sess4, pair) -> dict:
+    """A warm row at batch bucket 4 beside two cold rows, then beside
+    three: the same bits."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import BatchScheduler
+    from raft_stereo_tpu_torch.serve.validate import AdmissionConfig, validate_pair
+    left, right = validate_pair(*_f32(pair), AdmissionConfig())
+    ph, pw = sess4.padder_for(left.shape).padded_shape
+    f = sess4._run_cfg.downsample_factor
+    seed = np.random.default_rng(41).uniform(-2, 2, (1, ph // f, pw // f, 1)).astype(np.float32)
+
+    def run(n_cold):
+        out = {}
+        sched = BatchScheduler(sess4, resolve=lambda rq, rs: out.__setitem__(rq["id"], rs))
+        sched.submit({"id": "w", "left": left, "right": right, "_flow_init": seed.copy()})
+        for i in range(n_cold):
+            sched.submit({"id": f"c{i}", "left": left, "right": right})
+        for bucket in sched._buckets.values():
+            for row in list(bucket.pending):
+                if not row.uploaded.wait(timeout=120):
+                    raise SystemExit("streams: an upload never finished")
+        spins = 0
+        while len(out) < n_cold + 1:
+            if not sched.run_tick():
+                time.sleep(0.002)
+            spins += 1
+            if spins > 20000:
+                raise SystemExit("streams: the scheduler made no progress")
+        sched.shutdown()
+        return out
+
+    a, b = run(2), run(3)
+    same = a["w"]["disparity"].tobytes() == b["w"]["disparity"].tobytes()
+    if not same or a["w"]["status"] != "ok":
+        raise SystemExit(f"streams: a warm row at b=4 changes with its batchmates "
+                         f"(max |d| {float(np.abs(a['w']['disparity'] - b['w']['disparity']).max())})")
+    return {"bitwise": same, "labels": [a["w"]["quality"], b["w"]["quality"]]}
+
+
+def _counters(sess) -> dict:
+    from raft_stereo_tpu_torch import kernels
+    return {"calls": sum(v for _, v in sess.registry.series("raft_program_calls_total")),
+            "device_s": sum(v for _, v in sess.registry.series(
+                "raft_program_device_seconds_total")),
+            "launches": dict(kernels.launches)}
+
+
+def _cache_checks(sess, frames, spill: Path) -> dict:
+    """The response cache on the card (see the module docstring, phase 9)."""
+    import shutil
+
+    from raft_stereo_tpu_torch.serve import ServiceConfig, StereoService
+    f0, f1, f2 = (_f32(frames[i]) for i in (0, 1, 2))
+    svc = StereoService(sess, ServiceConfig(cache_bytes=256 << 20,
+                                            cache_near_tol=CACHE_NEAR_TOL))
+    cold = svc.handle({"id": "cold", "left": f0[0], "right": f0[1]})
+    before = _counters(sess)
+    t0 = time.perf_counter()
+    hit = svc.handle({"id": "hit", "left": f0[0], "right": f0[1]})
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    after = _counters(sess)
+    near = svc.handle({"id": "near", "left": f1[0], "right": f1[1],
+                       "converge_tol": FORCED_TOL})
+    exact = {"label": hit["quality"], "bitwise": hit["disparity"].tobytes()
+             == cold["disparity"].tobytes(), "hit_ms": hit_ms, "cold_ms": cold["elapsed_ms"],
+             "program_calls": after["calls"] - before["calls"],
+             "device_s": after["device_s"] - before["device_s"],
+             "launches_moved": after["launches"] != before["launches"]}
+    near_row = {"label": near["quality"], "iters": near["iters"],
+                "near_hits": svc.cache.status()["near_hits"]}
+    svc.stop()
+    # The disk spill across a restart: a budget of one entry, two deposits.
+    shutil.rmtree(spill, ignore_errors=True)
+    cfg = ServiceConfig(cache_bytes=_spill_budget(), cache_dir=str(spill))
+    svc = StereoService(sess, cfg)
+    first = svc.handle({"id": "p", "left": f0[0], "right": f0[1]})
+    svc.handle({"id": "q", "left": f2[0], "right": f2[1]})
+    spills = svc.cache.status()["disk"]["spills"]
+    svc.stop()
+    svc = StereoService(sess, cfg)  # the restart: RAM empty, the spill kept
+    again = svc.handle({"id": "p-again", "left": f0[0], "right": f0[1]})
+    disk = svc.cache.status()["disk"]
+    svc.stop()
+    restart = {"spills": spills, "label": again["quality"], "disk_hits": disk["hits"],
+               "bitwise": again["disparity"].tobytes() == first["disparity"].tobytes()}
+    result = {"exact": exact, "near": near_row, "restart": restart}
+    if not (exact["label"] == "cache:exact" and exact["bitwise"] and exact["program_calls"] == 0
+            and exact["device_s"] == 0 and not exact["launches_moved"]):
+        raise SystemExit(f"streams: the exact tier: {exact}")
+    if near_row["label"] != f"warm:cache:{STREAM_ITERS_PER_SEGMENT}":
+        raise SystemExit(f"streams: the near tier: {near_row}")
+    if not (spills >= 1 and restart["label"] == "cache:exact" and restart["bitwise"]
+            and restart["disk_hits"] == 1):
+        raise SystemExit(f"streams: the spill across a restart: {restart}")
+    return result
+
+
+def _fleet_http(port: int, path: str, body: bytes = None, headers: dict = None,
+                timeout: float = 300) -> tuple:
+    """(status, body bytes) of one request on loopback; a connection error
+    is (None, its text): the caller decides."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET",
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError as e:
+        return None, str(e).encode()
+
+
+def _png_request(pair, rid: str) -> tuple:
+    from raft_stereo_tpu_torch.serve import wire
+    return wire.build_multipart({"left": wire.encode_image_png(pair[0][0]),
+                                 "right": wire.encode_image_png(pair[1][0]),
+                                 "id": rid.encode()})
+
+
+def _fleet_doc(port: int) -> dict:
+    status, body = _fleet_http(port, "/fleet/healthz", timeout=30)
+    if status != 200:
+        raise SystemExit(f"fleet: /fleet/healthz {status} {body[:200]!r}")
+    return json.loads(body)
+
+
+def _fleet_post(port, pair, rid, session=None, tol=None, timeout=300) -> tuple:
+    from raft_stereo_tpu_torch.serve import wire
+    ct, payload = _png_request(pair, rid)
+    headers = {"Content-Type": ct}
+    if session is not None:
+        headers["X-Raft-Session"] = session
+    if tol is not None:
+        headers["X-Raft-Converge-Tol"] = repr(tol)
+    t0 = time.perf_counter()
+    status, body = _fleet_http(port, "/v1/stereo", payload, headers, timeout=timeout)
+    t1 = time.perf_counter()
+    if status is None:
+        return None, {"status": "hung_or_reset", "message": body.decode()}, t1
+    if status == 200:
+        return status, wire.decode_response(body), t1
+    return status, json.loads(body), t1
+
+
+def _answered(doc: dict) -> dict:
+    return {uid: b["answered"] for uid, b in doc["books"].items()}
+
+
+DEMO_FRAMES = 3
+
+
+def _demo_video(pth: Path, frames) -> dict:
+    """``python -m raft_stereo_tpu_torch.demo --video``'s frames in process
+    (``demo.disparities``, all of the CLI but its matplotlib PNG save) over
+    DEMO_FRAMES PNG frames of the stream, and the same glob without
+    ``--video``: frame 1 of the video bit for bit the single-pair output,
+    the warm frames ``converged:8`` at 1e9."""
+    from raft_stereo_tpu_torch import demo
+    from raft_stereo_tpu_torch.serve import wire
+    root = pth.parent / "demo"
+    for k in range(DEMO_FRAMES):
+        d = root / "frames" / f"f{k}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "im0.png").write_bytes(wire.encode_image_png(frames[k][0][0]))
+        (d / "im1.png").write_bytes(wire.encode_image_png(frames[k][1][0]))
+    args = ["--restore_ckpt", str(pth), "--corr_implementation", "reg_cuda",
+            "--mixed_precision", "--valid_iters", str(ITERS), "--device", CLI_DEVICE,
+            *CLI_ARCH, "-l", str(root / "frames" / "f*" / "im0.png"),
+            "-r", str(root / "frames" / "f*" / "im1.png"),
+            "--output_directory", str(root / "out")]
+    parser = demo.build_parser()
+    t0 = time.perf_counter()
+    video = list(demo.disparities(parser.parse_args(
+        [*args, "--video", "--segments", str(STREAM_SEGMENTS),
+         "--converge_tol", repr(FORCED_TOL)])))
+    video_s = time.perf_counter() - t0
+    single = list(demo.disparities(parser.parse_args(args)))
+    same = [v[1].tobytes() == s1[1].tobytes() for v, s1 in zip(video, single)]
+    labels = [v[2] for v in video]
+    result = {"frames": len(video), "labels": labels, "video_s": video_s,
+              "frame1_bitwise_single_pair": same[0], "warm_frames_differ": not any(same[1:])}
+    if len(video) != DEMO_FRAMES or not same[0] or any(same[1:]) or labels[1:] != [
+            f"converged:{STREAM_ITERS_PER_SEGMENT}"] * (DEMO_FRAMES - 1):
+        raise SystemExit(f"streams: demo --video against single pairs: {result}")
+    return result
+
+
+def phase_fleet(model, frames, refs: dict) -> dict:
+    """``python -m raft_stereo_tpu_torch.fleet_stereo`` (see the module
+    docstring, phase 9)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    root = Path(__file__).resolve().parent
+    out_dir = root.joinpath(*STREAMS_DIR)
+    cache_dir = out_dir / "fleet_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pth = out_dir / "model.pth"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAFT_") and
+           k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(root)
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.fleet_stereo",
+           "--instances", str(FLEET_INSTANCES), "--cache_dir", str(cache_dir),
+           "--probe_ms", "200", "--warmup_timeout_ms", str(FLEET_WAIT_S * 1e3),
+           "--drain_grace_ms", "20000", "--",
+           "--restore_ckpt", str(pth), "--corr_implementation", "reg_cuda", "--mixed_precision",
+           "--bucket", "32", "--max_batch", "1", "--warmup", f"{KITTI[0]}x{KITTI[1]}",
+           "--valid_iters", str(ITERS), "--segments", str(STREAM_SEGMENTS),
+           "--cache_bytes", str(_spill_budget()), "--no_canary", "--device", CLI_DEVICE,
+           *CLI_ARCH]
+    t0 = time.perf_counter()
+    so_path = out_dir / "fleet_stdout.txt"
+    with open(so_path, "w") as so, open(out_dir / "fleet_stderr.txt", "w") as se:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=so, stderr=se, text=True)
+    pids = set()
+    result = {"phase": "fleet"}
+    try:
+        port = None
+        while port is None:
+            if proc.poll() is not None:
+                raise SystemExit(f"fleet: exited {proc.returncode} before listening\n"
+                                 f"{(out_dir / 'fleet_stderr.txt').read_text()[-3000:]}")
+            if time.perf_counter() - t0 > 2 * FLEET_WAIT_S:
+                raise SystemExit("fleet: not listening in time")
+            for line in so_path.read_text().splitlines():
+                if line.startswith('{"event": "fleet_listening"'):
+                    port = json.loads(line)["port"]
+            time.sleep(0.2)
+        result["ready_s"] = time.perf_counter() - t0
+        doc = _fleet_doc(port)
+        rows = {r["uid"]: r for r in doc["by_instance"]}
+        pids |= {r["pid"] for r in rows.values()}
+        if doc["states"].get("ready") != FLEET_INSTANCES:
+            raise SystemExit(f"fleet: handshakes {doc['states']}")
+        # Frame 1 of the stream "rig": pinned, and bit for bit in process.
+        before = _answered(doc)
+        status, r1, _ = _fleet_post(port, frames[0], "rig-1", session="rig")
+        doc = _fleet_doc(port)
+        moved = [u for u, n in _answered(doc).items() if n != before.get(u, 0)]
+        if status != 200 or r1["status"] != "ok" or len(moved) != 1:
+            raise SystemExit(f"fleet: frame 1 gave {status} {r1.get('code')}, books {moved}")
+        doomed = rows[moved[0]]
+        status, r2, _ = _fleet_post(port, frames[1], "rig-2", session="rig")
+        doc = _fleet_doc(port)
+        pinned = _answered(doc)[doomed["uid"]] == before.get(doomed["uid"], 0) + 2
+        frame1_bitwise = np.asarray(r1["disparity"]).tobytes() == refs["frame1"].tobytes()
+        # Two cold pairs straight to the pinned instance: its one-entry
+        # budget spills the first to the shared cache_dir.
+        p_status, p_resp, _ = _fleet_post(doomed["port"], frames[2], "p")
+        _fleet_post(doomed["port"], frames[3], "q")
+        spilled = sorted(cache_dir.glob("*.npz"))
+        if p_status != 200 or not spilled:
+            raise SystemExit(f"fleet: no spill in {cache_dir} ({p_status})")
+        # The survivor's books and stream counters before the kill.
+        survivor = next(u for u in rows if u != doomed["uid"])
+        answered0 = _answered(_fleet_doc(port))
+        st, health0 = _fleet_http(rows[survivor]["port"], "/healthz", timeout=30)
+        warm0 = json.loads(health0)["stream"]["warm_joins"]
+        # kill -9 with frames of the stream in flight on that instance. They
+        # carry FORCED_TOL, so wherever they are served they exit early and
+        # are never deposited: the survivor shares the cache_dir, and its
+        # own evictions would prune the spill this phase reads back.
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=FLEET_INFLIGHT) as ex:
+            futs = [ex.submit(_fleet_post, port, frames[4 + i], f"rig-{5 + i}", "rig",
+                              FORCED_TOL, 120) for i in range(FLEET_INFLIGHT)]
+            time.sleep(0.05)
+            t_kill = time.perf_counter()
+            os.kill(doomed["pid"], signal.SIGKILL)
+            inflight = [f.result(timeout=180) for f in futs]
+        structured = [s == 200 and r.get("status") == "ok"
+                      or s in (502, 503) and isinstance(r.get("code"), str)
+                      for s, r, _ in inflight]
+        # The stream after the kill: re-pinned to the survivor, cold there
+        # first (it never held the seed), warm after.
+        survivor = next(u for u in rows if u != doomed["uid"])
+        surv_port = rows[survivor]["port"]
+        # A frame no instance has seen (an exact hit would say nothing).
+        fresh = (frames[0][0], np.ascontiguousarray(np.roll(frames[0][1], 11, axis=2)))
+        status, r_next, t_next = _fleet_post(port, fresh, "rig-after", session="rig",
+                                             tol=FORCED_TOL)
+        st, health1 = _fleet_http(surv_port, "/healthz", timeout=30)
+        stream1 = json.loads(health1)["stream"]
+        surv_answered = _answered(_fleet_doc(port))[survivor] - answered0[survivor]
+        served_200 = [t for s, r, t in inflight if s == 200] + [t_next]
+        first_after_kill_s = min(served_200) - t_kill
+        # The replacement: the same slot, a new uid, ready.
+        replacement = None
+        while replacement is None:
+            if time.perf_counter() - t_kill > FLEET_WAIT_S:
+                raise SystemExit("fleet: no replacement in time")
+            doc = _fleet_doc(port)
+            for r in doc["by_instance"]:
+                if r["slot"] == doomed["slot"] and r["uid"] not in (None, doomed["uid"]) \
+                        and r["state"] == "ready":
+                    replacement = r
+            time.sleep(0.1)
+        replaced_s = time.perf_counter() - t_kill
+        pids.add(replacement["pid"])
+        status, p_again, _ = _fleet_post(replacement["port"], frames[2], "p-again")
+        result.update(
+            instances_ready=doc["states"].get("ready"), pinned=pinned,
+            frame1_label=r1["quality"], frame1_bitwise_in_process=frame1_bitwise,
+            frame2_label=r2["quality"], spilled_files=len(spilled),
+            inflight=[{"status": s, "label": r.get("quality") or r.get("code")}
+                      for s, r, _ in inflight],
+            inflight_structured=all(structured),
+            after_kill={"status": status, "label": r_next.get("quality"),
+                        "survivor_answered": surv_answered,
+                        "survivor_warm_joins": [warm0, stream1["warm_joins"]],
+                        "survivor_sessions": stream1["sessions"]},
+            kill_to_first_survivor_response_s=first_after_kill_s,
+            kill_to_replacement_ready_s=replaced_s,
+            replacement_slot=replacement["slot"],
+            spill_from_replacement={"status": status, "label": p_again.get("quality"),
+                                    "bitwise": np.asarray(p_again.get("disparity")).tobytes()
+                                    == np.asarray(p_resp["disparity"]).tobytes()},
+            counters=doc["counters"], books=doc["books"])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FLEET_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for pid in pids:  # every instance this phase saw, whatever the fleet did
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except (ProcessLookupError, TypeError):
+                pass
+    result["exit_code"] = rc
+    result["seconds"] = time.perf_counter() - t0
+    print(json.dumps(result, default=str))
+    after = result["after_kill"]
+    checks = {"handshakes": result["instances_ready"] == FLEET_INSTANCES,
+              "pinned": result["pinned"], "frame1_bitwise": frame1_bitwise,
+              "inflight_structured": result["inflight_structured"],
+              "survivor_cold_then_warm": (
+                  after["status"] == 200
+                  and after["label"] == f"converged:{STREAM_ITERS_PER_SEGMENT}"
+                  and after["survivor_warm_joins"][1] > after["survivor_warm_joins"][0]
+                  and after["survivor_answered"]
+                  > after["survivor_warm_joins"][1] - after["survivor_warm_joins"][0]),
+              "replacement_same_slot": result["replacement_slot"] == doomed["slot"],
+              "spill_served": (result["spill_from_replacement"]["label"] == "cache:exact"
+                               and result["spill_from_replacement"]["bitwise"]),
+              "exit_0": rc == 0}
+    if not all(checks.values()):
+        raise SystemExit(f"fleet: failed {[k for k, v in checks.items() if not v]}\n"
+                         f"{(out_dir / 'fleet_stderr.txt').read_text()[-3000:]}")
+    return result
+
+
+def phase_streams(smi: str) -> dict:
+    """Streams, the response cache and the fleet (see the module docstring,
+    phase 9)."""
+    import gc
+
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    t_phase = time.perf_counter()
+    for knob in SWITCHES + ENCODER_SWITCHES:
+        os.environ.pop(knob, None)
+    for knob in ("RAFT_CONVERGE_TOL", "RAFT_CACHE_DIR", "RAFT_CACHE_BYTES"):
+        os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = seeded_model("cuda")
+    frames = _stream_frames(STREAM_FRAMES, seed=51)
+    frames_b = _stream_frames(STREAM_FRAMES, seed=52)
+    sess1 = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=STREAM_SEGMENTS, warmup_shapes=(KITTI,)))
+    ph, pw = sess1.padder_for(frames[0][0].shape).padded_shape
+    # (a) The stream through the StreamRunner, at the default tolerance and
+    # at FORCED_TOL, every frame checked; then the rounds in turns.
+    runs = {"default": _stream_run(sess1, model, frames, None),
+            "forced": _stream_run(sess1, model, frames, FORCED_TOL)}
+    launches = {kind: sess1.program_launches(kind, ph, pw, it)
+                for kind, it in (("prepare", 0), ("prepare_warm", 0),
+                                 ("advance", STREAM_ITERS_PER_SEGMENT), ("epilogue", 0))}
+    rounds = _stream_rounds(sess1, frames)
+    refs = {"frame1": sess1.infer(*_f32(frames[0])).disparity}
+    # (b) The cache.
+    cache = _cache_checks(sess1, frames, Path(__file__).resolve().parent.joinpath(
+        *STREAMS_DIR, "spill"))
+    # The service at max_batch 4: two streams among cold requests, and one
+    # warm row in two batch compositions.
+    sess4 = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=STREAM_SEGMENTS, max_batch=4, warmup_shapes=(KITTI,)))
+    service = _service_streams(sess4, model, frames, frames_b)
+    compositions = _warm_row_compositions(sess4, frames[3])
+    launches_b4 = {kind: sess4.program_launches(kind, ph, pw, it, b=4)
+                   for kind, it in (("prepare_warm", 0), ("advance", STREAM_ITERS_PER_SEGMENT))}
+    fps = {k: statistics.median(r["frames_per_s"] for r in rounds
+                                if (r["kind"], r["tol"]) == k)
+           for k in (("cold", None), ("stream", None), ("stream", FORCED_TOL))}
+    line = {"phase": "streams", "card": smi, "padded": [ph, pw],
+            "frames": STREAM_FRAMES, "iters": ITERS, "segments": STREAM_SEGMENTS,
+            "stream_default_tol": runs["default"], "stream_forced_tol": runs["forced"],
+            "program_launches": launches, "program_launches_b4": launches_b4,
+            "rounds": rounds,
+            "frames_per_s": {"cold": fps[("cold", None)], "stream_default_tol":
+                             fps[("stream", None)], "stream_forced_tol":
+                             fps[("stream", FORCED_TOL)]},
+            "service": service, "warm_row_b4": compositions, "cache": cache,
+            "trips": [s.breaker.trip_count for s in (sess1, sess4)],
+            "kernels_only": [s.breaker.kernels_only for s in (sess1, sess4)]}
+    print(json.dumps(line, default=str))
+    want_adv = {"fused_iter": STREAM_ITERS_PER_SEGMENT, "gru1632": STREAM_ITERS_PER_SEGMENT}
+    if launches["prepare_warm"] != ENC_KITTI or launches["prepare"] != ENC_KITTI \
+            or launches["advance"] != want_adv:
+        raise SystemExit(f"streams: captured launches {launches}")
+    if launches_b4["prepare_warm"] != {k: 4 * n for k, n in ENC_KITTI.items()} \
+            or launches_b4["advance"] != want_adv:
+        raise SystemExit(f"streams: captured launches at b=4 {launches_b4}")
+    if any(line["trips"]) or not all(line["kernels_only"]):
+        raise SystemExit(f"streams: breaker trips on a clean path: {line['trips']}")
+    del sess1, sess4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent.joinpath(*STREAMS_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pth = out_dir / "model.pth"
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, pth)
+    video = _demo_video(pth, frames)
+    print(json.dumps({"phase": "demo_video", "card": smi, **video}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) The fleet, its instances beside nothing else of this process's on
+    # the card but the model.
+    fleet = phase_fleet(model, frames, refs)
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "streams_seconds", "seconds": seconds,
+                      "fleet_seconds": fleet["seconds"]}))
+    return {"streams": line, "demo_video": video, "fleet": fleet, "seconds": seconds}
+
+
 def phase_cross_check() -> list:
     """The same seeded model at 128x256, 8 iterations, on the card and on
     the CPU (plain versions), with reg_cuda and with alt_cuda, and the
@@ -2730,6 +3449,7 @@ def main() -> int:
     phase_cross_check()
     phase_bench()
     phase_server(smi)
+    phase_streams(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

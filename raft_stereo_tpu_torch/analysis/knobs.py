@@ -66,4 +66,23 @@ HOST_ENV_KNOBS: Tuple[str, ...] = (
     "RAFT_HEAL_REFILL_MS",
     "RAFT_DECODE_MAX_PIXELS",  # decompression-bomb guard: cap on an image's
                             # header-declared pixels (data/frame_utils.py)
+    # Streams (serve/stream.py): the session table's size and expiry, and
+    # a tolerance compared on the host against the norm every advance
+    # program already returns; none reaches a program.
+    "RAFT_STREAM_SESSIONS",  # session-table global cap (default 128)
+    "RAFT_STREAM_TTL_MS",   # idle-session expiry, ms (default 60 s)
+    "RAFT_CONVERGE_TOL",    # convergence exit, px/iter at 1/8 res (0.01)
+    # The response cache (serve/cache.py): a host-side store; its keys
+    # hold the live program fingerprint, so a knob that does change
+    # programs invalidates its entries without being one of these.
+    "RAFT_CACHE_BYTES",     # host-RAM budget, bytes (0 = off; CLI 256 MiB)
+    "RAFT_CACHE_TTL_MS",    # entry TTL, ms (default 10 min)
+    "RAFT_CACHE_NEAR_TOL",  # near-tier signature threshold, gray levels
+    "RAFT_CACHE_DIR",       # disk spill of evicted exact-tier entries
+    # The fleet (serve/fleet.py): the supervisor's topology and pacing; an
+    # instance never reads them.
+    "RAFT_FLEET_INSTANCES",  # fleet width (default 2)
+    "RAFT_FLEET_RESTART_BUDGET",  # per-slot relaunches a generation (3)
+    "RAFT_FLEET_PROBE_MS",  # health-probe period, ms (<= 0: no prober)
+    "RAFT_FLEET_WARMUP_TIMEOUT_MS",  # readiness-handshake deadline, ms
 )

@@ -1,9 +1,9 @@
 """graftwire: hardened stdlib HTTP/1.1 ingress over ``StereoService``.
 
 The port's copy of the JAX package's ``serve/http.py``, every defense
-kept. ``X-Raft-Session`` and ``X-Raft-Converge-Tol`` ride into the request
-as in the JAX package, where the port's service ignores them until video
-streams are ported: such a frame is served cold.
+kept. ``X-Raft-Session`` makes consecutive POSTs one video stream (each
+frame warm-starts from the previous one, ``serve/stream.py``) and
+``X-Raft-Converge-Tol`` sets a frame's convergence tolerance.
 
 The wire protocol, with the same discipline as the rest of
 the serving stack — stdlib only (``http.server`` + ``threading``), no new

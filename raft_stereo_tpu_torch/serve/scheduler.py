@@ -35,9 +35,17 @@ capture in CUDA's global mode fails if another thread allocates or copies
 while it runs. The uploader's copies run on a side stream and record an
 event, which the tick's stream waits on before the pair is read.
 
-A warm start (``prepare_warm``) and the convergence exit come with the
-stream module, which is not ported; every row here starts cold and runs to
-``valid_iters`` or its deadline.
+**Warm joins and the convergence exit** (``serve/stream.py``,
+``serve/cache.py``): a row may carry a 1/8-res x-only seed (a stream's
+previous frame, or a near-tier cache neighbor). The uploader copies it
+beside the pair; cold and warm joiners then go to two batched programs,
+``prepare`` and ``prepare_warm`` (a cold row never reads a seed buffer),
+whose carries share the one ``advance`` from there on. After each
+``advance`` a row whose ``dnorm`` (fetched with the tick's results, no
+second synchronization) fell below its tolerance exits with
+``converged:k`` (``warm:cache:k`` for a near-tier seed). An exiting row's
+1/8-res flow rides its request back to the service for the stream deposit
+and the cache.
 
 The scheduler is single-threaded by design: all batch state is owned by
 the one thread calling :meth:`run_tick` (the service's scheduler thread,
@@ -82,7 +90,8 @@ class _Row:
 
     __slots__ = ("request", "padder", "orig_h", "orig_w", "deadline",
                  "iters_done", "t_start", "dev_pair", "dev_event", "upload_error",
-                 "uploaded", "tenant_label")
+                 "uploaded", "tenant_label", "flow_init", "dev_flow",
+                 "converge_tol", "converged", "cache_warm")
 
     def __init__(self, request, padder, deadline, t_start,
                  tenant_label: str = "default"):
@@ -101,6 +110,17 @@ class _Row:
         # resolved once at admission: every device call this row rides
         # attributes its exact share of device seconds here.
         self.tenant_label = tenant_label
+        # A warm frame carries its previous frame's padded low-res flow
+        # (stamped at admission; it stays ON the request dict, so a
+        # generation bounce re-admits the row still warm); the tolerance
+        # arms the convergence exit.
+        self.flow_init = request.get("_flow_init")
+        self.dev_flow = None
+        self.converge_tol = request.get("_converge_tol")
+        self.converged = False
+        # A near-tier seed rides the same warm machinery as a stream frame
+        # but is labeled ``warm:cache:k`` and counts in no stream metric.
+        self.cache_warm = bool(request.get("_cache_warm"))
 
     @property
     def trace(self):
@@ -156,14 +176,14 @@ def _upload(session: InferenceSession, stream, arrays) -> tuple:
 
 
 def _await_upload(row: "_Row") -> None:
-    """Order the tick's stream after the row's upload, and keep the
-    allocator from reusing its tensors' memory before the tick's work on
-    them has run. Called under ``device_ops``."""
+    """Order the tick's stream after the row's upload (the pair and any
+    seed), and keep the allocator from reusing their memory before the
+    tick's work on them has run. Called under ``device_ops``."""
     if row.dev_event is None:
         return
     current = torch.cuda.current_stream(row.dev_pair[0].device)
     current.wait_event(row.dev_event)
-    for t in row.dev_pair:
+    for t in row.dev_pair + ((row.dev_flow,) if row.dev_flow is not None else ()):
         t.record_stream(current)
     row.dev_event = None
 
@@ -248,7 +268,15 @@ class _Uploader:
                     if self._stream is None and session.device.type == "cuda":
                         with session.device_ops():
                             self._stream = torch.cuda.Stream(session.device)
-                    row.dev_pair, row.dev_event = _upload(session, self._stream, (lp, rp))
+                    arrays = (lp, rp)
+                    if row.flow_init is not None:
+                        # The warm seed, already at the padded low-res
+                        # bucket shape (only a matching field is handed
+                        # out), copied beside the pair.
+                        arrays += (np.asarray(row.flow_init, np.float32),)
+                    tensors, row.dev_event = _upload(session, self._stream, arrays)
+                    row.dev_pair = tensors[:2]
+                    row.dev_flow = tensors[2] if len(tensors) > 2 else None
                 except Exception as e:  # noqa: BLE001 — surfaced per-row
                     row.upload_error = e
                 row.trace.add_span("upload", t0, self._clock.now(),
@@ -284,7 +312,7 @@ class BatchScheduler:
     def __init__(self, session: InferenceSession, *,
                  resolve: Optional[Callable[[Dict, Dict], None]] = None,
                  retry: Optional[Callable[[Dict, Dict], bool]] = None,
-                 generation: int = 0):
+                 generation: int = 0, stream=None, cache=None):
         if session.cfg.max_batch < 2:
             raise ValueError("BatchScheduler needs SessionConfig.max_batch "
                              ">= 2; use the sequential worker path at 1")
@@ -306,6 +334,15 @@ class BatchScheduler:
         # re-admitted.
         self.retry = retry
         self.defunct = False
+        # The stream module's accounting hooks (serve/stream.py
+        # StreamManager): warm joins and convergence exits are counted
+        # where they happen, in this tick loop; tests driving the
+        # scheduler directly may leave it None.
+        self.stream = stream
+        # The response cache (serve/cache.py): exact hits never reach the
+        # scheduler; the couplings here are the cumulative hit column on
+        # each deck tick row and the deposit's low-res flow.
+        self.cache = cache
         self.uploader = _Uploader(session)
         self._buckets: Dict[Tuple[int, int], _Bucket] = {}
         self._rr: List[Tuple[int, int]] = []   # round-robin bucket order
@@ -397,6 +434,10 @@ class BatchScheduler:
             bucket=f"{bucket.key[0]}x{bucket.key[1]}",
             generation=self.generation,
             queue_depth=sum(len(b.pending) for b in self._bucket_list()))
+        if self.cache is not None:
+            # Cumulative hit count at tick start: two deck rows' difference
+            # is the hit rate over that window (obs/deck.py report).
+            tick.cache_hits = self.cache.hits_cumulative
         t0 = time.perf_counter()
         try:
             self._tick_bucket(bucket, tick)
@@ -467,36 +508,61 @@ class BatchScheduler:
             row.trace.mark("queue_wait")
             capacity -= 1
         if joiners:
-            bb = session.batch_bucket(len(joiners))
-            pad = bb - len(joiners)
-            with session.device_ops():
-                for r in joiners:
-                    _await_upload(r)
-                lefts = [r.dev_pair[0] for r in joiners]
-                rights = [r.dev_pair[1] for r in joiners]
-                lb = torch.cat(lefts + [lefts[0]] * pad, dim=0)
-                rb = torch.cat(rights + [rights[0]] * pad, dim=0)
-            p0 = clock.now()
-            # Rider binding (obs/usage.py): the joiners' tenant labels
-            # ride this device call, and invoke splits its device seconds
-            # across them.
-            with session.usage_riders([r.tenant_label for r in joiners]):
-                (state_j,) = self._device_call(
-                    "prepare", ph, pw, 0, bb, lb, rb,
-                    traces=[r.trace for r in joiners])
-            if self.defunct:
-                return  # retired mid-prepare: harvest() took the
-                #         joining rows; this result is discarded.
-            p1 = clock.now()
-            # The program id joins this span to its ledger row; the tick
-            # seq links it to the flight-deck record.
-            prep_id = session.ledger_key_id("prepare", ph, pw, 0, b=bb)
-            for r in joiners:  # one device interval, fanned per rider
-                r.trace.add_span("prepare", p0, p1, batch=len(joiners),
-                                 program=prep_id, tick=tick.seq)
-            with session.device_ops():
+            # Warm joiners (a held seed rode in with the request) go
+            # through prepare_warm, cold ones through prepare: two calls at
+            # most, and a cold row never reads a seed buffer. The carries
+            # then share ONE advance (the x-only seed keeps flow y == 0).
+            cold = [r for r in joiners if r.flow_init is None]
+            warm = [r for r in joiners if r.flow_init is not None]
+            # The published join group follows the carry order below (same
+            # membership, so a harvest still finds every row).
+            joiners[:] = cold + warm
+            states = []
+            for kind, group in (("prepare", cold), ("prepare_warm", warm)):
+                if not group:
+                    continue
+                bb = session.batch_bucket(len(group))
+                pad = bb - len(group)
+                with session.device_ops():
+                    for r in group:
+                        _await_upload(r)
+                    lefts = [r.dev_pair[0] for r in group]
+                    rights = [r.dev_pair[1] for r in group]
+                    args = (torch.cat(lefts + [lefts[0]] * pad, dim=0),
+                            torch.cat(rights + [rights[0]] * pad, dim=0))
+                    if kind == "prepare_warm":
+                        # The seeds stacked, pad rows replicating row 0.
+                        flows = [r.dev_flow for r in group]
+                        args += (torch.cat(flows + [flows[0]] * pad, dim=0),)
+                p0 = clock.now()
+                # Rider binding (obs/usage.py): the group's tenant labels
+                # ride this device call, and invoke splits its device
+                # seconds across them.
+                with session.usage_riders([r.tenant_label for r in group]):
+                    (state_g,) = self._device_call(
+                        kind, ph, pw, 0, bb, *args, traces=[r.trace for r in group])
+                if self.defunct:
+                    return  # retired mid-prepare: harvest() took the
+                    #         joining rows; this result is discarded.
+                p1 = clock.now()
+                # The program id joins this span to its ledger row; the
+                # tick seq links it to the flight-deck record.
+                prep_id = session.ledger_key_id(kind, ph, pw, 0, b=bb)
+                for r in group:  # one device interval, fanned per rider
+                    r.trace.add_span(kind, p0, p1, batch=len(group),
+                                     program=prep_id, tick=tick.seq)
                 if pad:
-                    state_j = take_refinement_rows(state_j, range(len(joiners)))
+                    with session.device_ops():
+                        state_g = take_refinement_rows(state_g, range(len(group)))
+                states.append(state_g)
+            if self.stream is not None:
+                for r in warm:
+                    # A near-tier seed is no stream frame: its hit was
+                    # counted by ResponseCache.admit.
+                    if not r.cache_warm:
+                        self.stream.note_warm_join(r.tenant_label)
+            with session.device_ops():
+                state_j = stack_refinement_states(states)
                 if bucket.carry is None:
                     bucket.carry = state_j
                 else:
@@ -506,10 +572,12 @@ class BatchScheduler:
                                                  range(len(bucket.rows))))
                     bucket.carry = stack_refinement_states([live, state_j])
                 for r in joiners:
-                    r.dev_pair = None  # the carry holds what the row needs
+                    # The carry holds what the row needs.
+                    r.dev_pair = r.dev_flow = None
             bucket.rows.extend(joiners)
             self._m_joins.inc(len(joiners))
             tick.joins = len(joiners)
+            tick.warm_joins = len(warm)
         bucket.joining = []
 
         # Local binding for the rest of the tick: a concurrent generation
@@ -535,7 +603,7 @@ class BatchScheduler:
         adv_key = session.cache_key("advance", ph, pw, m_iters, b=bb)
         a0 = clock.now()
         with session.usage_riders([r.tenant_label for r in rows]):
-            state, _rowsum, _dnorm = self._device_call(
+            state, _rowsum, dnorm = self._device_call(
                 "advance", ph, pw, m_iters, bb, bucket.carry,
                 traces=[r.trace for r in rows])
         if self.defunct:
@@ -562,16 +630,32 @@ class BatchScheduler:
         self._m_batch_rows.inc(bb)
         self._m_pad_rows.inc(bb - n)
 
-        # 3. Exits: finished rows, plus rows whose deadline cannot absorb
-        # another batched segment (per-row anytime degradation — the
-        # first segment always runs because this check only happens
-        # after one).
+        # 3. Exits: finished rows, rows whose convergence norm fell below
+        # their tolerance (the per-row dnorm came back with the advance's
+        # outputs, so the check costs no synchronization), plus rows whose
+        # deadline cannot absorb another batched segment (per-row anytime
+        # degradation — the first segment always runs because this check
+        # only happens after one).
         now = clock.now()
         est = session.estimate(adv_key)
         exits: List[int] = []
+        n_converged = 0
         for i, row in enumerate(rows):
             if row.iters_done >= session.cfg.valid_iters:
                 exits.append(i)
+            elif row.converge_tol is not None and float(dnorm[i]) < row.converge_tol:
+                # Honest label: converged:k, or warm:cache:k for a
+                # near-tier seed, k the iterations this row ran.
+                row.converged = True
+                row.trace.event(
+                    "converged",
+                    label=(f"warm:cache:{row.iters_done}" if row.cache_warm
+                           else f"converged:{row.iters_done}"),
+                    norm=float(dnorm[i]), tol=row.converge_tol)
+                exits.append(i)
+                n_converged += 1
+                if self.stream is not None and not row.cache_warm:
+                    self.stream.note_converged(row.tenant_label)
             elif row.deadline is not None and (
                     now >= row.deadline
                     or (est is not None
@@ -589,7 +673,7 @@ class BatchScheduler:
                 bucket.carry, exits + [exits[0]] * (eb - len(exits)))
         e0 = clock.now()
         with session.usage_riders([rows[i].tenant_label for i in exits]):
-            flow_up, _flow_low = self._device_call(
+            flow_up, flow_low = self._device_call(
                 "epilogue", ph, pw, 0, eb, ex_state,
                 traces=[rows[i].trace for i in exits])
         if self.defunct:
@@ -602,9 +686,22 @@ class BatchScheduler:
                                    program=epi_id, tick=tick.seq)
         now = clock.now()
         for j, i in enumerate(exits):
+            request = rows[i].request
+            if request.get("_stream") is not None:
+                # The exiting row's 1/8-res flow seeds the stream's next
+                # frame: it rides the request so the service deposits it
+                # BEFORE the caller's Future resolves.
+                request["_stream_flow"] = np.array(flow_low[j:j + 1], dtype=np.float32)
+                request["_stream_shape"] = bucket.key
+            if self.cache is not None and self.cache.wants_flow:
+                # With the near tier armed every exit carries its flow for
+                # the cache's deposit; a disabled tier copies nothing.
+                request["_cache_flow"] = np.array(flow_low[j:j + 1], dtype=np.float32)
+                request["_cache_shape"] = bucket.key
             self._finish(rows[i], flow_up[j:j + 1], now)
         self._m_exits.inc(len(exits))
         tick.exits = len(exits)
+        tick.converged = n_converged
         if self.defunct:
             return  # never write stale rows back over a harvested bucket
         survivors = [i for i in range(n) if i not in set(exits)]
@@ -670,6 +767,10 @@ class BatchScheduler:
             flow = row.padder.unpad_np(flow_padded)[0, ..., 0]
         if row.iters_done >= session.cfg.valid_iters:
             quality = "full"
+        elif row.converged:
+            # k is the iterations this row ran; a near-tier seed says so.
+            quality = (f"warm:cache:{row.iters_done}" if row.cache_warm
+                       else f"converged:{row.iters_done}")
         else:
             quality = f"reduced_iters:{row.iters_done}"
         if flow.shape != (row.orig_h, row.orig_w):

@@ -2,13 +2,14 @@
 
 The port's counterpart of the JAX package's ``serve/service.py``: the same
 queue, admission, deadlines, responses, counters, supervision and /healthz
-document. The JAX service's video streams (``serve/stream.py``) and
-response cache (``serve/cache.py``) are not ported yet: their knobs
-(``stream_sessions``, ``stream_ttl_ms``, ``converge_tol``, ``cache_bytes``,
-``cache_ttl_ms``, ``cache_near_tol``, ``cache_dir``) raise
-``NotImplementedError`` when set, and a request's ``stream`` or
-``converge_tol`` field is ignored: the frame is served cold, to
-``valid_iters`` or its deadline, with its honest label.
+document, with the video streams (``serve/stream.py``: a request's
+``stream`` id warm-starts it from its previous frame, ``converge_tol`` arms
+the convergence exit) and the response cache (``serve/cache.py``: an exact
+repeat is answered before admission with no device work, a near repeat is
+seeded from its neighbor). Stream members take the segmented path:
+``stream_infer`` on the workers, the scheduler's warm rows in batched
+mode. The stream deposit and the cache deposit happen before a request's
+Future resolves.
 
 Queueing discipline for a latency-bound model server, with nothing but
 ``threading`` + ``queue``:
@@ -123,31 +124,39 @@ class ServiceConfig:
     # positive watchdog floor only). check_now() remains drivable by
     # hand either way.
     supervise: bool = True
-    # The JAX service's stream (serve/stream.py) and response-cache
-    # (serve/cache.py) knobs. Not ported yet (ROADMAP Queue A 5, the next
-    # slice: stream, cache and demo --video): None, or 0 for the ones
-    # whose 0 disables, is accepted; any other value raises.
+    # Streams (serve/stream.py). All three resolve at construction:
+    # explicit value > env knob > default — host-side session-table sizing
+    # and a host-side norm comparison, never part of any program
+    # fingerprint (analysis/knobs.py HOST_ENV_KNOBS).
+    #
+    # stream_sessions: global bound on live stream sessions (LRU).
+    # None -> RAFT_STREAM_SESSIONS -> 128.
     stream_sessions: Optional[int] = None
+    # stream_ttl_ms: idle-session expiry on the session clock.
+    # None -> RAFT_STREAM_TTL_MS -> 60 s.
     stream_ttl_ms: Optional[float] = None
+    # converge_tol: default convergence tolerance stamped on warm frames
+    # (px/iter segment-mean |delta_x| at 1/8 res; 0 disables).
+    # None -> RAFT_CONVERGE_TOL -> 0.01.
     converge_tol: Optional[float] = None
+    # The response cache (serve/cache.py). All four resolve at
+    # construction: explicit value > env knob > default — a host-side
+    # store, never part of any program fingerprint (the fingerprint is
+    # folded INTO every cache key instead).
+    #
+    # cache_bytes: host-RAM budget of the cache. None -> RAFT_CACHE_BYTES
+    # -> 0 = disabled (the library default; the serving CLI defaults it
+    # on at 256 MiB).
     cache_bytes: Optional[int] = None
+    # cache_ttl_ms: entry expiry on the session clock.
+    # None -> RAFT_CACHE_TTL_MS -> 10 min.
     cache_ttl_ms: Optional[float] = None
+    # cache_near_tol: near-tier block-mean signature threshold (gray
+    # levels; 0 = near tier off). None -> RAFT_CACHE_NEAR_TOL -> 0.
     cache_near_tol: Optional[float] = None
+    # cache_dir: optional disk spill for evicted exact-tier entries.
+    # None -> RAFT_CACHE_DIR -> RAM only.
     cache_dir: Optional[str] = None
-
-    def __post_init__(self):
-        set_knobs = [name for name in _UNPORTED_KNOBS
-                     if getattr(self, name) not in (None, 0)]
-        if set_knobs:
-            raise NotImplementedError(
-                f"{', '.join(set_knobs)}: video streams and the response cache are "
-                "not ported yet (ROADMAP Queue A 5, the next slice: stream, cache "
-                "and demo --video)")
-
-
-#: ServiceConfig fields of the modules not ported yet.
-_UNPORTED_KNOBS = ("stream_sessions", "stream_ttl_ms", "converge_tol", "cache_bytes",
-                   "cache_ttl_ms", "cache_near_tol", "cache_dir")
 
 
 def _reject(code: str, message: str) -> Dict:
@@ -225,6 +234,26 @@ class StereoService:
         # queue.
         self._batched = session.cfg.max_batch > 1
         self._scheduler = None
+        # The bounded stream-session table and its warm-start and
+        # convergence stamping (serve/stream.py): always constructed (no
+        # session when no client streams); the serving paths count warm
+        # joins and converged exits through it, and the response hooks
+        # deposit each served frame's low-res flow BEFORE the Future
+        # resolves.
+        from raft_stereo_tpu_torch.serve.stream import StreamManager
+        self.stream = StreamManager(
+            session, max_sessions=self.cfg.stream_sessions,
+            ttl_ms=self.cfg.stream_ttl_ms, converge_tol=self.cfg.converge_tol)
+        # The two-tier response cache (serve/cache.py): always constructed
+        # (no state when disabled); admission consults it after
+        # validation, response resolution deposits into it BEFORE the
+        # Future resolves. The stream's tolerance is its warm-exit default,
+        # so both warm-start flavors exit by one rule.
+        from raft_stereo_tpu_torch.serve.cache import ResponseCache
+        self.cache = ResponseCache(
+            session, max_bytes=self.cfg.cache_bytes, ttl_ms=self.cfg.cache_ttl_ms,
+            near_tol=self.cfg.cache_near_tol, cache_dir=self.cfg.cache_dir,
+            default_converge_tol=self.stream.converge_tol)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -267,7 +296,8 @@ class StereoService:
                 self._scheduler = BatchScheduler(
                     self.session, resolve=self._resolve_scheduled,
                     retry=self._retry_scheduled,
-                    generation=self._generation)
+                    generation=self._generation, stream=self.stream,
+                    cache=self.cache)
                 self._heartbeat = Heartbeat("scheduler", self.session.clock)
                 sched, hb = self._scheduler, self._heartbeat
                 # Spawn + publish INSIDE the lock — the same invariant
@@ -341,6 +371,17 @@ class StereoService:
         for t in self._zombies:
             t.join(timeout=max(0.0, deadline - _time.monotonic()))
         self._zombies = [t for t in self._zombies if t.is_alive()]
+        # Stream sessions die with the service: a restart serves cold first
+        # frames, a held flow never outlives the generation that made it.
+        dropped = self.stream.drop_all()
+        if dropped:
+            logger.info("dropped %d stream session(s) on stop", dropped)
+        # So do the cache's RAM entries (the RAFT_CACHE_DIR spill persists
+        # on purpose; its keys hold the fingerprint, so a restart under
+        # another configuration cannot read them).
+        dropped = self.cache.drop_all()
+        if dropped:
+            logger.info("dropped %d cached response(s) on stop", dropped)
 
     # -- graceful drain (graftguard, DESIGN.md r13) ------------------------
 
@@ -528,10 +569,35 @@ class StereoService:
         request["_deadline"] = (
             None if deadline_ms is None
             else self.session.clock.now() + deadline_ms / 1e3)
+        # Resolve the stream session (if any) and stamp the warm seed and
+        # the tolerance onto the request dict, where a generation bounce's
+        # re-admission finds them (a bounced stream frame stays warm).
+        self.stream.admit(request)
         trace.mark("admission", h=int(request["left"].shape[1]),
                    w=int(request["left"].shape[2]),
-                   deadline_ms=deadline_ms, warm=False)
+                   deadline_ms=deadline_ms,
+                   warm=request.get("_flow_init") is not None)
         return None
+
+    def _serve_cache_hit(self, request: Dict, resp: Dict) -> Dict:
+        """Finalize one exact-tier cache hit: the stream deposit first (the
+        entry's held low-res flow keeps a stream warm across a hit), then
+        the resolution tail (id, counters, trace). No invoke, no tick, no
+        program counter, no usage nanosecond moves."""
+        flow = request.pop("_cache_stream_flow", None)
+        if flow is not None:
+            request["_stream_flow"] = flow
+            request["_stream_shape"] = request.pop("_cache_stream_shape", None)
+        self.stream.deposit(request, resp)
+        if request.get("id") is not None:
+            resp["id"] = request["id"]
+        # A label other than full counts in `degraded` (cache:exact is the
+        # full-quality answer; the counter's rule is mechanical).
+        if resp.get("quality") != "full":
+            self._count("degraded")
+        self._count_outcome(request, "ok")
+        self._finish_trace(request, resp)
+        return resp
 
     def _respond_once(self, request: Dict) -> Dict:
         """One serving attempt, synchronously, never raising — no
@@ -551,12 +617,51 @@ class StereoService:
                 # exactly one request's device calls — bind its label so
                 # invoke attributes the whole steady device time to it.
                 label = self._tenant_label(request)
+                # A stream member takes the segmented path: a cold first
+                # frame must still deposit its low-res flow, or the stream
+                # never warms (bit for bit the full program when no early
+                # exit fires). That path has no half-resolution rung (a
+                # held seed is keyed to the full-resolution bucket): a
+                # deadline that cannot absorb one segment resolves
+                # reduced_iters with deadline_missed. With the near tier
+                # armed every request runs it, so its flow reaches the
+                # cache.
+                streaming = (request.get("_stream") is not None
+                             or request.get("_flow_init") is not None
+                             or request.get("_converge_tol") is not None
+                             or self.cache.wants_flow)
+                cache_warm = bool(request.get("_cache_warm"))
                 with self.session.usage_riders([label]):
-                    result = self.session.infer(
-                        request["left"], request["right"],
-                        deadline=deadline,
-                        allow_half_res=request.get("allow_half_res"),
-                        prevalidated=True, trace=trace)
+                    if streaming:
+                        from raft_stereo_tpu_torch.serve.stream import stream_infer
+                        out = stream_infer(
+                            self.session, request["left"], request["right"],
+                            flow_init=request.get("_flow_init"),
+                            converge_tol=request.get("_converge_tol"),
+                            deadline=deadline, prevalidated=True, trace=trace)
+                        result = out.result
+                        if out.warm and not cache_warm:
+                            # Counted where the warm prepare ran; a
+                            # near-tier seed was counted by the cache.
+                            self.stream.note_warm_join(label)
+                        if request.get("_stream") is not None:
+                            request["_stream_flow"] = out.flow_low
+                            request["_stream_shape"] = out.padded_shape
+                        # Every computed response carries its low-res flow
+                        # for the cache deposit (the near tier's seed).
+                        request["_cache_flow"] = out.flow_low
+                        request["_cache_shape"] = out.padded_shape
+                        if result.quality.startswith("converged:"):
+                            if cache_warm:
+                                result.quality = f"warm:cache:{result.iters}"
+                            else:
+                                self.stream.note_converged(label)
+                    else:
+                        result = self.session.infer(
+                            request["left"], request["right"],
+                            deadline=deadline,
+                            allow_half_res=request.get("allow_half_res"),
+                            prevalidated=True, trace=trace)
                 self._latency.observe(self.session.clock.now() - t0)
                 resp = {
                     "status": "ok",
@@ -590,6 +695,12 @@ class StereoService:
     def _finalize(self, request: Dict, resp: Dict) -> Dict:
         """Count, stamp retries, finish the trace, flight-record — the
         single resolution tail every sequential response goes through."""
+        # Deposit the served frame's seed FIRST: a client that receives
+        # this response and sends the next frame at once must find the
+        # session warm; and one that resubmits the identical frame must
+        # find the cache primed.
+        self.stream.deposit(request, resp)
+        self.cache.deposit(request, resp)
         if request.get("id") is not None:
             resp["id"] = request["id"]
         retries = request.get("_retries", 0)
@@ -760,6 +871,9 @@ class StereoService:
             self._count_outcome(request, f'rejected:{rejection["code"]}')
             self._finish_trace(request, rejection)
             return rejection
+        hit = self.cache.admit(request)
+        if hit is not None:
+            return self._serve_cache_hit(request, hit)
         return self._respond(request)
 
     def submit(self, request: Dict) -> Future:
@@ -777,6 +891,19 @@ class StereoService:
             rejection = self._draining_rejection()
         else:
             rejection = self._admit(request)
+        if rejection is None:
+            with self._lock:
+                live = self._started
+            # An exact cache hit resolves the Future here: it never takes
+            # a queue slot, never joins a batch, never counts toward
+            # _outstanding. Only while the service runs: a stopped
+            # service with a warm RAFT_CACHE_DIR answers not_running (the
+            # started re-check under the enqueue lock stays
+            # authoritative).
+            hit = self.cache.admit(request) if live else None
+            if hit is not None:
+                fut.set_result(self._serve_cache_hit(request, hit))
+                return fut
         if rejection is None:
             # started-check + enqueue under the lifecycle lock: stop()
             # flips _started under the same lock before draining, so a
@@ -833,6 +960,11 @@ class StereoService:
         if not self._claim(request):
             return  # another generation resolved this request first
         self._mark_resolved()
+        # Deposit BEFORE the Future resolves: a woken caller posting its
+        # next frame must find the session warm, and one resubmitting the
+        # identical frame must find the cache primed.
+        self.stream.deposit(request, resp)
+        self.cache.deposit(request, resp)
         retries = request.get("_retries", 0)
         if retries and "retries" not in resp:
             resp["retries"] = retries
@@ -1003,7 +1135,8 @@ class StereoService:
             from raft_stereo_tpu_torch.serve.scheduler import BatchScheduler
             self._scheduler = BatchScheduler(
                 self.session, resolve=self._resolve_scheduled,
-                retry=self._retry_scheduled, generation=gen)
+                retry=self._retry_scheduled, generation=gen,
+                stream=self.stream, cache=self.cache)
             self._heartbeat = Heartbeat("scheduler", self.session.clock)
             sched, hb = self._scheduler, self._heartbeat
             # Spawn + publish the new generation's thread INSIDE the
@@ -1088,12 +1221,11 @@ class StereoService:
 
     def heal_sweep(self) -> Dict:
         """One recovery-plane sweep: at most one half-open breaker-rung
-        canary (strict reverse trip order). The JAX sweep's chip probes and
-        stream re-placement have nothing to do on one card without
-        streams. Not wired into the Supervisor's monitor thread: detection
-        and recovery run on different triggers; the CLI's wait loop drives
-        it, tests call it on the FakeClock. With ``RAFT_HEAL=0`` it does
-        nothing."""
+        canary (strict reverse trip order). The JAX sweep's chip probes
+        and stream re-placement have nothing to do on one card. Not wired
+        into the Supervisor's monitor thread: detection and recovery run
+        on different triggers; the CLI's wait loop drives it, tests call
+        it on the FakeClock. With ``RAFT_HEAL=0`` it does nothing."""
         return {"breaker": self.session.heal_breaker()}
 
     def supervision_status(self) -> Dict:
@@ -1165,6 +1297,12 @@ class StereoService:
                            "n": self._latency.n},
             "batching": (self._scheduler.status()
                          if self._scheduler is not None else None),
+            # The bounded stream-session table and its warm and converged
+            # counters (serve/stream.py).
+            "stream": self.stream.status(),
+            # The response cache: hit, miss and near counters, bytes, the
+            # tier config (serve/cache.py).
+            "cache": self.cache.status(),
             "supervision": self.supervision_status(),
             # graftheal: the recovery plane — per-rung/per-chip
             # probation state, flap caps, MTTR (serve/heal.py knobs;

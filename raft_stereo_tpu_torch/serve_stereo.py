@@ -13,12 +13,14 @@ unless ``--device cpu``.
 Model construction differs from the root CLI: ``--restore_ckpt`` takes a
 reference ``.pth`` (``transplant.load_pth``); a native ``.msgpack`` raises
 (it comes with training, ROADMAP Queue A 7); no checkpoint means random
-weights from seed 0 (``init_raft_stereo(cfg, seed=0)``). Flags of modules
-not ported yet raise before the model loads: ``--mesh_data`` above 1 (ROADMAP
-Queue A 6), and the stream and cache flags (``--stream_sessions``,
-``--stream_ttl_ms``, ``--converge_tol``, ``--cache_bytes``,
-``--cache_near_tol``; Queue A 5's next slice). The root CLI defaults its
-response cache on; this one has none.
+weights from seed 0 (``init_raft_stereo(cfg, seed=0)``). ``--mesh_data``
+above 1 (pod serving, not ported) raises before the model loads. Video
+streams (``X-Raft-Session``, ``--stream_sessions``, ``--stream_ttl_ms``,
+``--converge_tol``) and the response cache (``--cache_bytes``, on at 256 MiB
+as in the root CLI; ``--cache_near_tol``) behave as the root CLI's;
+``RAFT_CACHE_DIR`` and ``RAFT_CACHE_TTL_MS`` come from the environment,
+which is how the fleet (``python -m raft_stereo_tpu_torch.fleet_stereo``)
+hands its ``--cache_dir`` to each instance.
 
 Examples::
 
@@ -162,7 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "segment-boundary exits within this window, "
                         "then the rest resolve service_stopped (default "
                         "RAFT_DRAIN_GRACE_MS or 10s)")
-    # graftstream: streaming video stereo (DESIGN.md r17)
+    # Video streams (serve/stream.py).
     parser.add_argument('--stream_sessions', type=int, default=None,
                         help="global bound on live stream sessions "
                         "(X-Raft-Session warm-start table; default "
@@ -175,9 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "on warm frames: segment-mean per-iteration "
                         "|delta_x| at 1/8 res, px (0 disables; default "
                         "RAFT_CONVERGE_TOL or 0.01)")
-    # graftrecall: content-addressed response cache (DESIGN.md r18).
-    # The CLI defaults the cache ON (the library default is off so test
-    # rigs and embedders opt in — the watchdog precedent).
+    # The response cache (serve/cache.py). The CLI defaults it ON (the
+    # library default is off so test rigs and embedders opt in, as with
+    # the watchdog).
     parser.add_argument('--cache_bytes', type=int, default=None,
                         help="host-RAM budget for the two-tier response "
                         "cache: exact hits (sha256 of the padded pair + "
@@ -238,13 +240,20 @@ def _check_ported(args) -> None:
     if args.mesh_data is not None and args.mesh_data > 1:
         raise SystemExit(f"--mesh_data {args.mesh_data}: pod serving is not ported "
                          "(ROADMAP Queue A 6: one process per GPU)")
-    unported = [f"--{name}" for name in ("stream_sessions", "stream_ttl_ms", "converge_tol",
-                                         "cache_bytes", "cache_near_tol")
-                if getattr(args, name) not in (None, 0)]
-    if unported:
-        raise SystemExit(f"{', '.join(unported)}: video streams and the response cache "
-                         "are not ported yet (ROADMAP Queue A 5, the next slice: "
-                         "stream, cache and demo --video)")
+
+
+def _cli_cache_bytes(args) -> int:
+    """The CLI's response-cache budget, ON at 256 MiB: the --cache_bytes
+    flag (0 disables) > RAFT_CACHE_BYTES (an explicit 0 there disables
+    too) > 256 MiB. The library's ServiceConfig default stays off."""
+    import os
+
+    from raft_stereo_tpu_torch.serve.cache import DEFAULT_CACHE_BYTES, resolve_cache_bytes
+    if args.cache_bytes is not None:
+        return args.cache_bytes
+    if os.environ.get("RAFT_CACHE_BYTES", "").strip():
+        return resolve_cache_bytes(None)
+    return DEFAULT_CACHE_BYTES
 
 
 def _parse_warmup(spec):
@@ -363,7 +372,12 @@ def serve(args) -> int:
         max_queue=args.max_queue, workers=args.workers,
         tick_ms=args.tick_ms, slo_ms=args.slo_ms,
         watchdog_ms=args.watchdog_ms, retry_budget=args.retry_budget,
-        drain_grace_ms=args.drain_grace_ms))
+        drain_grace_ms=args.drain_grace_ms,
+        stream_sessions=args.stream_sessions,
+        stream_ttl_ms=args.stream_ttl_ms,
+        converge_tol=args.converge_tol,
+        cache_bytes=_cli_cache_bytes(args),
+        cache_near_tol=args.cache_near_tol))
 
     # Graceful drain on SIGTERM/SIGINT: the handler
     # only sets a flag (async-signal-safe); the submit loop below flips

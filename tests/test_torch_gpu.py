@@ -1459,3 +1459,111 @@ def test_gpu_scheduler_uploads_beside_first_captures(cuda):
             assert np.array_equal(dev.cpu().numpy(), h)
     sched_b.shutdown()
     sched_a.shutdown()
+
+
+@pytest.mark.gpu
+def test_gpu_prepare_warm_graph_equals_eager(cuda):
+    """The prepare_warm program as a CUDA graph at 100x230: its carry is the
+    eager prepare_warm's bit for bit, a replay with another seed is too,
+    and it captured the cold prepare's encoder launches (the seed only
+    moves coords1)."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import InferenceSession, SessionConfig
+    from raft_stereo_tpu_torch.serve.session import build_program
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg, SessionConfig(valid_iters=4, segments=2),
+                            device=cuda)
+    padder, lp, rp = _padded_batch(sess, _host_pairs([(100, 230)], seed=16))
+    ph, pw = padder.padded_shape
+    f = model.cfg.downsample_factor
+    rng = np.random.default_rng(17)
+    cold = sess.invoke(sess.get_program("prepare", ph, pw, 0), lp, rp)
+    warm = sess.get_program("prepare_warm", ph, pw, 0)
+    for _ in range(2):
+        seed = rng.uniform(-3, 3, (1, ph // f, pw // f, 1)).astype(np.float32)
+        (state,) = sess.invoke(warm, lp, rp, seed)
+        with torch.no_grad():
+            (eager,) = build_program("prepare_warm", model, 0)(
+                torch.from_numpy(lp).to(cuda), torch.from_numpy(rp).to(cuda),
+                torch.from_numpy(seed).to(cuda))
+        assert _same_carry(state, eager)
+    assert sess.program_launches("prepare_warm", ph, pw, 0) == \
+        sess.program_launches("prepare", ph, pw, 0)
+    assert cold is not None and sess.breaker.trip_count == 0
+
+
+@pytest.mark.gpu
+def test_gpu_warm_row_same_bits_in_two_batch_compositions(cuda):
+    """A warm row (a seeded prepare_warm join) at batch bucket 4 beside two
+    and beside three cold rows: its disparity has the same bits in both
+    batches, and differs from the cold rows' (it did warm-start)."""
+    import time
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch.serve import BatchScheduler, InferenceSession, SessionConfig
+    from raft_stereo_tpu_torch.serve.validate import AdmissionConfig, validate_pair
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg,
+                            SessionConfig(valid_iters=4, segments=2, max_batch=4), device=cuda)
+    (pair,) = _host_pairs([(100, 230)], seed=18)
+    left, right = validate_pair(pair[0], pair[1], AdmissionConfig())
+    ph, pw = sess.padder_for(left.shape).padded_shape
+    f = model.cfg.downsample_factor
+    seed = np.random.default_rng(19).uniform(-2, 2, (1, ph // f, pw // f, 1)).astype(
+        np.float32)
+
+    def run(n_cold):
+        out = {}
+        sched = BatchScheduler(sess, resolve=lambda rq, rs: out.__setitem__(rq["id"], rs))
+        sched.submit({"id": "w", "left": left, "right": right, "_flow_init": seed.copy()})
+        for i in range(n_cold):
+            sched.submit({"id": f"c{i}", "left": left, "right": right})
+        for bucket in sched._buckets.values():
+            for row in list(bucket.pending):
+                assert row.uploaded.wait(timeout=60)
+        spins = 0
+        while len(out) < n_cold + 1:
+            if not sched.run_tick():
+                time.sleep(0.002)
+            spins += 1
+            assert spins < 2000
+        sched.shutdown()
+        return out
+
+    a, b = run(2), run(3)
+    assert a["w"]["status"] == b["w"]["status"] == "ok"
+    assert a["w"]["disparity"].tobytes() == b["w"]["disparity"].tobytes()
+    assert a["w"]["disparity"].tobytes() != a["c0"]["disparity"].tobytes()
+    # The warm row's prepare_warm ran at b=1, the two cold rows' prepare at
+    # b=2: the same encoder launches a row.
+    warm1 = sess.program_launches("prepare_warm", ph, pw, 0)
+    assert warm1 and {k: 2 * n for k, n in warm1.items()} == \
+        sess.program_launches("prepare", ph, pw, 0, b=2)
+    assert sess.breaker.trip_count == 0
+
+
+@pytest.mark.gpu
+def test_gpu_exact_cache_hit_counts_no_program_call(cuda):
+    """An exact repeat on the card comes back cache:exact, bit for bit the
+    computed response, with no program call and no kernel launch."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.serve import (InferenceSession, ServiceConfig, SessionConfig,
+                                             StereoService)
+    model = _session_model(cuda)
+    sess = InferenceSession(model, model.cfg, SessionConfig(valid_iters=4, segments=2),
+                            device=cuda)
+    svc = StereoService(sess, ServiceConfig(cache_bytes=64 << 20))
+    (pair,) = _host_pairs([(100, 230)], seed=20)
+    cold = svc.handle({"id": "cold", "left": pair[0], "right": pair[1]})
+    calls = sum(v for _, v in sess.registry.series("raft_program_calls_total"))
+    device = sum(v for _, v in sess.registry.series("raft_program_device_seconds_total"))
+    launches = dict(kernels.launches)
+    hit = svc.handle({"id": "hit", "left": pair[0], "right": pair[1]})
+    assert cold["quality"] == "full" and hit["quality"] == "cache:exact"
+    assert hit["disparity"].tobytes() == cold["disparity"].tobytes()
+    assert sum(v for _, v in sess.registry.series("raft_program_calls_total")) == calls
+    assert sum(v for _, v in sess.registry.series(
+        "raft_program_device_seconds_total")) == device
+    assert dict(kernels.launches) == launches

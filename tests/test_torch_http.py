@@ -1217,12 +1217,62 @@ def test_cli_unported_flags_raise_before_the_model_loads():
     ROADMAP item."""
     from raft_stereo_tpu_torch.serve_stereo import build_parser, serve
     for argv, item in ((["--mesh_data", "2"], "Queue A 6"),
-                       (["--stream_sessions", "4"], "Queue A 5"),
-                       (["--cache_bytes", "1024"], "Queue A 5"),
-                       (["--converge_tol", "0.1"], "Queue A 5"),
                        (["--restore_ckpt", "w.msgpack"], "Queue A 7")):
         args = build_parser().parse_args(["--http_port", "0", *argv])
         t0 = time.monotonic()
         with pytest.raises(SystemExit, match=item):
             serve(args)
         assert time.monotonic() - t0 < 1.0
+
+
+def test_cli_serves_with_the_stream_and_cache_flags(tmp_path, monkeypatch, capsys):
+    """The stream and cache flags serve (batch mode, in process): a pair
+    glob whose second pair repeats the first comes back cache:exact and
+    bit for bit, and the final /healthz document carries the configured
+    stream table and cache, its disk spill from RAFT_CACHE_DIR."""
+    from raft_stereo_tpu_torch.serve_stereo import build_parser, serve
+    spill = tmp_path / "spill"
+    monkeypatch.setenv("RAFT_CACHE_DIR", str(spill))
+    left, right = png_pair(seed=3)
+    for i in (0, 1):
+        d = tmp_path / f"s{i}"
+        d.mkdir()
+        (d / "im0.png").write_bytes(wire.encode_image_png(left))
+        (d / "im1.png").write_bytes(wire.encode_image_png(right))
+    args = build_parser().parse_args([
+        "--device", "cpu", "--no_canary", "--valid_iters", "2", "--segments", "2",
+        "--n_gru_layers", "1", "--hidden_dims", "32", "32", "32", "--corr_levels", "2",
+        "--corr_radius", "2", "--corr_implementation", "reg", "--max_queue", "1",
+        "--watchdog_ms", "0", "--stream_sessions", "4", "--stream_ttl_ms", "5000",
+        "--converge_tol", "0.5", "--cache_bytes", str(1 << 20), "--cache_near_tol", "2",
+        "-l", str(tmp_path / "s*" / "im0.png"), "-r", str(tmp_path / "s*" / "im1.png")])
+    assert serve(args) == 0
+    lines = capsys.readouterr().out.splitlines()
+    # One JSON line a response, then the final /healthz document, indented.
+    start = len(lines) - 1 - lines[::-1].index("{")
+    served = [json.loads(line) for line in lines[:start] if line.startswith('{"')]
+    assert [d["quality"] for d in served if d.get("status") == "ok"] == ["full", "cache:exact"]
+    health = json.loads("\n".join(lines[start:]))
+    assert health["stream"]["max_sessions"] == 4
+    assert health["stream"]["ttl_ms"] == 5000.0
+    assert health["stream"]["converge_tol"] == 0.5
+    assert health["cache"]["max_bytes"] == 1 << 20
+    assert health["cache"]["near_tol"] == 2.0 and health["cache"]["hits"] == 1
+    assert health["cache"]["disk"]["dir"] == str(spill)
+
+
+def test_session_header_warm_starts_over_wire(service):
+    """X-Raft-Session makes consecutive POSTs one stream: the second frame
+    warm-starts from the first, and X-Raft-Converge-Tol exits it at the
+    first segment boundary with the honest converged:k label."""
+    with HttpFrontend(service, HttpConfig(port=0)) as fe:
+        (ct, body), _ = good_multipart(seed=8)
+        before = int(service.registry.value("raft_stream_warm_joins_total"))
+        status, _, first = post(fe, ct, body, headers={"X-Raft-Session": "rig-1"})
+        assert status == 200 and first["quality"] == "full"
+        status, _, second = post(fe, ct, body, headers={"X-Raft-Session": "rig-1",
+                                                        "X-Raft-Converge-Tol": "1e9"})
+        assert status == 200 and second["quality"] == "converged:2"
+        assert second["iters"] == 2
+        assert int(service.registry.value("raft_stream_warm_joins_total")) == before + 1
+        assert service.status()["stream"]["sessions"] >= 1

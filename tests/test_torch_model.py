@@ -351,6 +351,9 @@ def test_port_imports_with_jax_blocked():
             "raft_stereo_tpu_torch.serve.supervise, raft_stereo_tpu_torch.serve.wire, "
             "raft_stereo_tpu_torch.serve.http, raft_stereo_tpu_torch.data.frame_utils, "
             "raft_stereo_tpu_torch.serve_stereo, "
+            "raft_stereo_tpu_torch.serve.stream, raft_stereo_tpu_torch.serve.cache, "
+            "raft_stereo_tpu_torch.serve.fleet, raft_stereo_tpu_torch.obs.fleet, "
+            "raft_stereo_tpu_torch.fleet_stereo, "
             "chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -8,8 +8,10 @@ supervision battery (tests/test_supervise.py: the watchdog's deadline math,
 uploader crashes, device hangs, tick crashes, flight records across a
 bounce, stop racing a tick, the drain), with the tiny model, ``device="cpu"``
 and a ``FakeClock``. No Supervisor monitor thread runs: every test drives
-``Supervisor.check_now()`` itself. The service's stream and cache knobs,
-not ported yet, raise.
+``Supervisor.check_now()`` itself. The service's stream and cache knobs
+resolve (explicit, env, default), and a request's stream fields warm-start
+it (tests/test_torch_stream_serve.py and tests/test_torch_cache.py hold the
+rest of those modules).
 """
 
 import time
@@ -671,26 +673,58 @@ def test_drain_is_idempotent_and_counts(tiny_params, tiny_cfg, pairs):
     svc.stop()
 
 
+# The stream and cache knobs: explicit config > env knob > default, as the
+# JAX service resolves them. (The names are those of the cases that pinned
+# these knobs before streams and the cache were ported.)
+_SERVICE_KNOBS = {
+    # field: (env knob, explicit value, env value, resolved default, how to read it)
+    "stream_sessions": ("RAFT_STREAM_SESSIONS", 7, "9", 128,
+                        lambda svc: svc.stream.max_sessions),
+    "stream_ttl_ms": ("RAFT_STREAM_TTL_MS", 1500.0, "2500", 60_000.0,
+                      lambda svc: svc.stream.ttl_s * 1e3),
+    "converge_tol": ("RAFT_CONVERGE_TOL", 0.5, "0.25", 0.01,
+                     lambda svc: svc.stream.converge_tol),
+    "cache_bytes": ("RAFT_CACHE_BYTES", 4096, "8192", 0, lambda svc: svc.cache.max_bytes),
+    "cache_ttl_ms": ("RAFT_CACHE_TTL_MS", 1500.0, "2500", 600_000.0,
+                     lambda svc: svc.cache.ttl_s * 1e3),
+    "cache_near_tol": ("RAFT_CACHE_NEAR_TOL", 3.0, "4.5", 0.0,
+                       lambda svc: svc.cache.near_tol),
+    "cache_dir": ("RAFT_CACHE_DIR", "explicit", "from-env", None, lambda svc: svc.cache.dir),
+}
+
+
 @pytest.mark.parametrize("knob", ["stream_sessions", "stream_ttl_ms", "converge_tol",
                                   "cache_bytes", "cache_ttl_ms", "cache_near_tol",
                                   "cache_dir"])
-def test_unported_service_knobs_raise(knob):
-    """The stream and cache knobs name the slice that ports them; None (and
-    0, which disables) is accepted."""
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        ServiceConfig(**{knob: "x" if knob == "cache_dir" else 1})
-    ServiceConfig(**{knob: None})
-    if knob != "cache_dir":
-        ServiceConfig(**{knob: 0})
+def test_unported_service_knobs_raise(knob, tiny_params, tiny_cfg, monkeypatch, tmp_path):
+    """Each stream and cache knob resolves at service construction: the
+    explicit ServiceConfig value wins, else its RAFT_* env knob, else the
+    default; the resolved value is what the stream table or the cache
+    uses."""
+    env, explicit, from_env, default, read = _SERVICE_KNOBS[knob]
+    if knob == "cache_dir":
+        explicit, from_env = str(tmp_path / explicit), str(tmp_path / from_env)
+    sess = make_session(tiny_params, tiny_cfg)
+    monkeypatch.setenv(env, from_env)
+    assert read(StereoService(sess, ServiceConfig(**{knob: explicit}))) == explicit
+    assert read(StereoService(sess, ServiceConfig())) == type(explicit)(from_env)
+    monkeypatch.delenv(env)
+    assert read(StereoService(sess, ServiceConfig())) == default
 
 
 def test_stream_fields_are_served_cold(tiny_params, tiny_cfg, pair):
     """A request's stream and converge_tol fields (the HTTP ingress passes
-    them on) are ignored until streams are ported: a full, cold frame."""
+    them on) take effect: the stream's first frame is served cold and bit
+    for bit the stateless response, its next frame warm-starts from it and
+    exits at the first segment boundary, converged:2."""
     sess = make_session(tiny_params, tiny_cfg)
     svc = StereoService(sess)
     ref = svc.handle({"id": "a", "left": pair[0], "right": pair[1]})
-    resp = svc.handle({"id": "b", "left": pair[0], "right": pair[1], "stream": "s1",
-                       "converge_tol": 0.5})
-    assert resp["status"] == "ok" and resp["quality"] == "full"
-    assert resp["disparity"].tobytes() == ref["disparity"].tobytes()
+    first = svc.handle({"id": "b", "left": pair[0], "right": pair[1], "stream": "s1"})
+    assert first["status"] == "ok" and first["quality"] == "full"
+    assert first["disparity"].tobytes() == ref["disparity"].tobytes()
+    resp = svc.handle({"id": "c", "left": pair[0], "right": pair[1], "stream": "s1",
+                       "converge_tol": 1e9})
+    assert resp["status"] == "ok" and resp["quality"] == "converged:2"
+    assert resp["iters"] == 2
+    assert svc.status()["stream"]["warm_joins"] == 1

@@ -193,6 +193,27 @@ Phases, each fatal on failure:
    response served by the survivor and to the replacement's readiness,
    then SIGTERM, exit 0 (``"phase": "streams"``, ``"demo_video"``,
    ``"fleet"`` and ``"streams_seconds"`` lines).
+10. training (``phase_train``): a synthetic FlyingThings3D tree
+   (TRAIN_TREE) under ``build/phase_train``. ``python -m
+   raft_stereo_tpu_torch.train_stereo`` in a subprocess with the
+   reference's published flags and ``reg_cuda`` (TRAIN_FLAGS, cuDNN's TF32
+   at torch's default): exit 0, every loss finite, the final bundle
+   written; steps/s as wall time over steps 3-12, and the median wait for
+   a batch. The same run in process (TF32 off, as in the rest of this
+   script), a bundle and a validation every TRAIN_RESUME_AT steps: a
+   step's launches exactly 2 x TRAIN_ITERS lookups (the forward and the
+   checkpointed recompute) and no loop kernel; the final bundle and a
+   save/load round trip bit for bit; the bundles past TRAIN_RESUME_AT
+   removed and the run relaunched from the directory, the later steps'
+   losses within RESUME_BAND. The kernel routes' gradients (``reg_cuda``
+   and ``alt_cuda`` at B=2, ``fused_train``, B=1) against a CPU copy's
+   plain route within GRAD_BAND_MAT and GRAD_BAND_VEC, each route's
+   kernels launched. The loss falls over 8 steps on one batch; at B=8,
+   with cuDNN's TF32 off and then on, three steps timed and one profiled:
+   device ms by kernel group and the largest ungrouped kernels, the
+   profiled step's idle share and its busy seconds over the timed steps'
+   median wall; ``fused_train`` against the default in turns (1, f, f, 1) with
+   TF32 on (``"phase": "train"``).
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -3366,6 +3387,352 @@ def phase_cross_check() -> list:
     return results
 
 
+# Phase 10, training. The reference's published command (its README):
+# --batch_size 8 --train_iters 22 --spatial_scale -0.2 0.4 --saturation_range
+# 0 1.4 --n_downsample 2 --mixed_precision, with reg_cuda, on 320x720 crops
+# of a synthetic FlyingThings3D tree (540x960, 16 TRAIN and 2 TEST pairs,
+# disparities 0-64 px) at full width.
+TRAIN_TREE = dict(n_train=16, n_test=2, h=540, w=960, max_disp=64.0, seed=0)
+TRAIN_CROP = (320, 720)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12
+TRAIN_ITERS = 22
+TRAIN_FLAGS = ["--batch_size", str(TRAIN_BATCH), "--train_iters", str(TRAIN_ITERS),
+               "--spatial_scale", "-0.2", "0.4", "--saturation_range", "0", "1.4",
+               "--n_downsample", "2", "--mixed_precision", "--corr_implementation", "reg_cuda",
+               "--image_size", *map(str, TRAIN_CROP), "--num_steps", str(TRAIN_STEPS),
+               "--num_workers", "6"]
+TRAIN_RESUME_AT = 6
+# Resumed steps 7-12 against the uninterrupted run's: relative loss
+# difference (the card's convolutions' backward is not bit-reproducible;
+# the first card run read 2.1e-3).
+RESUME_BAND = 1e-2
+# Card kernel route against the CPU copy's plain route, per-leaf relative L2,
+# the denominator floored at 1e-2 of the largest leaf's gradient norm
+# (tests/test_torch_train.py's floor and bands: conv weights, 1-D leaves).
+GRAD_BAND_MAT = 0.59
+GRAD_BAND_VEC = 0.021
+GRAD_SHAPE = (128, 256)
+GRAD_ITERS = 4
+TURN_STEPS = 2  # steps a turn, default against fused_train (1, f, f, 1)
+# Device time of the profiled step by kernel group, first match wins (the
+# rest "other": torch's elementwise, reduction, copy and index kernels).
+TRAIN_GROUPS = (("convolution", ("conv", "cudnn", "implicit", "wgrad", "dgrad", "xmma",
+                                 "sm90_xmma", "fprop", "bprop")),
+                ("matmul", ("gemm", "Gemm", "cutlass")),
+                ("corr_lookup", ("lookup",)),
+                ("optimizer", ("adam", "Adam", "multi_tensor", "foreach")))
+TRAIN_ARCH: dict = {}  # architecture overrides (a CPU rehearsal's tiny model)
+
+
+def _sync() -> None:
+    if CLI_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _train_batch(ds, b: int, seed: int, device) -> dict:
+    """``b`` samples of the dataset, collated on ``device``."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.data.loader import collate
+    rng = np.random.default_rng(seed)
+    samples = [ds.__getitem__(i, rng=rng) for i in range(b)]
+    return {k: torch.from_numpy(v).to(device) for k, v in collate(samples).items()}
+
+
+def _train_dataset(tree: Path):
+    from raft_stereo_tpu_torch import TrainConfig
+    from raft_stereo_tpu_torch.data.datasets import fetch_dataset
+    tcfg = TrainConfig(image_size=TRAIN_CROP, spatial_scale=(-0.2, 0.4),
+                       saturation_range=(0.0, 1.4))
+    return fetch_dataset(tcfg, root=str(tree))
+
+
+def _grads_by_route(corr: str, b: int, fused_train: bool) -> dict:
+    """The tempered seeded model's gradients at GRAD_SHAPE, GRAD_ITERS
+    iterations, on the card (kernels) and on a CPU copy (plain versions),
+    bf16, with the card's launches by kernel over the backward pass."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.engine.loss import sequence_loss
+    g = torch.Generator().manual_seed(11)
+    h, w = GRAD_SHAPE
+    data = {"image1": torch.rand((b, h, w, 3), generator=g) * 255,
+            "image2": torch.rand((b, h, w, 3), generator=g) * 255,
+            "flow": -torch.rand((b, h, w, 1), generator=g) * 8,
+            "valid": torch.ones((b, h, w))}
+    out, launches = {}, None
+    for key, dev in (("card", CLI_DEVICE), ("cpu", "cpu")):
+        model = seeded_model(dev, corr)
+        model.cfg.fused_train = fused_train
+        model.train()
+        kernels.reset_launches()
+        preds = model(data["image1"].to(dev), data["image2"].to(dev), iters=GRAD_ITERS,
+                      test_mode=False)
+        loss, _ = sequence_loss(preds, data["flow"].to(dev), data["valid"].to(dev))
+        loss.backward()
+        _sync()
+        if launches is None:
+            launches = dict(kernels.launches)
+        out[key] = {
+            n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    floor = 1e-2 * max(float(t.norm()) for t in out["cpu"].values())
+    rel = {n: float((out["card"][n] - ref).norm()) / max(float(ref.norm()), floor)
+           for n, ref in out["cpu"].items()}
+    mat = sorted((v, n) for n, v in rel.items() if out["cpu"][n].ndim > 1)[-3:]
+    vec = sorted((v, n) for n, v in rel.items() if out["cpu"][n].ndim == 1)[-3:]
+    zero = [n for n, t in out["card"].items() if not float(t.abs().max()) > 0]
+    return {"corr": corr, "b": b, "fused_train": fused_train, "launches": launches,
+            "worst_weights": mat, "worst_vectors": vec, "zero_leaves": zero}
+
+
+def _steps_per_s(model, optimizer, batch: dict, steps: int) -> float:
+    from raft_stereo_tpu_torch.engine.steps import make_train_step
+    step = make_train_step(model, optimizer, TRAIN_ITERS)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(batch)
+    _sync()
+    return steps / (time.perf_counter() - t0)
+
+
+def _profile_step(step, batch: dict) -> dict:
+    """One step warmed, three timed, one profiled: the profiled step's idle
+    share of its own wall (the profiler's host cost included), its busy
+    seconds over the timed steps' median wall, device ms by TRAIN_GROUPS
+    and the "other" group's largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch.obs.profiler import device_seconds
+    step(batch)
+    _sync()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(batch)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    wall_plain = statistics.median(walls)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        _sync()
+    wall = time.perf_counter() - t0
+    busy = device_seconds(prof)
+    by_group = dict.fromkeys([g for g, _ in TRAIN_GROUPS] + ["other"], 0.0)
+    other: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        group = next((g for g, parts in TRAIN_GROUPS if any(p in e.name for p in parts)),
+                     "other")
+        by_group[group] += ms
+        if group == "other":
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
+    return {"wall_s": wall, "busy_s": busy,
+            "idle_share": None if busy is None else 1.0 - busy / wall,
+            "unprofiled_wall_s": wall_plain, "unprofiled_walls_s": walls,
+            "busy_over_unprofiled_wall": None if busy is None else busy / wall_plain,
+            "device_ms_by_group": by_group,
+            "other_top": sorted(other.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def _read_steps(log_dir: Path) -> list:
+    return [json.loads(line) for line in (log_dir / "steps.jsonl").read_text().splitlines()]
+
+
+def phase_train(smi: str) -> dict:
+    """Training on the card (the module docstring, phase 10)."""
+    import shutil
+
+    from raft_stereo_tpu_torch import RAFTStereoConfig, TrainConfig, kernels
+    from raft_stereo_tpu_torch.data.synthetic import write_things_tree
+    from raft_stereo_tpu_torch.engine import checkpoint as ckpt
+    from raft_stereo_tpu_torch.engine.optimizer import make_optimizer
+    from raft_stereo_tpu_torch.engine.steps import make_train_step
+    from raft_stereo_tpu_torch.engine.train import train
+    t_phase = time.perf_counter()
+    for knob in SWITCHES + ENCODER_SWITCHES + ("RAFT_CORR_PACK8", "RAFT_LANE_PACK8"):
+        os.environ.pop(knob, None)
+    root = Path(__file__).resolve().parent / "build" / "phase_train"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = Path(write_things_tree(str(root / "data"), **TRAIN_TREE))
+    t_data = time.perf_counter() - t_phase
+
+    # (1) The CLI with the published flags, in a subprocess.
+    cli_dir = root / "cli"
+    cli_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raft_stereo_tpu_torch.train_stereo", *TRAIN_FLAGS,
+         "--dataset_root", str(tree), "--device", CLI_DEVICE, *CLI_ARCH], cwd=cli_dir, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)), timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+        raise SystemExit(f"train_stereo exited {proc.returncode}")
+    cli_steps = _read_steps(cli_dir / "runs")
+    cli_losses = [r["loss"] for r in cli_steps]
+    # Wall time over steps 3-12 (the CLI's own step loop, cuDNN's TF32 at
+    # torch's default, on), and its median wait for a batch.
+    cli_wall = [r["wall_s"] for r in cli_steps]
+    cli_rate = (len(cli_wall) - 2) / (cli_wall[-1] - cli_wall[1])
+    cli_data_ms = statistics.median(r["data_ms"] for r in cli_steps[2:])
+    if len(cli_losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in cli_losses):
+        raise SystemExit(f"train_stereo's losses: {cli_losses}")
+    if not (cli_dir / "checkpoints" / f"raft-stereo{ckpt.CKPT_SUFFIX}").exists():
+        raise SystemExit("train_stereo wrote no final checkpoint")
+    cli_ledger = json.loads((cli_dir / "runs" / "ledger.json").read_text())
+
+    # (2) The same run in process, a bundle every 6 steps, validation there.
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda", mixed_precision=True, **TRAIN_ARCH)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, train_iters=TRAIN_ITERS,
+                       spatial_scale=(-0.2, 0.4), saturation_range=(0.0, 1.4),
+                       image_size=TRAIN_CROP,
+                       num_steps=TRAIN_STEPS, ckpt_every=TRAIN_RESUME_AT, num_workers=6,
+                       valid_iters=32, keep_ckpts=0)
+    run_a = root / "run_a"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res_a = train(cfg, tcfg, data_root=str(tree), device=CLI_DEVICE, timing=True,
+                  log_dir=str(run_a / "runs"), ckpt_dir=str(run_a / "checkpoints"))
+    train_s = time.perf_counter() - t0
+    launches_a = dict(kernels.launches)
+    steps_a = _read_steps(run_a / "runs")
+    ledger = json.loads((run_a / "runs" / "ledger.json").read_text())
+    per_step = ledger["train_step_launches"]
+    want = {"corr_lookup": 2 * TRAIN_ITERS}  # forward, and the checkpointed recompute
+    if per_step != want:
+        raise SystemExit(f"a train step's launches {per_step}, expected {want}")
+    if any(launches_a.get(k, 0) for k in ("fused_iter", "gru1632", "motion")):
+        raise SystemExit(f"loop kernels launched outside fused_train: {launches_a}")
+    losses_a = [r["loss"] for r in steps_a]
+    if not all(math.isfinite(v) for v in losses_a):
+        raise SystemExit(f"non-finite losses: {losses_a}")
+    row = ledger["rows"][0]
+    peak = (row["argument_bytes"] + row["temp_bytes"]) if row["temp_bytes"] is not None else None
+    times = steps_a[2:]
+    # Wall time over steps 3-6 and 8-12: step 7 waits for the bundle and
+    # the validation at step 6.
+    ends = [r["wall_s"] for r in steps_a]
+    k = TRAIN_RESUME_AT
+    wall_rate = ((k - 2) + (TRAIN_STEPS - k - 1)) / ((ends[k - 1] - ends[1])
+                                                     + (ends[-1] - ends[k]))
+    fwd_bwd = statistics.median(r["fwd_bwd_ms"] for r in times)
+    opt_ms = statistics.median(r["optimizer_ms"] for r in times)
+    data_ms = statistics.median(r["data_ms"] for r in times)
+
+    # (3) The final bundle against the periodic one of the same step, and a
+    # save/load round trip of its state on the card, bit for bit.
+    final = run_a / "checkpoints" / f"raft-stereo{ckpt.CKPT_SUFFIX}"
+    periodic = run_a / "checkpoints" / f"{TRAIN_STEPS}_raft-stereo{ckpt.CKPT_SUFFIX}"
+    fm, fo, fstep = ckpt.load_checkpoint(str(final))
+    pm, po, pstep = ckpt.load_checkpoint(str(periodic))
+    same = fstep == pstep == TRAIN_STEPS and all(torch.equal(fm[k], pm[k]) for k in fm)
+    model = seeded_model(CLI_DEVICE)
+    opt = make_optimizer(model, tcfg.lr, tcfg.num_steps, tcfg.wdecay,
+                         skip_nonfinite=tcfg.max_bad_steps)
+    ckpt.load_checkpoint(str(final), model, opt)
+    again = root / f"again{ckpt.CKPT_SUFFIX}"
+    ckpt.save_checkpoint(str(again), model, opt, fstep)
+    am, ao, _ = ckpt.load_checkpoint(str(again))
+    same = same and all(torch.equal(am[k], fm[k]) for k in fm) and (
+        json.dumps(ao["schedule"], sort_keys=True) == json.dumps(fo["schedule"], sort_keys=True))
+    if not same:
+        raise SystemExit("the final bundle is not bit for bit the state that was saved")
+
+    # (4) Resume: the bundles past step 6 removed, relaunched from the
+    # directory; steps 7-12 against the uninterrupted run's.
+    run_b = root / "run_b"
+    shutil.copytree(run_a / "checkpoints", run_b / "checkpoints")
+    for f in (run_b / "checkpoints").iterdir():
+        if ckpt.bundle_step(str(f)) > TRAIN_RESUME_AT:
+            f.unlink()
+    res_b = train(cfg, TrainConfig(**{**tcfg.__dict__, "restore_ckpt": str(run_b / "checkpoints")}),
+                  data_root=str(tree), device=CLI_DEVICE, validate=False,
+                  log_dir=str(run_b / "runs"), ckpt_dir=str(run_b / "checkpoints"))
+    steps_b = _read_steps(run_b / "runs")
+    if [r["step"] for r in steps_b] != list(range(TRAIN_RESUME_AT, TRAIN_STEPS)):
+        raise SystemExit(f"the relaunch ran steps {[r['step'] for r in steps_b]}")
+    resume_rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                     for a, b in zip(steps_a[TRAIN_RESUME_AT:], steps_b))
+    if resume_rel > RESUME_BAND:
+        raise SystemExit(f"resumed losses {resume_rel} (relative) from the uninterrupted run's")
+
+    # (5) Gradients: the kernel routes on the card against the CPU copy.
+    grads = [_grads_by_route("reg_cuda", 2, False), _grads_by_route("alt_cuda", 2, False),
+             _grads_by_route("reg_cuda", 2, True), _grads_by_route("reg_cuda", 1, False)]
+    for r in grads:
+        ok = (r["worst_weights"][-1][0] <= GRAD_BAND_MAT
+              and r["worst_vectors"][-1][0] <= GRAD_BAND_VEC and not r["zero_leaves"])
+        route = "corr_alt" if r["corr"] == "alt_cuda" else "corr_lookup"
+        need = [route] + (["conv_gru:gru08", "conv_gru:gru32", "gru1632", "motion"]
+                          if r["fused_train"] else [])
+        need += ["enc_stem", "enc_pass", "enc_point3", "enc_point2"] if r["b"] == 1 else []
+        if "conv_gru:gru32" in need:
+            need.remove("conv_gru:gru32")  # gru32 runs inside gru16+32
+        if not ok or any(not r["launches"].get(k) for k in need) or r["launches"].get(
+                "fused_iter"):
+            print(json.dumps({"phase": "train_grads", **r}))
+            raise SystemExit(f"gradients of {r['corr']} B={r['b']} fused_train="
+                             f"{r['fused_train']}: out of band or a kernel not launched")
+
+    # (6) The loss falls on one repeated batch; (7) a profiled step with
+    # cuDNN's TF32 off and on; (8) fused_train against the default in turns.
+    ds = _train_dataset(tree)
+    batch = _train_batch(ds, 2, 5, CLI_DEVICE)
+    batch["image1"], batch["image2"] = batch["image1"].bfloat16(), batch["image2"].bfloat16()
+    model = seeded_model(CLI_DEVICE)
+    model.train()
+    opt = make_optimizer(model, 2e-4, 100)
+    step = make_train_step(model, opt, TRAIN_ITERS)
+    fall = [step(batch)["loss"] for _ in range(8)]
+    if not statistics.mean(fall[-3:]) < fall[0]:
+        raise SystemExit(f"the loss does not fall on a repeated batch: {fall}")
+    big = _train_batch(ds, TRAIN_BATCH, 6, CLI_DEVICE)
+    big["image1"], big["image2"] = big["image1"].bfloat16(), big["image2"].bfloat16()
+    step8 = make_train_step(model, opt, TRAIN_ITERS)
+    tf32 = torch.backends.cudnn.allow_tf32
+    profiled = {}
+    try:
+        for key, on in (("tf32_off", False), ("tf32_on", True)):
+            torch.backends.cudnn.allow_tf32 = on
+            profiled[key] = _profile_step(step8, big)
+        # The turns at the CLI's setting (cuDNN's TF32 on, torch's default).
+        turns = []
+        for fused in (False, True, True, False):
+            model.cfg.fused_train = fused
+            turns.append(("fused_train" if fused else "default",
+                          _steps_per_s(model, opt, big, TURN_STEPS)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        model.cfg.fused_train = False
+    line = {"phase": "train", "nvidia_smi": smi, "data_s": t_data,
+            "cli": {"flags": TRAIN_FLAGS, "seconds": cli_s, "losses": cli_losses,
+                    "step_launches": cli_ledger["train_step_launches"],
+                    "steps_per_s_wall": cli_rate, "data_wait_ms": cli_data_ms},
+            "in_process_s": train_s, "losses": losses_a,
+            "in_process_tf32": torch.backends.cudnn.allow_tf32,
+            "steps_per_s_wall": wall_rate,
+            "steps_per_s_events": 1e3 / statistics.median(
+                r["fwd_bwd_ms"] + r["optimizer_ms"] + r["data_ms"] for r in times),
+            "step_ms": {"data_wait": data_ms, "forward_backward": fwd_bwd,
+                        "optimizer": opt_ms},
+            "peak_device_bytes": peak, "step_launches": per_step,
+            "run_launches": launches_a, "validation": {k: v for k, v in res_a.items()
+                                                       if k.startswith("things")},
+            "resume": {"at": TRAIN_RESUME_AT, "max_rel_loss_diff": resume_rel,
+                       "band": RESUME_BAND, "steps": res_b["step"]},
+            "grads": [{k: r[k] for k in ("corr", "b", "fused_train", "worst_weights",
+                                         "worst_vectors", "launches")} for r in grads],
+            "loss_falls": fall,
+            "profiled_steps": profiled,
+            "steps_per_s_turns": turns, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(line))
+    return line
+
+
 # The bench's runs: the headline default (Middlebury-F, 32 iterations) and the
 # realtime model at the KITTI size.
 BENCH_RUNS = {"headline": {"RAFT_BENCH_FRAMES": "3"},
@@ -3450,6 +3817,7 @@ def main() -> int:
     phase_bench()
     phase_server(smi)
     phase_streams(smi)
+    phase_train(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

@@ -7,9 +7,9 @@ tensors every kernel wrapper runs its plain torch version.
 """
 
 from raft_stereo_tpu_torch.config import (  # noqa: F401
-    RAFTStereoConfig, add_model_args, eval_mixed_precision, resolve_device,
+    RAFTStereoConfig, TrainConfig, add_model_args, eval_mixed_precision, resolve_device,
     with_eval_precision)
 from raft_stereo_tpu_torch.models import (  # noqa: F401
     RAFTStereo, init_raft_stereo, raft_stereo_epilogue, raft_stereo_forward,
     raft_stereo_inference, raft_stereo_prepare, raft_stereo_segment,
-    raft_stereo_segment_carry)
+    raft_stereo_segment_carry, raft_stereo_train_forward)

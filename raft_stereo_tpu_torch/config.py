@@ -113,6 +113,12 @@ class RAFTStereoConfig:
     # in fp32 either way. In bf16 the refinement loop's GRU and motion
     # kernels engage; in fp32 the loop runs the plain torch modules.
     mixed_precision: bool = False
+    # Engage the loop kernels in training too (the JAX package's meaning):
+    # their forward is the kernel, their backward plain torch recomputed
+    # from the saved inputs. Off by default, as in the JAX package: a
+    # training step then runs the loop as plain torch in bf16, and only the
+    # correlation kernels and the encoder kernels at B=1 engage.
+    fused_train: bool = False
 
     def __post_init__(self):
         self.hidden_dims = tuple(self.hidden_dims)
@@ -151,6 +157,68 @@ class RAFTStereoConfig:
 
     @classmethod
     def from_namespace(cls, ns: argparse.Namespace) -> "RAFTStereoConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(ns).items() if k in fields})
+
+    def loop_kernels(self, test_mode: bool) -> bool:
+        """Whether the refinement loop runs the GRU and motion kernels: bf16,
+        and in training also ``fused_train``."""
+        return self.mixed_precision and (test_mode or self.fused_train)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training parameters (the reference's train_stereo.py flags), with
+    every field of the JAX package's ``TrainConfig``."""
+
+    name: str = "raft-stereo"
+    restore_ckpt: Optional[str] = None
+    batch_size: int = 6
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
+    lr: float = 0.0002
+    num_steps: int = 100000
+    image_size: Tuple[int, int] = (320, 720)
+    train_iters: int = 16
+    valid_iters: int = 32
+    wdecay: float = 1e-5
+    # Data augmentation
+    img_gamma: Optional[Tuple[float, float]] = None
+    saturation_range: Optional[Tuple[float, float]] = None
+    do_flip: Optional[str] = None  # False/'h'/'v' in the reference CLI
+    spatial_scale: Tuple[float, float] = (0.0, 0.0)
+    noyjitter: bool = False
+    # Loader threads; None sizes them from SLURM_CPUS_PER_TASK - 2, as the
+    # reference's loader does.
+    num_workers: Optional[int] = None
+    seed: int = 1234
+    ckpt_every: int = 10000  # the reference's validation and checkpoint cadence
+    # Profile one steady-state step (torch.profiler) into this directory.
+    trace_dir: Optional[str] = None
+    # Height sharding over several cards: not in this package yet (> 1
+    # raises before the model loads).
+    spatial_shard: int = 1
+    # A non-finite step is skipped (parameters, Adam moments and the
+    # schedule untouched); the run aborts after this many consecutive ones.
+    # 0 aborts on the first, as the reference does. ``restore_ckpt`` may
+    # name a directory: resume from its newest valid bundle.
+    max_bad_steps: int = 5
+    # Keep-last-K over the periodic checkpoints; 0 keeps all. Preempt,
+    # epoch and final bundles are never pruned.
+    keep_ckpts: int = 3
+    # Per-sample load retries before quarantine and substitution, and the
+    # base seconds of the exponential backoff between them.
+    data_retries: int = 2
+    data_retry_backoff: float = 0.05
+
+    def __post_init__(self):
+        self.train_datasets = tuple(self.train_datasets)
+        self.image_size = tuple(self.image_size)
+        self.spatial_scale = tuple(self.spatial_scale)
+        if self.do_flip is False:
+            self.do_flip = None
+
+    @classmethod
+    def from_namespace(cls, ns: argparse.Namespace) -> "TrainConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in vars(ns).items() if k in fields})
 

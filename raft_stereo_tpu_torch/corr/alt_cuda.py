@@ -24,6 +24,12 @@ takes :func:`lookup_plain`, which computes the full row product in fp32
 from the same pooled rows and gathers from it, a few image rows at a time
 (the JAX package's ``_masked_alt_xla``). The two agree up to fp32
 association, so within one rounding of the output.
+
+Training: :func:`lookup` is differentiable in f1 and the pooled levels (the
+JAX package's ``_alt_lookup`` ``custom_vjp``), its backward autograd
+through :func:`lookup_plain` recomputed from the saved operands
+(``ops/grad.py``); the gradient reaches both feature maps through the
+pooling of :func:`build_alt_operands`.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.corr.alt import feature_pyramid
 from raft_stereo_tpu_torch.corr.reg import lookup_pyramid
 from raft_stereo_tpu_torch.corr.reg_cuda import MAX_LEVELS, level_widths
+from raft_stereo_tpu_torch.ops.grad import recompute, refuse_grad
 
 # csrc/corr_alt.cu: D a multiple of 8 bf16 or 4 fp32 values (16 bytes: the
 # rows its TMA loads), at most 16 slabs of 64 (bf16) or kMaxD32 (fp32); a
@@ -100,11 +107,24 @@ def lookup_plain(ops: AltOperands, coords_x: torch.Tensor, rows: int = 16) -> to
 
 
 def lookup(ops: AltOperands, coords_x: torch.Tensor) -> torch.Tensor:
+    """:func:`lookup_launch`, differentiable in ``ops.f1`` and
+    ``ops.levels`` through :func:`lookup_plain`."""
+
+    def operands(lv):
+        return dataclasses.replace(ops, f1=lv[1], levels=list(lv[2:]))
+
+    return recompute(lambda *lv: lookup_launch(operands(lv), lv[0]),
+                     lambda *lv: lookup_plain(operands(lv), lv[0]),
+                     [coords_x.detach(), ops.f1, *ops.levels], single=True)
+
+
+def lookup_launch(ops: AltOperands, coords_x: torch.Tensor) -> torch.Tensor:
     """``(B, H, W1)`` fp32 x positions -> ``(B, H, W1, L*(2r+1))`` taps in
     the feature maps' dtype.
 
     CPU tensors take :func:`lookup_plain`; CUDA tensors launch the kernel or
     raise."""
+    refuse_grad("corr_alt", coords_x, ops.f1, ops.levels)
     if coords_x.device.type == "cpu":
         return lookup_plain(ops, coords_x)
     dtype = ops.f1.dtype

@@ -42,6 +42,7 @@ import torch
 from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import corr_pack8_on
 from raft_stereo_tpu_torch.corr.reg import lookup_pyramid
+from raft_stereo_tpu_torch.ops.grad import refuse_grad
 from raft_stereo_tpu_torch.ops.pooling import avg_pool_last
 
 MAX_LEVELS = 8  # csrc/corr_taps.cuh kMaxLevels
@@ -216,11 +217,64 @@ def kernel_levels(ops: CorrOperands, device: torch.device):
     return args
 
 
+def lookup_grad_plain(widths, radius: int, coords_x: torch.Tensor, grad: torch.Tensor,
+                      dtype: torch.dtype) -> List[torch.Tensor]:
+    """The gradient of :func:`lookup_plain` in each level's rows, given the
+    taps' cotangent ``grad`` (B, H, W1, L*(2r+1)): tap k of level l spreads
+    ``(1 - frac)`` of its cotangent to position ``i0 - r + k`` and ``frac``
+    to the next, within the true width, summed in fp32 and rounded once to
+    ``dtype``. A pixel's 2r+2 positions are distinct and lie in its own
+    row, so each row is written by one scatter into a padded copy."""
+    coords = coords_x.reshape(-1).float()
+    npix, k = coords.shape[0], 2 * radius + 1
+    g = grad.reshape(npix, len(widths), k).float()
+    pad = 2 * radius + 2  # the clamped window reaches 2r+2 past either end
+    offsets = torch.arange(-radius, radius + 2, device=coords.device)
+    zero = g.new_zeros(npix, 1)
+    out = []
+    for i, w2 in enumerate(widths):
+        cl = coords / (2 ** i)
+        i0 = torch.floor(cl)
+        frac = (cl - i0)[:, None]
+        i0 = torch.clamp(i0, -radius - 2, w2 + radius + 1).long()
+        gi = g[:, i]
+        taps = torch.cat([gi, zero], 1) * (1.0 - frac) + torch.cat([zero, gi], 1) * frac
+        buf = g.new_zeros(npix, w2 + 2 * pad + 1)
+        buf.scatter_(1, i0[:, None] + offsets + pad, taps)
+        out.append(buf[:, pad:pad + w2].to(dtype))
+    return out
+
+
+class _Lookup(torch.autograd.Function):
+    """:func:`lookup_launch` forward, :func:`lookup_grad_plain` backward."""
+
+    @staticmethod
+    def forward(ctx, ops, coords_x, *levels):
+        ctx.meta = (ops.widths, ops.radius, levels[0].dtype)
+        ctx.save_for_backward(coords_x)
+        return lookup_launch(ops, coords_x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        coords_x, = ctx.saved_tensors
+        widths, radius, dtype = ctx.meta
+        return (None, None, *lookup_grad_plain(widths, radius, coords_x, grad, dtype))
+
+
 def lookup(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
+    """:func:`lookup_launch`, differentiable in ``ops.levels`` (the JAX
+    package's ``_lookup``): its backward is :func:`lookup_grad_plain`."""
+    if torch.is_grad_enabled() and any(lvl.requires_grad for lvl in ops.levels):
+        return _Lookup.apply(ops, coords_x.detach(), *ops.levels)
+    return lookup_launch(ops, coords_x)
+
+
+def lookup_launch(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
     """``(B, H, W1)`` fp32 x positions -> ``(B, H, W1, L*(2r+1))`` taps.
 
     CPU tensors take :func:`lookup_plain`; CUDA tensors launch the kernel or
     raise."""
+    refuse_grad("corr_lookup", coords_x, ops.levels)
     if coords_x.device.type == "cpu":
         return lookup_plain(ops, coords_x)
     if coords_x.dtype != torch.float32 or coords_x.shape != (ops.b, ops.h, ops.w1):

@@ -9,16 +9,26 @@ costs a header read, never a 300 MB allocation. The violation is
 ingress serves as 413.
 
 PIL is imported inside the functions: ``import raft_stereo_tpu_torch.serve``
-must not need it. The disparity and flow readers (PFM, KITTI PNG, ``.flo``)
-come with training's ``data/``.
+must not need it.
+
+The dataset readers and writers (the JAX package's ``data/frame_utils.py``,
+reference ``core/utils/frame_utils.py``): PFM, Middlebury ``.flo``, KITTI's
+16-bit disparity PNG, Sintel's RGB-packed disparity, FallingThings depth,
+TartanAir depth, Middlebury's ``disp0GT.pfm`` with its non-occlusion mask,
+and ``read_gen``. Without OpenCV: the KITTI PNG through Pillow (its 16-bit
+grey mode). KITTI's optical-flow PNGs (16-bit RGB, which Pillow does not
+decode) are not read: no stereo dataset needs them.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
+
+FLO_MAGIC = 202021.25
 
 #: Default cap on an image's header-declared pixel count (~33.5 MP): four
 #: times the serving admission cap (8 MP), so a legitimately large frame is
@@ -80,3 +90,161 @@ def read_image_rgb(path) -> np.ndarray:
     if img.ndim == 2:
         return np.tile(img[..., None], (1, 1, 3))
     return img[..., :3]
+
+
+# ---------------------------------------------------------------------------
+# PFM (portable float map)
+# ---------------------------------------------------------------------------
+
+def read_pfm(path: Union[str, os.PathLike]) -> np.ndarray:
+    """Read a PFM file -> (H, W) or (H, W, 3) float array, top-down rows."""
+    with open(path, "rb") as f:
+        kind = f.readline().strip()
+        if kind == b"PF":
+            channels = 3
+        elif kind == b"Pf":
+            channels = 1
+        else:
+            raise ValueError(f"{path}: not a PFM file (header {kind!r})")
+        dims = f.readline().split()
+        if len(dims) != 2:
+            raise ValueError(f"{path}: malformed PFM dimensions {dims!r}")
+        width, height = int(dims[0]), int(dims[1])
+        scale = float(f.readline().strip())
+        dtype = "<f4" if scale < 0 else ">f4"
+        data = np.fromfile(f, dtype, count=width * height * channels)
+    shape = (height, width, 3) if channels == 3 else (height, width)
+    # PFM stores rows bottom-up; flip to conventional top-down.
+    return np.flipud(data.reshape(shape)).copy()
+
+
+def write_pfm(path: Union[str, os.PathLike], array: np.ndarray) -> None:
+    """Write a single-channel float PFM (little-endian, bottom-up rows)."""
+    if array.ndim != 2:
+        raise ValueError(f"write_pfm expects (H, W), got {array.shape}")
+    h, w = array.shape
+    with open(path, "wb") as f:
+        f.write(b"Pf\n%d %d\n-1\n" % (w, h))
+        f.write(np.flipud(array).astype("<f4").tobytes())
+
+
+# ---------------------------------------------------------------------------
+# Middlebury .flo optical flow
+# ---------------------------------------------------------------------------
+
+def read_flow(path: Union[str, os.PathLike]) -> Optional[np.ndarray]:
+    """Read a .flo file -> (H, W, 2) float32, or None on a bad magic."""
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, count=1)
+        if magic.size == 0 or magic[0] != np.float32(FLO_MAGIC):
+            return None
+        w = int(np.fromfile(f, np.int32, count=1)[0])
+        h = int(np.fromfile(f, np.int32, count=1)[0])
+        data = np.fromfile(f, np.float32, count=2 * w * h)
+    return data.reshape(h, w, 2)
+
+
+def write_flow(path: Union[str, os.PathLike], flow: np.ndarray) -> None:
+    """Write (H, W, 2) float32 optical flow as .flo."""
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"write_flow expects (H, W, 2), got {flow.shape}")
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        np.asarray([FLO_MAGIC], np.float32).tofile(f)
+        np.asarray([w, h], np.int32).tofile(f)
+        flow.astype(np.float32).tofile(f)
+
+
+# ---------------------------------------------------------------------------
+# KITTI 16-bit PNG disparity
+# ---------------------------------------------------------------------------
+
+def read_disp_kitti(path) -> Tuple[np.ndarray, np.ndarray]:
+    """KITTI disparity PNG: uint16 / 256; zero marks invalid."""
+    from PIL import Image
+    disp = np.asarray(Image.open(path)).astype(np.float64) / 256.0
+    return disp, disp > 0.0
+
+
+def write_disp_kitti(path, disp: np.ndarray) -> None:
+    """The inverse of :func:`read_disp_kitti`: ``uint16(disp * 256)``."""
+    from PIL import Image
+    Image.fromarray((np.asarray(disp) * 256).astype(np.uint16)).save(path)
+
+
+# ---------------------------------------------------------------------------
+# Per-dataset disparity readers (each -> (disp, valid))
+# ---------------------------------------------------------------------------
+
+def read_disp_sintel(path) -> Tuple[np.ndarray, np.ndarray]:
+    """Sintel packs disparity into RGB: ``r*4 + g/64 + b/16384``; the paired
+    ``occlusions/`` PNG marks occluded pixels (nonzero).
+
+    Deviation from the reference (:130-136): the decode is done in float64.
+    The reference multiplies the uint8 R channel by 4 before promotion, which
+    wraps mod 256 for disparities >= 256 px under value-based casting — a
+    latent overflow this implementation fixes.
+    """
+    from PIL import Image
+    rgb = np.asarray(Image.open(path), dtype=np.float64)
+    disp = rgb[..., 0] * 4 + rgb[..., 1] / 2 ** 6 + rgb[..., 2] / 2 ** 14
+    occ = np.asarray(Image.open(str(path).replace("disparities", "occlusions")))
+    return disp, (occ == 0) & (disp > 0)
+
+
+def read_disp_falling_things(path) -> Tuple[np.ndarray, np.ndarray]:
+    """FallingThings depth PNG -> disparity with the 6 cm baseline:
+    ``disp = fx * 6.0 * 100 / depth`` (fx from _camera_settings.json)."""
+    from PIL import Image
+    depth = np.asarray(Image.open(path)).astype(np.float32)
+    settings = os.path.join(os.path.dirname(str(path)), "_camera_settings.json")
+    with open(settings) as f:
+        fx = json.load(f)["camera_settings"][0]["intrinsic_settings"]["fx"]
+    disp = (fx * 6.0 * 100) / depth
+    return disp, disp > 0
+
+
+def read_disp_tartan_air(path) -> Tuple[np.ndarray, np.ndarray]:
+    """TartanAir depth .npy -> ``disp = 80 / depth``."""
+    disp = 80.0 / np.load(path)
+    return disp, disp > 0
+
+
+def read_disp_middlebury(path) -> Tuple[np.ndarray, np.ndarray]:
+    """Middlebury ``disp0GT.pfm`` with its ``mask0nocc.png`` (255 = nocc)."""
+    path = str(path)
+    if os.path.basename(path) != "disp0GT.pfm":
+        raise ValueError(f"expected a disp0GT.pfm path, got {path}")
+    disp = read_pfm(path).astype(np.float32)
+    if disp.ndim != 2:
+        raise ValueError(f"{path}: disparity PFM must be single-channel")
+    from PIL import Image
+    mask_path = path.replace("disp0GT.pfm", "mask0nocc.png")
+    nocc = np.asarray(Image.open(mask_path)) == 255
+    if not nocc.any():
+        raise ValueError(f"{mask_path}: empty non-occlusion mask")
+    return disp, nocc
+
+
+# ---------------------------------------------------------------------------
+# Generic dispatch
+# ---------------------------------------------------------------------------
+
+def read_gen(path, pil: bool = False):
+    """Extension-dispatched reader (reference ``read_gen``, :173-187).
+
+    Images return PIL Images; ``.pfm`` returns float arrays with the alpha-like
+    last channel dropped for 3-channel maps; ``.flo`` returns (H, W, 2).
+    """
+    from PIL import Image
+    ext = os.path.splitext(str(path))[-1].lower()
+    if ext in (".png", ".jpeg", ".jpg", ".ppm"):
+        return Image.open(path)
+    if ext in (".bin", ".raw"):
+        return np.load(path)
+    if ext == ".flo":
+        return read_flow(path).astype(np.float32)
+    if ext == ".pfm":
+        data = read_pfm(path).astype(np.float32)
+        return data if data.ndim == 2 else data[:, :, :-1]
+    return []

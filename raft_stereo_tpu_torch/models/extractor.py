@@ -17,7 +17,8 @@ the finest heads' residual block and 3x3 conv run as streamed passes. The
 stride-2 entry blocks, ``layer4``/``layer5`` and the coarser heads stay plain
 convolutions with torch norms, as does everything in fp32, at B > 1, or with
 ``RAFT_FUSED_ENCODERS=0`` (``RAFT_STREAM_TAIL=0`` keeps only the trunk
-fused).
+fused). The fused chains are differentiable (``ops/encoder.py``), so
+training at B=1 in bf16 runs them too, as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -25,7 +25,19 @@ gru16+32 kernel, the alt kernel, then the motion and gru08+head kernels.
 With ``slow_fast_gru`` each iteration first steps the coarse GRUs more, as
 in the JAX package: gru32 alone (3 levels), then gru32 with gru16 (one
 gru16+32 launch where it engages; gru16 alone at 2 levels), on every loop.
-Train mode waits for the training slice.
+
+Train mode (:func:`raft_stereo_train_forward`, ``forward(test_mode=False)``)
+follows the JAX package's scan: each iteration detaches the coordinates
+(truncated BPTT), steps the GRUs, computes the mask head and upsamples, and
+runs under ``torch.utils.checkpoint`` (the JAX package remats each step), so
+the backward recomputes one iteration at a time. Kernel engagement is the
+JAX package's: the correlation kernels always (``reg_cuda``, ``alt_cuda``),
+the loop kernels only under ``fused_train`` (bf16), the
+resident iteration never, and the encoder kernels where their gates hold
+(bf16, B=1). Each kernel's backward is plain torch (``ops/grad.py``).
+BatchNorm's running statistics are buffers, as in the reference: they get
+no gradient, no weight decay and no part in the clip norm (the JAX package
+keeps them as parameters and trains them; a route difference).
 
 The serving scheduler composes carries into one batch and back
 (:func:`stack_refinement_states`, :func:`take_refinement_rows`): every leaf
@@ -49,6 +61,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import (
     RAFTStereoConfig, fuse_iter_on, lane_pack8_on, resolve_device)
@@ -89,9 +102,11 @@ class RAFTStereo(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12,
                 flow_init: Optional[torch.Tensor] = None, test_mode: bool = False):
+        """Test mode: ``(flow_low, flow_up)``; train mode: the per-iteration
+        upsampled predictions ``(iters, B, H, W, 1)``."""
         if not test_mode:
-            raise NotImplementedError("train mode is not ported yet (ROADMAP Queue A, "
-                                      "slice 4: training)")
+            return raft_stereo_train_forward(self, image1, image2, iters=iters,
+                                             flow_init=flow_init)
         return raft_stereo_forward(self, image1, image2, iters=iters, flow_init=flow_init)
 
 
@@ -190,7 +205,7 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     coords_in = state["coords1"]
     b, h, w = coords_in.shape[:3]
     coords0 = coords_grid(b, h, w, device=coords_in.device)
-    fused = ub.prepare_fused(inp, dt) if dt == torch.bfloat16 else None
+    fused = ub.prepare_fused(inp, dt) if cfg.loop_kernels(test_mode=True) else None
     # The resident iteration, as in the JAX package: with the kernels in
     # use, reg_cuda's operands, RAFT_FUSE_ITER on and no warm start (the
     # kernel's motion encoder drops the flow-y weights).
@@ -251,6 +266,53 @@ def raft_stereo_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.T
     _, flow_low, flow_up = raft_stereo_segment(model, state, iters=iters,
                                                warm_start=flow_init is not None)
     return flow_low, flow_up
+
+
+def raft_stereo_train_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
+                              *, iters: int = 12,
+                              flow_init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train-mode forward (the JAX package's ``raft_stereo_forward(...,
+    test_mode=False)``): the per-iteration upsampled predictions ``(iters,
+    B, H, W, 1)`` fp32, differentiable in the model's parameters."""
+    cfg = model.cfg
+    dt = cfg.compute_dtype
+    ub = model.update_block
+    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack=False)
+    corr_dtype = torch.float32 if cfg.corr_kind in ("reg", "alt") else dt
+    corr_fn, _ = make_corr(cfg.corr_kind, fmap1.to(corr_dtype), fmap2.to(corr_dtype),
+                           num_levels=cfg.corr_levels, radius=cfg.corr_radius, out_dtype=dt)
+    fused = ub.prepare_fused(inp, dt, train=True) if cfg.loop_kernels(test_mode=False) else None
+    b, h, w = fmap1.shape[:3]
+    coords0 = coords_grid(b, h, w, device=fmap1.device)
+    coords1 = coords0 if flow_init is None else coords0 + flow_init
+    n = cfg.n_gru_layers
+    fuse_motion = flow_init is None
+
+    def one_iteration(coords1, *net):
+        flow = (coords1 - coords0).to(dt)
+        if cfg.slow_fast_gru:
+            if n == 3:
+                net = ub.step_coarse(net, inp, fused, iter16=False)
+            if n >= 2:
+                net = ub.step_coarse(net, inp, fused)
+        corr = corr_fn(coords1[..., 0])
+        net, delta_flow = ub(net, inp, corr, flow, fused=fused, fuse_motion=fuse_motion)
+        dx = delta_flow[..., :1].float()
+        coords1 = coords1 + torch.cat([dx, torch.zeros_like(dx)], dim=-1)
+        up_mask = ub.mask_head(net[0])
+        flow_up = convex_upsample((coords1 - coords0)[..., :1].float(), up_mask.float(),
+                                  cfg.downsample_factor)
+        return (flow_up, coords1, *net)
+
+    preds = []
+    for _ in range(iters):
+        # Truncated BPTT: no gradient through the coordinates (the
+        # reference's coords1.detach()); each iteration is recomputed in
+        # the backward, as the JAX package remats each scan step.
+        flow_up, coords1, *net = checkpoint(one_iteration, coords1.detach(), *net,
+                                            use_reentrant=False)
+        preds.append(flow_up)
+    return torch.stack(preds)
 
 
 def _map_carry(fn, *carries):

@@ -128,10 +128,14 @@ class BasicMultiUpdateBlock(nn.Module):
         return 0.25 * self.mask(net0)
 
     def prepare_fused(self, inp: Sequence[Sequence[torch.Tensor]],
-                      dtype: torch.dtype) -> FusedInputs:
+                      dtype: torch.dtype, *, train: bool = False) -> FusedInputs:
+        """The kernels' loop-invariant inputs. In training (``train``) the
+        czrq context stays bf16 whatever ``RAFT_LANE_PACK8`` says, as in the
+        JAX package; everything here is differentiable torch."""
         grus = self.grus[:self.n_gru_layers]
+        ctx = stream.prepare_gru_context if train else stream.prepare_gru_context_any
         return FusedInputs(
-            czrq=[stream.prepare_gru_context_any(g, c, dtype) for g, c in zip(grus, inp)],
+            czrq=[ctx(g, c, dtype) for g, c in zip(grus, inp)],
             gru=[stream.gru_weights(g, dtype, name)
                  for g, name in zip(grus, ("gru08", "gru16", "gru32"))],
             head=stream.head_weights(self.flow_head, dtype),

@@ -42,6 +42,17 @@ float dtype, so the CPU tests also run them in fp32. The chains take their
 weights from :func:`module_weights`: folded and cast once per model, laid
 out for the kernels once per device, rebuilt when a parameter or buffer
 changes.
+
+Training: the four chains (:func:`fused_stem_layer1`,
+:func:`fused_in_stem_layer1`, :func:`stream_resblock`,
+:func:`stream_head_conv`) are differentiable (``ops/grad.py``): the kernels
+run forward, and the backward is autograd through the same chain of plain
+versions recomputed from the input and the modules' parameters (BatchNorm
+folded differentiably, the instance-norm statistics differentiated), the
+JAX package's XLA oracles. In grad mode :func:`module_weights` builds the
+folded weights afresh on every call instead of handing back the detached
+cache. The single kernel entries and the q8 chains have no backward and
+raise under grad.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import fused_encoders_on, lane_pack8_on, stream_tail_on
 from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, quantize_feature8
+from raft_stereo_tpu_torch.ops.grad import recompute, refuse_grad
 from raft_stereo_tpu_torch.ops.stream import _check_nhwc as _check
 
 Stats = Optional[torch.Tensor]  # (2, C) fp32: sum, sum of squares
@@ -72,14 +84,41 @@ _STEM_TAP_ROW = 22
 def fold_bn(conv, bn) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frozen BatchNorm ``bn`` folded into the conv before it, in fp32, from
     the modules' current parameters and buffers: ``(w, b)``, OIHW."""
-    k = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    w = conv.weight.float() * k[:, None, None, None]
-    b0 = 0.0 if conv.bias is None else conv.bias.float()
-    return w, (b0 - bn.running_mean.float()) * k + bn.bias.float()
+    return _fold(conv.weight, conv.bias, bn.weight, bn.bias, bn)
+
+
+def _fold(w, b, scale, shift, bn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fold_bn` from the given conv and BatchNorm parameters and
+    ``bn``'s running statistics (buffers, never trained)."""
+    k = scale.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    b0 = 0.0 if b is None else b.float()
+    return w.float() * k[:, None, None, None], (b0 - bn.running_mean.float()) * k + shift.float()
 
 
 def _conv_wb(conv) -> ConvWB:
     return conv.weight.float(), None if conv.bias is None else conv.bias.float()
+
+
+def _leaves(pairs) -> list:
+    """The trainable tensors of (conv, bn-or-None) pairs, four a pair."""
+    out = []
+    for conv, bn in pairs:
+        out += [conv.weight, conv.bias, None if bn is None else bn.weight,
+                None if bn is None else bn.bias]
+    return out
+
+
+def _weights_from(pairs, lv) -> List["ConvWeights"]:
+    """ConvWeights of (conv, bn) pairs from their :func:`_leaves`, folded
+    differentiably."""
+    out = []
+    for j, (_, bn) in enumerate(pairs):
+        w, b, scale, shift = lv[4 * j:4 * j + 4]
+        if bn is None:
+            out.append(ConvWeights(w.float(), None if b is None else b.float()))
+        else:
+            out.append(ConvWeights(*_fold(w, b, scale, shift, bn)))
+    return out
 
 
 class ConvWeights:
@@ -116,10 +155,14 @@ def module_weights(conv, bn=None) -> ConvWeights:
     """``conv``'s weights for the chains, BatchNorm ``bn`` folded into them
     where given, kept on the module and rebuilt when one of the tensors
     they come from changes (a new parameter or buffer, an in-place update,
-    ``load_state_dict``, a move to another device)."""
+    ``load_state_dict``, a move to another device). In grad mode, with a
+    parameter that requires grad, they are built afresh and differentiably
+    on every call, and not kept."""
     tensors = [conv.weight, conv.bias]
     if bn is not None:
         tensors += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return ConvWeights(*(fold_bn(conv, bn) if bn is not None else _conv_wb(conv)))
     key = tuple(_tensor_key(t) for t in tensors)
     cached = conv.__dict__.get("_rst_weights")
     if cached is not None and cached[0] == key:
@@ -294,9 +337,10 @@ def stem(x: torch.Tensor, w, bias: Optional[torch.Tensor], *,
     channels (the JAX package's ``_run_stem``): ``(out, statistics)``, the
     statistics ``None`` without ``stats``. w: (64, 3, 7, 7), or the
     :class:`ConvWeights` of the conv (which then carry the bias)."""
+    cw = _weights(w, bias)
+    refuse_grad("enc_stem", x, cw.w, cw.b)
     if x.device.type == "cpu":
         return stem_plain(x, w, bias, stats=stats)
-    cw = _weights(w, bias)
     dev = x.device
     hh, ww, cin = _check_map("x", x, dev)
     if cin != 3 or tuple(cw.w.shape) != (64, 3, 7, 7):
@@ -364,10 +408,12 @@ def conv_pass(kind: str, inputs: Sequence[Normed], w,
     if len(inputs) != (2 if kind == "mid2" else 1):
         raise ValueError(f"{kind} takes {2 if kind == 'mid2' else 1} input(s), got {len(inputs)}")
     a = inputs[0][0]
+    cw = _weights(w, bias)
+    refuse_grad("enc_pass" + ("/q8" if quant else ""), [t for tr in inputs for t in tr], cw.w,
+                cw.b)
     if a.device.type == "cpu":
         return conv_pass_plain(kind, inputs, w, bias, stats=stats, quant=quant)
     _check_quant(kind, stats, quant)
-    cw = _weights(w, bias)
     dev = a.device
     hh, ww, cin = _check_map("inputs[0]", a, dev)
     cout = cw.w.shape[0]
@@ -436,6 +482,7 @@ def point3(s: Normed, y2: Normed, y4: Normed, *, norm: bool) -> torch.Tensor:
     ``o1 = relu(t(s) + t(y2))``, ``out = relu(o1 + t(y4))`` over three raw
     conv outputs. ``norm``: instance norm (the triples' mean and inv apply
     and ``o1`` stays fp32); else relus in the maps' dtype."""
+    refuse_grad("enc_point3", s, y2, y4)
     if s[0].device.type == "cpu":
         return point3_plain(s, y2, y4, norm=norm)
     if norm and any(t[1] is None for t in (s, y2, y4)):
@@ -451,6 +498,7 @@ def point2(x: torch.Tensor, y: Normed, *, norm: bool,
     ``relu(x + t(y))`` with ``x`` the block's input, an activation, and ``y``
     the raw conv2 output; the sum in fp32, one rounding. ``quant``: the
     output's int8 container in place of the map (``_point2_q8_kernel``)."""
+    refuse_grad("enc_point2" + ("/q8" if quant else ""), x, y)
     if x.device.type == "cpu":
         return point2_plain(x, y, norm=norm, quant=quant)
     if norm and y[1] is None:
@@ -463,23 +511,35 @@ def point2(x: torch.Tensor, y: Normed, *, norm: bool,
 # -- chains ---------------------------------------------------------------------
 
 
-def _trunk_passes(x: torch.Tensor, convs: List[ConvWeights], instance: bool) -> torch.Tensor:
+def _ops(plain: bool) -> dict:
+    """The single steps of a chain: the kernels' wrappers, or their plain
+    versions, which the backward recomputes through (looked up at call
+    time)."""
+    if plain:
+        return {"stem": stem_plain, "pass": conv_pass_plain, "point3": point3_plain,
+                "point2": point2_plain}
+    return {"stem": stem, "pass": conv_pass, "point3": point3, "point2": point2}
+
+
+def _trunk_passes(x: torch.Tensor, convs: List[ConvWeights], instance: bool,
+                  plain: bool = False) -> torch.Tensor:
     """Stem + layer1 over a ``(1, H, W, 3)`` image. convs: the stem's
     weights and layer1's four, BatchNorm folded for the frozen-BN trunk."""
+    op = _ops(plain)
     n = x.shape[1] * x.shape[2]
 
     def mv(st):
         return stats_to_mv(st, n) if instance else (None, None)
 
     ws, w1, w2, w3, w4 = convs
-    raw, st = stem(x, ws, None, stats=instance)
+    raw, st = op["stem"](x, ws, None, stats=instance)
     s = (raw, *mv(st))
-    raw, st = conv_pass("mid1", [s], w1, None, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, None, stats=instance)
+    raw, st = op["pass"]("mid1", [s], w1, None, stats=instance)
+    raw, st = op["pass"]("mid1", [(raw, *mv(st))], w2, None, stats=instance)
     y2 = (raw, *mv(st))
-    raw, st = conv_pass("mid2", [s, y2], w3, None, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w4, None, stats=instance)
-    return point3(s, y2, (raw, *mv(st)), norm=instance)
+    raw, st = op["pass"]("mid2", [s, y2], w3, None, stats=instance)
+    raw, st = op["pass"]("mid1", [(raw, *mv(st))], w4, None, stats=instance)
+    return op["point3"](s, y2, (raw, *mv(st)), norm=instance)
 
 
 def _layer1_convs(trunk):
@@ -488,52 +548,68 @@ def _layer1_convs(trunk):
             (blk2.conv1, blk2.norm1), (blk2.conv2, blk2.norm2)]
 
 
+def _chain(pairs, x: torch.Tensor, body):
+    """``body(x, convs, plain)`` with the kernels forward, differentiable in
+    ``x`` and the pairs' parameters through the plain versions."""
+    return recompute(lambda x, *lv: body(x, [module_weights(c, n) for c, n in pairs], False),
+                     lambda x, *lv: body(x, _weights_from(pairs, lv), True),
+                     [x, *_leaves(pairs)], single=True)
+
+
 def fused_stem_layer1(trunk, x: torch.Tensor) -> torch.Tensor:
     """The frozen-BN (context net) stem + layer1 of an encoder module, the
     BatchNorms folded into the conv weights: ``(1, H, W, 64)``."""
-    return _trunk_passes(x, [module_weights(c, n) for c, n in _layer1_convs(trunk)],
-                         instance=False)
+    return _chain(_layer1_convs(trunk), x,
+                  lambda x, convs, plain: _trunk_passes(x, convs, False, plain))
 
 
 def fused_in_stem_layer1(trunk, x: torch.Tensor) -> torch.Tensor:
     """The instance-norm (feature net) stem + layer1 of an encoder module
     for one ``(1, H, W, 3)`` image."""
-    return _trunk_passes(x, [module_weights(c) for c, _ in _layer1_convs(trunk)],
-                         instance=True)
+    return _chain([(c, None) for c, _ in _layer1_convs(trunk)], x,
+                  lambda x, convs, plain: _trunk_passes(x, convs, True, plain))
+
+
+def _block_pairs(block, norm_fn: str):
+    if norm_fn == "instance":
+        return [(block.conv1, None), (block.conv2, None)]
+    return [(block.conv1, block.norm1), (block.conv2, block.norm2)]
 
 
 def stream_resblock(block, x: torch.Tensor, norm_fn: str) -> torch.Tensor:
     """A stride-1 identity-shortcut residual block as raw1 -> mid1 -> point2
     (the JAX package's ``stream_resblock``)."""
-    return _resblock(block, x, norm_fn, quant=False)
+    instance = norm_fn == "instance"
+    return _chain(_block_pairs(block, norm_fn), x,
+                  lambda x, convs, plain: _resblock(x, convs, instance, False, plain))
 
 
 def stream_resblock_q8(block, x: torch.Tensor, norm_fn: str) -> Lane8:
     """:func:`stream_resblock` whose point2 exit writes the int8 container
     (the JAX package's ``stream_resblock_q8``)."""
-    return _resblock(block, x, norm_fn, quant=True)
+    convs = [module_weights(c, n) for c, n in _block_pairs(block, norm_fn)]
+    return _resblock(x, convs, norm_fn == "instance", True)
 
 
-def _resblock(block, x: torch.Tensor, norm_fn: str, quant: bool):
-    instance = norm_fn == "instance"
-    if instance:
-        w1, w2 = module_weights(block.conv1), module_weights(block.conv2)
-    else:
-        w1, w2 = module_weights(block.conv1, block.norm1), module_weights(block.conv2, block.norm2)
+def _resblock(x: torch.Tensor, convs: List[ConvWeights], instance: bool, quant: bool,
+              plain: bool = False):
+    op = _ops(plain)
+    w1, w2 = convs
     n = x.shape[1] * x.shape[2]
 
     def mv(st):
         return stats_to_mv(st, n) if instance else (None, None)
 
-    raw, st = conv_pass("raw1", [(x, None, None)], w1, None, stats=instance)
-    raw, st = conv_pass("mid1", [(raw, *mv(st))], w2, None, stats=instance)
-    return point2(x, (raw, *mv(st)), norm=instance, quant=quant)
+    raw, st = op["pass"]("raw1", [(x, None, None)], w1, None, stats=instance)
+    raw, st = op["pass"]("mid1", [(raw, *mv(st))], w2, None, stats=instance)
+    return op["point2"](x, (raw, *mv(st)), norm=instance, quant=quant)
 
 
 def stream_head_conv(conv, x: torch.Tensor) -> torch.Tensor:
     """A 3x3 pad-1 output-head conv as one raw1 pass (the JAX package's
     ``stream_head_conv``)."""
-    return conv_pass("raw1", [(x, None, None)], module_weights(conv), None, stats=False)[0]
+    return _chain([(conv, None)], x, lambda x, convs, plain: _ops(plain)["pass"](
+        "raw1", [(x, None, None)], convs[0], None, stats=False)[0])
 
 
 def stream_head_conv_q8(conv, x: torch.Tensor) -> Lane8:

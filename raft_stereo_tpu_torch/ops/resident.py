@@ -21,6 +21,10 @@ off raises, as in the JAX package, so stale quantization never serves. A
 launch counts under ``fused_iter`` and, in an int8 mode, once more as the
 variant ``fused_iter:pack8``, ``fused_iter:lane8`` or
 ``fused_iter:pack8+lane8``.
+
+Test mode only, as in the JAX package (which engages it only in its
+test-mode scan): it has no backward, and reached under grad with an input
+that requires grad it raises.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import lane_pack8_on
 from raft_stereo_tpu_torch.corr.reg_cuda import CorrOperands, Lane8, kernel_levels, lookup_plain
+from raft_stereo_tpu_torch.ops.grad import refuse_grad
 from raft_stereo_tpu_torch.ops.stream import (
     Czrq, GruWeights, HeadWeights, MotionWeights, _check_nhwc, _czrq_args,
     conv_gru_plain, motion_plain)
@@ -81,6 +86,8 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         raise RuntimeError(
             "fused_iter: an int8 czrq container arrived with RAFT_LANE_PACK8 off; the "
             "switch must stay on for the lifetime of a packed state")
+    refuse_grad("fused_iter", list(motion_w[:7]), gru_w[:2], list(head_w[:3]), corr_ops.levels,
+                h, czrq, coords_x, flow, x2)
     if h.device.type == "cpu":
         return fused_iter_plain(motion_w, gru_w, head_w, corr_ops, h, czrq, coords_x, flow,
                                 *x2)

@@ -32,6 +32,15 @@ kernels and their plain versions add ``q * scale`` (the product rounded to
 fp32 first, then added to the fp32 accumulator) where they add the bf16
 czrq otherwise, and the launches count as the ``lane8`` variant
 (``conv_gru:<level>:lane8``, ``gru1632:lane8``).
+
+Training: :func:`fused_conv_gru`, :func:`fused_motion` and
+:func:`fused_gru1632` are differentiable (``ops/grad.py``): the forward is
+the kernel, the backward autograd through the plain version recomputed from
+the saved inputs, the JAX package's XLA oracle. Their gradients reach the
+module parameters through the layout builders (:func:`gru_weights`,
+:func:`head_weights`, :func:`motion_weights`, :func:`prepare_gru_context`),
+which are plain differentiable torch. The int8 lane variants have no
+backward and raise under grad.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import lane_pack8_on
 from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quantize_feature8
+from raft_stereo_tpu_torch.ops.grad import recompute, refuse_grad
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners, lerp_taps
 
 Czrq = Union[torch.Tensor, Lane8]  # the folded context, or its int8 container
@@ -61,7 +71,7 @@ def _conv9(x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
     """fp32 3x3 conv of NHWC ``x`` with a K-major (9, Cout, Cin) matrix,
     zero padding 1: the kernels' fp32 accumulator."""
     cout, cin = wk.shape[1:]
-    w = wk.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
+    w = wk.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1).contiguous()
     out = F.conv2d(x.float().permute(0, 3, 1, 2), w, None, 1, 1)
     return out.permute(0, 2, 3, 1)
 
@@ -201,9 +211,44 @@ def _check_nhwc(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _head_leaves(head: Optional[HeadWeights]) -> list:
+    return [] if head is None else [head.w1_k, head.b1, head.w2_k]
+
+
 def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: Czrq,
                    *x_list: torch.Tensor, head: Optional[HeadWeights] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`conv_gru_launch`, differentiable: its backward is autograd
+    through :func:`conv_gru_plain` (the JAX package's ``fused_conv_gru`` /
+    ``fused_gru_head`` oracle). Same arguments and return."""
+    leaves = [h, czrq, *x_list, w.w_gate_k, w.w_q_k, *_head_leaves(head)]
+    if isinstance(czrq, Lane8):
+        refuse_grad(f"conv_gru:{w.level}:lane8", leaves)
+        return conv_gru_launch(w, h, czrq, *x_list, head=head)
+    nx = len(x_list)
+
+    def unpack(leaves):
+        hd = None if head is None else HeadWeights(*leaves[4 + nx:7 + nx], head.nh)
+        return (GruWeights(leaves[2 + nx], leaves[3 + nx], w.ch, w.level), leaves[0],
+                leaves[1], leaves[2:2 + nx], hd)
+
+    def run(*leaves):
+        gw, hh, cz, xs, hd = unpack(leaves)
+        out = conv_gru_launch(gw, hh, cz, *xs, head=hd)
+        return out if hd is not None else out[0]
+
+    def plain(*leaves):
+        gw, hh, cz, xs, hd = unpack(leaves)
+        out = conv_gru_plain(gw, hh, cz, *xs, head=hd)
+        return out if hd is not None else out[0]
+
+    out = recompute(run, plain, leaves, single=head is None)
+    return tuple(out) if head is not None else (out, None)
+
+
+def conv_gru_launch(w: GruWeights, h: torch.Tensor, czrq: Czrq,
+                    *x_list: torch.Tensor, head: Optional[HeadWeights] = None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One ConvGRU step on NHWC tensors; with ``head``, the FlowHead's x
     delta too (the JAX package's ``fused_conv_gru`` and ``fused_gru_head``).
     Returns ``(h', dx)`` with ``dx`` (B, H, W, 1) fp32 without
@@ -213,6 +258,8 @@ def fused_conv_gru(w: GruWeights, h: torch.Tensor, czrq: Czrq,
     or its int8 container from :func:`prepare_gru_context_any`; x_list: one
     to three (B, H, W, c_i) inputs, never concatenated.
     """
+    refuse_grad(f"conv_gru:{w.level}", h, czrq, x_list, w.w_gate_k, w.w_q_k,
+                _head_leaves(head))
     if h.device.type == "cpu":
         return conv_gru_plain(w, h, czrq, *x_list, head=head)
     b, hh, ww, ch = h.shape
@@ -275,9 +322,26 @@ def motion_plain(w: MotionWeights, flow: torch.Tensor,
     return torch.cat([out, flow], dim=-1)
 
 
+def _motion_leaves(w: MotionWeights) -> list:
+    return [w.wc1, w.wf1, w.b1, w.b2, w.bf, w.w2_k, w.wf_k]
+
+
 def fused_motion(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+    """:func:`motion_launch`, differentiable through :func:`motion_plain`
+    (the JAX package's ``fused_motion`` oracle)."""
+
+    def weights(leaves):
+        return MotionWeights(*leaves[2:], w.n1, w.nf, w.cf)
+
+    return recompute(lambda *lv: motion_launch(weights(lv), lv[0], lv[1]),
+                     lambda *lv: motion_plain(weights(lv), lv[0], lv[1]),
+                     [flow, corr, *_motion_leaves(w)], single=True)
+
+
+def motion_launch(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
     """Motion features (B, H, W, cf + 2): the fused 126 channels, then the
     raw 2-channel flow. flow: (B, H, W, 2) with y == 0; corr: (B, H, W, L(2r+1))."""
+    refuse_grad("motion", flow, corr, _motion_leaves(w))
     if corr.device.type == "cpu":
         return motion_plain(w, flow, corr)
     b, hh, ww, ccorr = corr.shape
@@ -327,6 +391,26 @@ def gru1632_plain(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
 def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
                   h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
                   x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru1632_launch`, differentiable through :func:`gru1632_plain`
+    (the JAX package's ``fused_gru1632`` oracle)."""
+    if isinstance(czrq16, Lane8) or isinstance(czrq32, Lane8):
+        refuse_grad("gru1632:lane8", h16, h32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
+                    w32.w_gate_k, w32.w_q_k)
+        return gru1632_launch(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
+
+    def args(lv):
+        return (GruWeights(lv[6], lv[7], w16.ch, w16.level),
+                GruWeights(lv[8], lv[9], w32.ch, w32.level), *lv[:6])
+
+    return recompute(lambda *lv: gru1632_launch(*args(lv)),
+                     lambda *lv: gru1632_plain(*args(lv)),
+                     [h16, h32, czrq16, czrq32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
+                      w32.w_gate_k, w32.w_q_k])
+
+
+def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
+                   h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
+                   x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two coarse GRU steps in one launch (the JAX package's
     ``fused_gru1632``): ``(h16', h32')`` with
     ``h32' = gru32(h32, czrq32, x1p)`` and
@@ -339,6 +423,8 @@ def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16). The two
     czrq are both bf16 or both int8 containers.
     """
+    refuse_grad("gru1632", h16, h32, czrq16, czrq32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
+                w32.w_gate_k, w32.w_q_k)
     if h16.device.type == "cpu":
         return gru1632_plain(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
     b, hh16, ww16, ch = h16.shape

@@ -571,8 +571,13 @@ def test_encoder_weights_are_prepared_once_and_follow_changes(rng):
     _, model = _cnet(rng)
     _, other = _cnet(np.random.default_rng(1))
     conv, bn = model.layer1[0].conv1, model.layer1[0].norm1
-    first = enc.module_weights(conv, bn)
-    assert enc.module_weights(conv, bn) is first
+    with torch.no_grad():
+        first = enc.module_weights(conv, bn)
+        assert enc.module_weights(conv, bn) is first
+    # In grad mode they are built afresh, differentiably, and not kept.
+    fresh = enc.module_weights(conv, bn)
+    assert fresh is not first and fresh.w.requires_grad
+    assert torch.equal(fresh.w, first.w) and torch.equal(fresh.b, first.b)
     made = []
     for _ in range(2):
         first.layout("probe", torch.device("cpu"), lambda w, b, dev: made.append(1) or w)

@@ -1567,3 +1567,148 @@ def test_gpu_exact_cache_hit_counts_no_program_call(cuda):
     assert sum(v for _, v in sess.registry.series(
         "raft_program_device_seconds_total")) == device
     assert dict(kernels.launches) == launches
+
+
+# -- training: the kernels' backward on the card ------------------------------------
+# Each differentiable kernel entry (ops/grad.py) runs its kernel forward on
+# the card and autograd through its plain version backward, on the card;
+# the CPU copy runs the plain version both ways. Gradients in bf16 are held
+# per tensor to a relative L2 of 2^-4 (the forward differs by bf16 ulps, and
+# the card's convolutions sum the backward in another order), the
+# denominator floored at 1e-2 of the case's largest gradient norm: a conv
+# bias before instance norm has a true gradient of zero and holds bf16
+# noise on both sides (the first card run read 1.14 for it unfloored).
+GRAD_REL = 2.0 ** -4
+
+
+def _bwd_rel(a, b, floor: float = 1e-12) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / max(float(b.norm()), floor))
+
+
+def _bwd_both(make, seed):
+    """``make(device, generator)`` -> (output, leaves) on the card and on the
+    CPU from the same seed; returns the gradients of a fixed projection."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        o, leaves = make(torch.device(dev), torch.Generator().manual_seed(seed))
+        outs = [t for t in (o if isinstance(o, (tuple, list)) else (o,)) if t is not None]
+        g = torch.Generator().manual_seed(seed + 100)
+        total = sum((t.float() * torch.randn(t.shape, generator=g).to(t.device)).sum()
+                    for t in outs)
+        out[dev] = torch.autograd.grad(total, leaves, allow_unused=True)
+        assert all(t.grad_fn is not None for t in outs)
+    return out["cuda"], out["cpu"]
+
+
+def _bwd_leaf(shape, g, dev, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=g) * scale).to(device=dev, dtype=dtype).requires_grad_()
+
+
+def _bwd_gru(dev, g, head):
+    gru, fh, _ = _modules_on(dev, 64, 64, 3)
+    h = _bwd_leaf((2, 12, 20, 64), g, dev)
+    ctx = [_bwd_leaf((2, 12, 20, 64), g, dev) for _ in range(3)]
+    x = _bwd_leaf((2, 12, 20, 64), g, dev)
+    czrq = stream.prepare_gru_context(gru, ctx, torch.bfloat16)
+    w = stream.gru_weights(gru, torch.bfloat16, "gru08")
+    hd = stream.head_weights(fh, torch.bfloat16) if head else None
+    out = stream.fused_conv_gru(w, h, czrq, x, head=hd)
+    leaves = [h, *ctx, x, *gru.parameters()] + (list(fh.parameters()) if head else [])
+    return (out if head else out[0]), leaves
+
+
+def _bwd_motion(dev, g):
+    _, _, m = _modules_on(dev, 64, 64, 5)
+    corr = _bwd_leaf((2, 12, 20, 36), g, dev)
+    flow = torch.cat([_bwd_leaf((2, 12, 20, 1), g, dev, 4.0).detach(),
+                      torch.zeros(2, 12, 20, 1, dtype=torch.bfloat16, device=dev)], -1)
+    flow.requires_grad_()
+    return stream.fused_motion(stream.motion_weights(m, torch.bfloat16), flow, corr), \
+        [flow, corr, *m.parameters()]
+
+
+def _bwd_gru1632(dev, g):
+    g16, _, _ = _modules_on(dev, 64, 128, 7)
+    g32, _, _ = _modules_on(dev, 64, 64, 8)
+    h16, h32 = _bwd_leaf((2, 16, 24, 64), g, dev), _bwd_leaf((2, 8, 12, 64), g, dev)
+    c16 = [_bwd_leaf((2, 16, 24, 64), g, dev) for _ in range(3)]
+    c32 = [_bwd_leaf((2, 8, 12, 64), g, dev) for _ in range(3)]
+    x0p, x1p = _bwd_leaf((2, 16, 24, 64), g, dev), _bwd_leaf((2, 8, 12, 64), g, dev)
+    out = stream.fused_gru1632(
+        stream.gru_weights(g16, torch.bfloat16, "gru16"),
+        stream.gru_weights(g32, torch.bfloat16, "gru32"), h16, h32,
+        stream.prepare_gru_context(g16, c16, torch.bfloat16),
+        stream.prepare_gru_context(g32, c32, torch.bfloat16), x0p, x1p)
+    return out, [h16, h32, x0p, x1p, *c16, *c32, *g16.parameters(), *g32.parameters()]
+
+
+def _bwd_lookup(dev, g, alt=False):
+    f1 = _bwd_leaf((2, 6, 40, 64), g, dev)
+    f2 = _bwd_leaf((2, 6, 40, 64), g, dev)
+    coords = (torch.rand((2, 6, 40), generator=g) * 48 - 4).to(dev)
+    if alt:
+        fn = alt_cuda.make_alt_cuda_corr_fn(f1, f2, num_levels=4, radius=4)
+    else:
+        fn = reg_cuda.corr_fn_from_operands(
+            reg_cuda.build_corr_operands(f1, f2, num_levels=4, radius=4))
+    return fn(coords), [f1, f2]
+
+
+def _bwd_encoder(dev, g, chain):
+    from raft_stereo_tpu_torch.models.extractor import MultiBasicEncoder
+    model = MultiBasicEncoder(output_dim=[(128, 128, 128)] * 2, norm_fn="batch", downsample=2)
+    init_weights(model, torch.Generator().manual_seed(9))
+    model = model.to(dev)
+    if chain in ("stem_layer1", "in_stem_layer1"):
+        x = _bwd_leaf((1, 40, 72, 3), g, dev)
+        fn = enc.fused_stem_layer1 if chain == "stem_layer1" else enc.fused_in_stem_layer1
+        return fn(model, x), [x, *model.conv1.parameters(), *model.layer1.parameters()]
+    if chain == "resblock":
+        x = _bwd_leaf((1, 20, 36, 96), g, dev)
+        blk = model.layer2[1]
+        return enc.stream_resblock(blk, x, "batch"), [x, *blk.parameters()]
+    conv = model.outputs08[0][1]
+    x = _bwd_leaf((1, 20, 36, 128), g, dev)
+    return enc.stream_head_conv(conv, x), [x, *conv.parameters()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gru", "gru_head", "motion", "gru1632", "lookup", "alt",
+                                  "stem_layer1", "in_stem_layer1", "resblock", "head_conv"])
+def test_gpu_kernel_backward_matches_cpu_plain(cuda, case):
+    from raft_stereo_tpu_torch import kernels
+    makers = {"gru": lambda d, g: _bwd_gru(d, g, False),
+              "gru_head": lambda d, g: _bwd_gru(d, g, True),
+              "motion": _bwd_motion, "gru1632": _bwd_gru1632,
+              "lookup": _bwd_lookup, "alt": lambda d, g: _bwd_lookup(d, g, True)}
+    make = makers.get(case, lambda d, g: _bwd_encoder(d, g, case))
+    kernels.reset_launches()
+    card, cpu = _bwd_both(make, 21)
+    assert sum(kernels.launches.values()) > 0, "no kernel launched on the card"
+    floor = 1e-2 * max(float(b.float().norm()) for b in cpu if b is not None)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if b is None:
+            assert a is None or not float(a.abs().max()) > 0, (case, i)
+            continue
+        assert _bwd_rel(a, b, floor) <= GRAD_REL, (case, i, _bwd_rel(a, b, floor))
+
+
+@pytest.mark.gpu
+def test_gpu_module_weights_in_grad_mode_train_the_encoder_convs(cuda):
+    """In grad mode the encoder chains take freshly folded, differentiable
+    weights: the context net's stem and layer1 convs and BatchNorm
+    parameters get gradients through the kernels' chain on the card."""
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.models.extractor import MultiBasicEncoder
+    model = MultiBasicEncoder(output_dim=[(128, 128, 128)] * 2, norm_fn="batch", downsample=2)
+    init_weights(model, torch.Generator().manual_seed(4))
+    model = model.to(cuda)
+    x = torch.rand((1, 64, 96, 3), device=cuda, dtype=torch.bfloat16)
+    kernels.reset_launches()
+    out = model(x)
+    (sum(o.float().square().mean() for lvl in out for o in lvl)).backward()
+    assert kernels.launches["enc_stem"] == 1 and kernels.launches["enc_pass"] == 14
+    for m in (model.conv1, model.norm1, model.layer1[0].conv1, model.layer1[1].norm2):
+        assert all(p.grad is not None and float(p.grad.abs().max()) > 0
+                   for p in m.parameters())

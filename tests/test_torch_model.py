@@ -277,9 +277,11 @@ def test_config_choices():
     assert with_eval_precision(RAFTStereoConfig(corr_implementation="alt_tpu")).mixed_precision
     assert not with_eval_precision(RAFTStereoConfig(corr_implementation="alt")).mixed_precision
     assert RAFTStereoConfig(slow_fast_gru=True).slow_fast_gru
-    with pytest.raises(NotImplementedError):
-        RAFTStereo(RAFTStereoConfig(**SMALL))(torch.zeros(1, 32, 32, 3),
-                                              torch.zeros(1, 32, 32, 3))
+    # Train mode: the per-iteration
+    # upsampled predictions.
+    preds = RAFTStereo(RAFTStereoConfig(**SMALL))(torch.zeros(1, 32, 32, 3),
+                                                  torch.zeros(1, 32, 32, 3), iters=2)
+    assert preds.shape == (2, 1, 32, 32, 1) and preds.grad_fn is not None
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
@@ -354,6 +356,13 @@ def test_port_imports_with_jax_blocked():
             "raft_stereo_tpu_torch.serve.stream, raft_stereo_tpu_torch.serve.cache, "
             "raft_stereo_tpu_torch.serve.fleet, raft_stereo_tpu_torch.obs.fleet, "
             "raft_stereo_tpu_torch.fleet_stereo, "
+            "raft_stereo_tpu_torch.ops.grad, raft_stereo_tpu_torch.engine, "
+            "raft_stereo_tpu_torch.engine.train, raft_stereo_tpu_torch.engine.evaluate, "
+            "raft_stereo_tpu_torch.engine.checkpoint, raft_stereo_tpu_torch.engine.steps, "
+            "raft_stereo_tpu_torch.data.loader, raft_stereo_tpu_torch.data.datasets, "
+            "raft_stereo_tpu_torch.data.augmentor, raft_stereo_tpu_torch.data.photometric, "
+            "raft_stereo_tpu_torch.data.synthetic, "
+            "raft_stereo_tpu_torch.train_stereo, raft_stereo_tpu_torch.evaluate_stereo, "
             "chip_smoke\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(REPO))

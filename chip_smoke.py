@@ -214,6 +214,23 @@ Phases, each fatal on failure:
    profiled step's idle share and its busy seconds over the timed steps'
    median wall; ``fused_train`` against the default in turns (1, f, f, 1) with
    TF32 on (``"phase": "train"``).
+11. two ranks sharing the card (``phase_parallel``): this script relaunched
+   twice (``--parallel-rank``) as a 2-process pod over gloo
+   (``COORDINATOR_ADDRESS``, ``PROCESS_ID``, ``NUM_PROCESSES``; NCCL takes
+   one rank a card and is not exercised), loading the kernels phase 2
+   built. ``--spatial_shard 2`` at full width: the KITTI pair through the
+   default model at 32 iterations on a 2-way space row, each rank's
+   launches exactly PARALLEL_LAUNCHES a frame (the spatial conv_gru at all
+   three levels, motion and the lookup, 32 each; no resident iteration,
+   gru16+32 or encoder kernel), the gathered disparity in the canary band
+   (``serve/guard.py``) of the one-process forward with the encoders plain
+   and in the route band of the default forward; each spatial entry
+   against its plain version on the rank's shard; one data-parallel (2, 1)
+   and one height-sharded (1, 2) train step (GRAD_SHAPE, B=2,
+   ``fused_train``) in phase 10's gradient bands of the one-process step
+   on the same batch. Each rank's frame ms, peak bytes and step launches
+   (``"phase": "parallel"``); the kernels line gives the conv_gru, motion
+   and lookup rows their launches there (``spatial_shard_2_launches``).
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -1178,19 +1195,28 @@ def _q8_steps(lane, ref) -> float:
     return float(d / torch.maximum(lane.scale, ref.scale))
 
 
-def _launches_per_call(fn, reps: int = 5) -> int:
+def _launches_per_call(fn, reps: int = 5, windows: int = 3) -> tuple[int, list[int]]:
     """Kernels, fills and copies one call of ``fn`` puts on the card
     (torch.profiler over ``reps`` calls, rounded: a lost event does not
-    change the count)."""
+    change the count), and the events each profiler window read. A window
+    that reads under one launch a call has lost events (every call
+    launches), as the profiler was seen to do once in a whole run: it is
+    taken again, up to ``windows`` times, and every window's count is
+    returned so that a repeat shows in the record."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return round(n / reps)
+    counts: list[int] = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+        if round(counts[-1] / reps):
+            break
+    return round(counts[-1] / reps), counts
 
 
 def _q8_result(variant, path, hw, shape, lane, again, host, ref, nbytes, flops, peak, kernel,
@@ -1209,12 +1235,13 @@ def _q8_result(variant, path, hw, shape, lane, again, host, ref, nbytes, flops, 
     steps = _q8_steps(lane, ref)
     bound_ms, bound_by = _bound(nbytes, flops, peak)
     reps, warmup = (20, 3) if h * w <= FEAT[0] * FEAT[1] else (5, 1)
-    launches = _launches_per_call(kernel)
+    launches, windows = _launches_per_call(kernel)
     out = {"name": f"{variant} {h}x{w}", "counter": variant.split(":")[0], "variant": variant,
            "on_path": path, "tol": Q8_STEPS, "tol_unit": "quantization steps",
            "max_steps": steps, "max_abs_err": steps * float(lane.scale),
            "bitwise_equal_host_quantization": bitwise, "deterministic": same,
            "scale": float(lane.scale), "own": list(own), "launches_per_call": launches,
+           "profiler_windows": windows,
            "ok": bitwise and same and steps <= Q8_STEPS
            and launches_per_call in (None, launches),
            **_timings(kernel, plain, reps, warmup, own),
@@ -3801,11 +3828,340 @@ def phase_bench() -> list:
     return results
 
 
+# -- phase 11: two ranks sharing the card (--spatial_shard 2) ---------------------
+
+PARALLEL_DIR = ("build", "chip_smoke_parallel")
+PARALLEL_WAIT_S = 400
+PARALLEL_SEED = 41
+PARALLEL_BACKEND = "gloo"  # two ranks on one card: NCCL takes one rank a card
+# A KITTI frame's launches on each rank of a 2-way space row: every GRU
+# level's shard (48, 24 and 12 rows of 96, 48 and 24) reaches the spatial
+# entries' halo of 8 rows, so each level runs its serial kernel over its
+# extended rows; the lookup on the rank's rows; no resident iteration, no
+# gru16+32 and no encoder kernel (the encoders run whole and plain).
+PARALLEL_LAUNCHES = {"conv_gru:gru08": ITERS, "conv_gru:gru16": ITERS,
+                     "conv_gru:gru32": ITERS, "motion": ITERS, "corr_lookup": ITERS}
+
+
+def _parallel_batch():
+    """GRAD_SHAPE, B=2; the top half of the height holds more valid
+    pixels than the bottom, so the two height shards' counts differ."""
+    g = torch.Generator().manual_seed(13)
+    b, (h, w) = 2, GRAD_SHAPE
+    u = torch.rand((b, h, w), generator=g)
+    top = torch.arange(h)[None, :, None] < h // 2
+    return {"image1": torch.rand((b, h, w, 3), generator=g) * 255,
+            "image2": torch.rand((b, h, w, 3), generator=g) * 255,
+            "flow": -torch.rand((b, h, w, 1), generator=g) * 8,
+            "valid": torch.where(top, u > 0.1, u > 0.6).float()}
+
+
+def _train_model():
+    model = seeded_model("cuda")
+    model.cfg.fused_train = True
+    return model.train()
+
+
+def _step_grads(step, model, batch: dict) -> tuple:
+    """One train step: its host metrics and the gradients it took,
+    unclipped, on the CPU."""
+    host = step(batch)
+    scale = 1.0 / max(host["grad_norm"], 1.0)
+    return host, {n: p.grad.detach().float().cpu() / scale
+                  for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _grad_bands(name: str, got: dict, ref: dict) -> dict:
+    """Per-leaf relative L2 of ``got`` against ``ref`` in phase_train's
+    bands (GRAD_BAND_MAT for weights, GRAD_BAND_VEC for vectors)."""
+    floor = 1e-2 * max(float(t.norm()) for t in ref.values())
+    if set(got) != set(ref):
+        raise SystemExit(f"{name}: gradient leaves differ: {sorted(set(got) ^ set(ref))}")
+    rel = {n: float((got[n] - r).norm()) / max(float(r.norm()), floor) for n, r in ref.items()}
+    mat = max((v, n) for n, v in rel.items() if ref[n].ndim > 1)
+    vec = max((v, n) for n, v in rel.items() if ref[n].ndim == 1)
+    ok = mat[0] <= GRAD_BAND_MAT and vec[0] <= GRAD_BAND_VEC
+    if not ok:
+        raise SystemExit(f"{name}: gradients outside the bands: {mat}, {vec}")
+    return {"worst_weight": mat, "worst_vector": vec}
+
+
+def _spatial_entry_checks(space) -> list:
+    """Each spatial entry on this rank's shard of the KITTI shapes against
+    its plain version over the same extended rows (check_gru's and
+    check_motion's tolerances); both ranks run them in the same order."""
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    from raft_stereo_tpu_torch.models.update import BasicMotionEncoder, ConvGRU
+    from raft_stereo_tpu_torch.ops import stream
+    from raft_stereo_tpu_torch.ops.halo import HALO, extend_rows
+    rows = []
+    for level in ("gru08", "gru16", "gru32"):
+        h, w = {"gru08": FEAT, "gru16": (FEAT[0] // 2, FEAT[1] // 2),
+                "gru32": (FEAT[0] // 4, FEAT[1] // 4)}[level]
+        parts = (128,) if level == "gru32" else (128, 128)
+        head = level == "gru08"
+        wts, hw, hst, _, xs = _gru_case(_gen(4), level, h, w, 128, parts, head)
+        g = _gen(7)
+        ctx = [_randn((1, h, w, 128), g, 0.3) for _ in range(3)]
+        sl = space.rows(h)
+        hst, xs, ctx = hst[:, sl], [x[:, sl] for x in xs], [c[:, sl] for c in ctx]
+        gru = ConvGRU(128, sum(parts))  # _gru_case's weights (seed 2), for the bias fold
+        init_weights(gru, torch.Generator().manual_seed(2))
+        gru = gru.cuda()
+        with torch.no_grad():
+            czrq = stream.spatial_prepare_gru_context(space, gru, ctx, torch.bfloat16)
+            got_h, got_dx = stream.fused_conv_gru_spatial(space, wts, hst, czrq, *xs, head=hw)
+            he, top = extend_rows(hst, HALO, space)
+            ref_h, ref_dx = stream.conv_gru_plain(
+                wts, he, czrq, *[extend_rows(x, HALO, space)[0] for x in xs], head=hw)
+        hl = hst.shape[1]
+        ref_h = ref_h[:, top:top + hl]
+        tol = 2.0 ** -5
+        row = {"name": f"conv_gru_spatial:{level}{'+head' if head else ''}",
+               "shard": f"1x{hl}x{w}x128 of {h} rows", "max_abs_err": _max_err(got_h, ref_h),
+               "tol": tol}
+        row["ok"] = row["max_abs_err"] <= tol
+        if head:
+            ref_dx = ref_dx[:, top:top + hl]
+            dx_rms = float(ref_dx.square().mean().sqrt())
+            row.update(max_abs_err_dx=_max_err(got_dx, ref_dx), tol_dx=tol * dx_rms)
+            row["ok"] = row["ok"] and row["max_abs_err_dx"] <= row["tol_dx"]
+        rows.append(row)
+    h, w = FEAT
+    enc = BasicMotionEncoder(36)
+    init_weights(enc, torch.Generator().manual_seed(6))
+    enc = enc.cuda()
+    g = _gen(5)
+    corr = _randn((1, h, w, 36), g)
+    flow_x = _randn((1, h, w, 1), g, 4.0)
+    flow = torch.cat([flow_x, torch.zeros_like(flow_x)], -1)
+    sl = space.rows(h)
+    corr, flow = corr[:, sl], flow[:, sl]
+    with torch.no_grad():
+        wts = stream.motion_weights(enc, torch.bfloat16)
+        got = stream.fused_motion_spatial(space, wts, flow, corr)
+        fe, top = extend_rows(flow, HALO, space)
+        ref = stream.motion_plain(wts, fe, extend_rows(corr, HALO, space)[0])
+    ref = ref[:, top:top + corr.shape[1]]
+    scale = max(1.0, float(ref[..., :wts.cf].float().abs().max()))
+    err = _max_err(got, ref)
+    rows.append({"name": "motion_spatial", "shard": f"1x{corr.shape[1]}x{w} of {h} rows",
+                 "max_abs_err": err, "tol": 2.0 ** -5 * scale,
+                 "ok": err <= 2.0 ** -5 * scale and torch.equal(got[..., wts.cf:], flow)})
+    torch.cuda.synchronize()
+    return rows
+
+
+def _parallel_rank(d: Path) -> int:
+    """One rank of phase_parallel (``chip_smoke.py --parallel-rank DIR``,
+    launched by it): the KITTI frame on a 2-way space row, its launches
+    counted; the spatial entries against their plain versions; one
+    data-parallel and one height-sharded train step. Writes
+    ``DIR/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.engine.optimizer import make_optimizer
+    from raft_stereo_tpu_torch.engine.steps import make_eval_step, make_train_step
+    from raft_stereo_tpu_torch.ops.padder import InputPadder
+    from raft_stereo_tpu_torch.parallel import make_mesh, maybe_distributed_init, shard_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_distributed_init(backend=PARALLEL_BACKEND, device="cuda")
+    rank = dist.get_rank()
+    inp = torch.load(d / "inputs.pt", weights_only=True)
+    space = make_mesh(1, 2)
+    model = seeded_model("cuda")
+    left, right = (t.cuda() for t in inp["pair"])
+    padder = InputPadder(left.shape, divis_by=32)
+    left, right = padder.pad(left, right)
+    step = make_eval_step(model, ITERS, space)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(torch.cuda.current_device())}
+    frame_ms, launches = [], []
+    for _ in range(2):  # the first frame loads the kernels; both counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, up = step(left, right)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(kernels.launches))
+    out.update(frame_ms=frame_ms, frame_launches=launches,
+               frame_peak_bytes=torch.cuda.max_memory_allocated(),
+               disparity=(-padder.unpad(up)[0, ..., 0]).float().cpu())
+    # A third frame, profiled: this rank's device busy seconds, and its
+    # halo exchanges' count and wall seconds (each starts with a copy to
+    # host memory, which waits for the kernels queued before it).
+    from raft_stereo_tpu_torch.obs.profiler import profile_device_seconds
+    from raft_stereo_tpu_torch.parallel import comm
+    exch = {"calls": 0, "s": 0.0}
+    swap = comm.swap_with_neighbours
+
+    def timed_swap(*a, **k):
+        t = time.perf_counter()
+        try:
+            return swap(*a, **k)
+        finally:
+            exch["calls"] += 1
+            exch["s"] += time.perf_counter() - t
+
+    comm.swap_with_neighbours = timed_swap
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        busy = profile_device_seconds(lambda: step(left, right))
+    comm.swap_with_neighbours = swap
+    out["profiled_frame"] = {"wall_s": time.perf_counter() - t0, "busy_s": busy,
+                             "exchanges": exch["calls"], "exchange_wall_s": exch["s"]}
+    out["entries"] = _spatial_entry_checks(space)
+    batch = {k: v.cuda() for k, v in inp["batch"].items()}
+    for tag, grid in (("data", make_mesh(2, 1)), ("space", space)):
+        model = _train_model()
+        opt = make_optimizer(model, 2e-4, 100, 1e-5, skip_nonfinite=3)
+        tstep = make_train_step(model, opt, GRAD_ITERS, grid=grid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        host, grads = _step_grads(tstep, model, shard_batch(batch, grid))
+        torch.cuda.synchronize()
+        out[f"step_{tag}"] = {"host": host, "launches": dict(kernels.launches),
+                              "s": time.perf_counter() - t0,
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "grads": grads if rank == 0 else None}
+    torch.save(out, d / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(smi: str) -> dict:
+    """Two ranks sharing the card over gloo, ``--spatial_shard 2`` at full
+    width (the default architecture, reg_cuda, bf16, the KITTI pair): the
+    gathered disparity in the canary band (serve/guard.py) of the one-process
+    forward with the encoders plain (the route a space row takes: they run
+    whole and plain on every rank) and within the route band of the default
+    forward; each rank's launches, exactly PARALLEL_LAUNCHES a frame; each
+    spatial entry against its plain version on the same shard; one
+    data-parallel (2, 1) and one height-sharded (1, 2) train step, each
+    within phase_train's gradient bands of the one-process step on the same
+    global batch (GRAD_SHAPE, B=2, fused_train). NCCL is not exercised: it
+    takes one rank a card, and this machine has one."""
+    import socket
+
+    from raft_stereo_tpu_torch.engine.optimizer import make_optimizer
+    from raft_stereo_tpu_torch.engine.steps import make_train_step
+    from raft_stereo_tpu_torch.serve.guard import CANARY_ATOL, CANARY_RTOL
+    t_phase = time.perf_counter()
+    d = Path(__file__).resolve().parent.joinpath(*PARALLEL_DIR)
+    d.mkdir(parents=True, exist_ok=True)
+    for stale in d.glob("rank*.pt"):
+        stale.unlink()
+    pair = random_pairs(1, KITTI, PARALLEL_SEED)[0]
+    batch = _parallel_batch()
+    torch.save({"pair": [t.cpu() for t in pair], "batch": batch}, d / "inputs.pt")
+    # The one-process references, before the ranks start (their times are
+    # then their own).
+    from raft_stereo_tpu_torch.demo import infer_pair
+    model = seeded_model("cuda")
+    disp_default = infer_pair(model, *pair, iters=ITERS)
+    disp_plain = _with_env({"RAFT_FUSED_ENCODERS": "0"},
+                           lambda: infer_pair(model, *pair, iters=ITERS))
+    model = _train_model()
+    one = make_train_step(model, make_optimizer(model, 2e-4, 100, 1e-5, skip_nonfinite=3),
+                          GRAD_ITERS)
+    host_one, grads_one = _step_grads(one, model, {k: v.cuda() for k, v in batch.items()})
+    del model, one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}", PROCESS_ID=str(rank),
+                   NUM_PROCESSES="2")
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--parallel-rank", str(d)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    t_ranks = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PARALLEL_WAIT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t_ranks
+    for rank, (p, log) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"parallel rank {rank} exited {p.returncode}:\n{log[-4000:]}")
+    res = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for r in res:
+        if r["backend"] != PARALLEL_BACKEND:
+            raise SystemExit(f"rank {r['rank']} ran {r['backend']}, not {PARALLEL_BACKEND}")
+        for i, counts in enumerate(r["frame_launches"]):
+            if counts != PARALLEL_LAUNCHES:
+                raise SystemExit(f"rank {r['rank']} frame {i}: launches {counts}, "
+                                 f"expected {PARALLEL_LAUNCHES}")
+        bad = [e for e in r["entries"] if not e["ok"]]
+        if bad:
+            raise SystemExit(f"rank {r['rank']}: spatial entries off their plain versions: "
+                             f"{bad}")
+        for tag in ("data", "space"):
+            step = r[f"step_{tag}"]
+            if not (step["host"]["applied"] == 1.0 and step["host"]["finite"] == 1.0):
+                raise SystemExit(f"rank {r['rank']} {tag} step: {step['host']}")
+            if tag == "space" and not all(step["launches"].get(k, 0) > 0 for k in (
+                    "conv_gru:gru08", "conv_gru:gru16", "motion", "corr_lookup")):
+                raise SystemExit(f"rank {r['rank']} space step launches: {step['launches']}")
+    disp = res[0]["disparity"]
+    if not torch.equal(disp, res[1]["disparity"]):
+        raise SystemExit("the two ranks gathered different disparities")
+    ref = disp_plain.float().cpu()
+    d_abs = (disp - ref).abs()
+    in_band = bool((d_abs <= CANARY_ATOL + CANARY_RTOL * ref.abs()).all())
+    band = {"max_abs_diff": float(d_abs.max()), "mean_abs_diff": float(d_abs.mean()),
+            "in_canary_band": in_band}
+    if not in_band:
+        raise SystemExit(f"sharded KITTI disparity outside the canary band of the "
+                         f"one-process forward: {band}")
+    default_band = _disparity_band("spatial_shard 2 vs default", "KITTI", disp,
+                                   disp_default.float().cpu())
+    steps = {tag: {"loss": res[0][f"step_{tag}"]["host"]["loss"],
+                   "grad_norm": res[0][f"step_{tag}"]["host"]["grad_norm"],
+                   **_grad_bands(f"{tag} step", res[0][f"step_{tag}"]["grads"], grads_one),
+                   "launches": res[0][f"step_{tag}"]["launches"],
+                   "s": [r[f"step_{tag}"]["s"] for r in res],
+                   "peak_bytes": [r[f"step_{tag}"]["peak_bytes"] for r in res]}
+             for tag in ("data", "space")}
+    result = {"phase": "parallel", "nvidia_smi": smi, "backend": PARALLEL_BACKEND,
+              "ranks": 2, "cards": torch.cuda.device_count(),
+              "nccl": "not exercised: NCCL takes one rank a card, this machine has one",
+              "kitti": "x".join(map(str, KITTI)), "iters": ITERS,
+              "frame_ms": [r["frame_ms"] for r in res],
+              "frame_launches_per_rank": res[0]["frame_launches"][-1],
+              "frame_peak_bytes": [r["frame_peak_bytes"] for r in res],
+              "profiled_frame": [r["profiled_frame"] for r in res],
+              "vs_plain_encoders": band, "vs_default": default_band,
+              "entries": res[0]["entries"] + res[1]["entries"],
+              "one_process_step": {"loss": host_one["loss"], "grad_norm": host_one["grad_norm"]},
+              "steps": steps, "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(result, default=str))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import raft_stereo_tpu_torch  # noqa: F401  (fails when run without the repo)
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return _parallel_rank(Path(sys.argv[2]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()["nvidia_smi"]
@@ -3818,6 +4174,7 @@ def main() -> int:
     phase_server(smi)
     phase_streams(smi)
     phase_train(smi)
+    parallel = phase_parallel(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:
@@ -3840,8 +4197,17 @@ def main() -> int:
                      "serial_ms": r.get("serial_ms"), "bf16_ms": r.get("bf16_ms"),
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "library_note": r["library_note"]})
+        if "profiler_windows" in r:
+            # Phase 3's launches a call, one count a profiler window taken.
+            line[-1]["profiler_windows"] = r["profiler_windows"]
         if line[-1]["launches"] == 0:
             raise SystemExit(f"kernel {r['name']} was launched no time on its path")
+        if "variant" not in r and "on_path" not in r:
+            # Its launches on each rank of phase 11's 2-way space row: a
+            # KITTI frame and a train step.
+            line[-1]["spatial_shard_2_launches"] = {
+                "frame": parallel["frame_launches_per_rank"].get(r["counter"], 0),
+                "step": parallel["steps"]["space"]["launches"].get(r["counter"], 0)}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

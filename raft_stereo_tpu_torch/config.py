@@ -48,9 +48,11 @@ kernel while the switch is off raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import contextvars
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -86,9 +88,24 @@ def lane_pack8_on() -> bool:
     return os.environ.get("RAFT_LANE_PACK8", "0").strip().lower() in _ON
 
 
+_PLAIN_ENCODERS = contextvars.ContextVar("raft_plain_encoders", default=False)
+
+
 def fused_encoders_on() -> bool:
-    """``RAFT_FUSED_ENCODERS``: the encoder kernels (``ops/encoder.py``)."""
-    return _switch_on("RAFT_FUSED_ENCODERS")
+    """``RAFT_FUSED_ENCODERS``: the encoder kernels (``ops/encoder.py``),
+    unless the caller is inside :func:`plain_encoders`."""
+    return not _PLAIN_ENCODERS.get() and _switch_on("RAFT_FUSED_ENCODERS")
+
+
+@contextlib.contextmanager
+def plain_encoders() -> Iterator[None]:
+    """The encoders run plain inside: the height-sharded forward's rule (the
+    JAX package turns its encoder kernels off under a ``space`` mesh)."""
+    token = _PLAIN_ENCODERS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ENCODERS.reset(token)
 
 
 def stream_tail_on() -> bool:
@@ -194,8 +211,8 @@ class TrainConfig:
     ckpt_every: int = 10000  # the reference's validation and checkpoint cadence
     # Profile one steady-state step (torch.profiler) into this directory.
     trace_dir: Optional[str] = None
-    # Height sharding over several cards: not in this package yet (> 1
-    # raises before the model loads).
+    # Each sample's height split over this many processes (one card each),
+    # the rest of the processes forming the data axis (parallel/mesh.py).
     spatial_shard: int = 1
     # A non-finite step is skipped (parameters, Adam moments and the
     # schedule untouched); the run aborts after this many consecutive ones.

@@ -21,6 +21,13 @@ their batch slots filled by deterministic substitutes keyed off the same
 ``[seed, epoch, i]`` slot RNG, so one corrupt PNG/PFM costs one sample — not
 the run — and multi-host batches stay identical.
 
+Several processes (``local_rows``): each decodes only its slice of every
+global batch, the rows its data index trains on
+(``parallel/mesh.py:local_batch_rows``). The batch order and each sample's
+augmentation depend on the seed, the epoch and the sample's place in the
+global batch only, so the rows are those of the global batch one process
+would load; the ranks of one space row decode the same rows.
+
 The port's copy of the JAX package's ``data/loader.py``. One addition:
 :meth:`StereoLoader.resume_at` places the loader at a training step (its
 epoch, and the batch within it), so a run resumed from a checkpoint sees the
@@ -89,9 +96,12 @@ class StereoLoader:
                  shuffle: bool = True, num_workers: int = 4,
                  drop_last: bool = True, seed: int = 0, prefetch: int = 2,
                  return_paths: bool = False,
-                 retries: int = 2, retry_backoff: float = 0.05):
+                 retries: int = 2, retry_backoff: float = 0.05,
+                 local_rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        # This process's rows of each global batch (None: all of them).
+        self.local_rows = local_rows
         # Fault tolerance (DESIGN.md "Failure recovery"): per-sample load
         # errors retry `retries` times with bounded exponential backoff;
         # a sample still failing after that is quarantined for the run and
@@ -251,8 +261,12 @@ class StereoLoader:
             def submit_batch(b):
                 lo = b * self.batch_size
                 idxs = order[lo:lo + self.batch_size]
+                # The final batch may be short (drop_last=False); the
+                # local rows clamp to it.
+                rows = (range(len(idxs)) if self.local_rows is None
+                        else range(*self.local_rows.indices(len(idxs))))
                 return [pool.submit(self._load, idxs[k], epoch, lo + k)
-                        for k in range(len(idxs))]
+                        for k in rows]
 
             while submitted < n_batches and len(pending) < self.prefetch:
                 pending.append(submit_batch(submitted))
@@ -274,10 +288,13 @@ class StereoLoader:
                 pass
 
 
-def fetch_dataloader(train_cfg, root: Optional[str] = None) -> StereoLoader:
-    """Build the training-mix loader (reference ``fetch_dataloader``). The
-    JAX package's ``local_rows`` (a multi-host process's share of each
-    batch) comes with the port's multi-card slice."""
+def fetch_dataloader(train_cfg, root: Optional[str] = None,
+                     local_rows: Optional[slice] = None) -> StereoLoader:
+    """Build the training-mix loader (reference ``fetch_dataloader``).
+
+    ``local_rows``: with several processes, the global-batch rows this
+    process trains on (``parallel.mesh.local_batch_rows``); only those
+    samples are decoded here."""
     dataset = fetch_dataset(train_cfg, root=root)
     num_workers = getattr(train_cfg, "num_workers", None)
     if num_workers is None:
@@ -296,6 +313,7 @@ def fetch_dataloader(train_cfg, root: Optional[str] = None) -> StereoLoader:
     return StereoLoader(dataset, batch_size=train_cfg.batch_size, shuffle=True,
                         num_workers=num_workers, drop_last=True,
                         seed=getattr(train_cfg, "seed", 0),
+                        local_rows=local_rows,
                         retries=getattr(train_cfg, "data_retries", 2),
                         retry_backoff=getattr(train_cfg, "data_retry_backoff",
                                               0.05))

@@ -33,7 +33,9 @@ from raft_stereo_tpu_torch.ops.padder import InputPadder
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
-    parser.add_argument('--restore_ckpt', help="restore checkpoint (.pth)", required=True)
+    parser.add_argument('--restore_ckpt', required=True,
+                        help="restore checkpoint (.pth reference weights or a .pt "
+                        "training bundle)")
     parser.add_argument('--save_numpy', action='store_true',
                         help='save output as numpy arrays')
     parser.add_argument('-l', '--left_imgs', help="path to all first (left) frames",
@@ -90,12 +92,12 @@ def disparities(args):
     if args.video and args.valid_iters % args.segments:
         raise SystemExit(f"--segments {args.segments} must divide --valid_iters "
                          f"{args.valid_iters}")
-    from raft_stereo_tpu_torch.transplant import load_pth
+    from raft_stereo_tpu_torch.engine.checkpoint import load_params
 
     cfg = with_eval_precision(RAFTStereoConfig.from_namespace(args))
     device = resolve_device(args.device)
     model = RAFTStereo(cfg)
-    load_pth(model, args.restore_ckpt)
+    load_params(args.restore_ckpt, model)
     model = model.to(device).eval()
     runner = None
     if args.video:

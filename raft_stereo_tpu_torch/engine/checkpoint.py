@@ -16,6 +16,10 @@ Names: ``{step}_{name}.pt`` (periodic), ``{step}_preempt_{name}.pt``,
 skips the invalid; :func:`prune_checkpoints` keeps the last K valid
 periodic ones. ``.pth`` files (the reference's weights) load through
 ``transplant.load_pth``.
+
+With several processes only the lead (rank 0) writes: every rank holds the
+same state, and two writers of one file would corrupt it, so a save from
+any other rank raises.
 """
 
 from __future__ import annotations
@@ -57,6 +61,15 @@ def check_run_name(name: str) -> str:
     return name
 
 
+def check_lead(what: str) -> None:
+    """Raise unless this process may write: no process group joined, or
+    rank 0 of it."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        raise RuntimeError(f"rank {dist.get_rank()} may not write {what}: only the lead "
+                           "(rank 0) writes")
+
+
 def _cpu(obj):
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu()
@@ -67,15 +80,32 @@ def _cpu(obj):
     return obj
 
 
+def bundle_state(model, optimizer=None, step: int = 0) -> Dict:
+    """What a bundle holds, as host tensors: ``{"model", "optimizer",
+    "step"}`` (arguments as :func:`save_checkpoint` takes them)."""
+    model_state = model.state_dict() if hasattr(model, "state_dict") else model
+    opt_state = optimizer.state_dict() if hasattr(optimizer, "state_dict") else optimizer
+    return {"model": _cpu(dict(model_state)), "optimizer": _cpu(opt_state), "step": int(step)}
+
+
+def load_state(state: Dict, model=None, optimizer=None) -> int:
+    """Load a bundle's state into ``model`` (strictly) and ``optimizer``
+    where given; returns its step."""
+    if model is not None:
+        model.load_state_dict(state["model"], strict=True)
+    if optimizer is not None and state.get("optimizer") is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"])
+
+
 def save_checkpoint(path: str, model, optimizer=None, step: int = 0) -> str:
     """Write ``(model, optimizer, step)`` atomically; returns the path.
     ``model`` is a module or a state dict, ``optimizer`` a
-    :class:`~.optimizer.TrainOptimizer`, its state dict, or None."""
-    model_state = model.state_dict() if hasattr(model, "state_dict") else model
-    opt_state = optimizer.state_dict() if hasattr(optimizer, "state_dict") else optimizer
+    :class:`~.optimizer.TrainOptimizer`, its state dict, or None. Raises on
+    a rank other than the lead of a joined process group."""
+    check_lead("a checkpoint")
     buf = io.BytesIO()
-    torch.save({"model": _cpu(dict(model_state)), "optimizer": _cpu(opt_state),
-                "step": int(step)}, buf)
+    torch.save(bundle_state(model, optimizer, step), buf)
     blob = buf.getvalue()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
@@ -142,11 +172,8 @@ def load_checkpoint(path: str, model=None, optimizer=None) -> Tuple[Dict, Option
     ``model`` and ``optimizer`` given, their states are loaded into them
     too (the model strictly)."""
     state = _parse(_read_payload(path)[0], path)
-    if model is not None:
-        model.load_state_dict(state["model"], strict=True)
-    if optimizer is not None and state.get("optimizer") is not None:
-        optimizer.load_state_dict(state["optimizer"])
-    return state["model"], state.get("optimizer"), int(state["step"])
+    step = load_state(state, model, optimizer)
+    return state["model"], state.get("optimizer"), step
 
 
 def load_params(path: str, model) -> None:

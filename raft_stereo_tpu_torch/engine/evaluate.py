@@ -11,6 +11,13 @@ on; FlyingThings (finalpass TEST, the seed-1000 400-image subset) 1 px with
 ``(valid >= -0.5) & (flow_gt > -1000)`` (the nocc mask is in effect
 ignored, as in the reference). A forward's time is taken on the host around
 the call and a synchronize.
+
+``mesh`` (a ``parallel.ProcessGrid`` with a space axis; ``--spatial_shard``)
+splits each frame's height over the ranks of the space row, as the JAX
+package's spatial evaluation does: every rank runs the validator over the
+same samples, the forward on its rows, and the disparity is gathered over
+the row before the metrics. ``segments > 1`` is refused with it, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -34,11 +41,17 @@ def count_parameters(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
-def make_eval_forward(model, iters: int, mixed_prec: bool = False, segments: int = 1):
+def make_eval_forward(model, iters: int, mixed_prec: bool = False, segments: int = 1,
+                      mesh=None):
     """``forward(image1, image2) -> (flow_up (1, H, W, 1) numpy, seconds)``
     for one padded host pair, on the model's device. ``mixed_prec`` runs the
     model in bf16, else in fp32 (the config's ``mixed_precision`` is set to it
-    for the call, as the JAX package's validators do)."""
+    for the call, as the JAX package's validators do). Under ``mesh`` the
+    whole map, gathered over the space row."""
+    from raft_stereo_tpu_torch.parallel.mesh import space_mesh_of
+    if segments > 1 and mesh is not None:
+        raise ValueError("segments > 1 is not supported with --spatial_shard")
+    space = space_mesh_of(mesh)
     device = next(model.parameters()).device
 
     def forward(image1: np.ndarray, image2: np.ndarray):
@@ -52,7 +65,9 @@ def make_eval_forward(model, iters: int, mixed_prec: bool = False, segments: int
             t0 = time.perf_counter()
             with torch.no_grad():
                 _, flow_up = raft_stereo_inference(model, d1, d2, iters=iters,
-                                                   segments=segments)
+                                                   segments=segments, space=space)
+                if space is not None:
+                    flow_up = space.gather_rows(flow_up)
             out = flow_up.float().cpu().numpy()
             elapsed = time.perf_counter() - t0
         finally:
@@ -94,11 +109,11 @@ def _run_pair(forward, sample, bucket: Optional[int]):
 
 def validate_eth3d(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
                    root: Optional[str] = None, bucket: Optional[int] = None,
-                   segments: int = 1) -> Dict[str, float]:
+                   segments: int = 1, mesh=None) -> Dict[str, float]:
     """ETH3D train split: EPE and D1 (> 1 px), averaged per image."""
     kw = {"root": f"{root}/ETH3D"} if root else {}
     val_dataset = datasets.ETH3D(aug_params=None, **kw)
-    forward = make_eval_forward(model, iters, mixed_prec, segments=segments)
+    forward = make_eval_forward(model, iters, mixed_prec, segments=segments, mesh=mesh)
     out_list, epe_list = [], []
     for val_id, sample in enumerate(prefetch_samples(val_dataset)):
         flow_pr, _ = _run_pair(forward, sample, bucket)
@@ -118,12 +133,12 @@ def validate_eth3d(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
 
 def validate_kitti(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
                    root: Optional[str] = None, bucket: Optional[int] = None,
-                   segments: int = 1) -> Dict[str, float]:
+                   segments: int = 1, mesh=None) -> Dict[str, float]:
     """KITTI-2015 train split: EPE and D1 (> 3 px, per pixel), and the frame
     rate over frames 52 on; decode stays serial, outside the timed call."""
     kw = {"root": f"{root}/KITTI"} if root else {}
     val_dataset = datasets.KITTI(aug_params=None, image_set="training", **kw)
-    forward = make_eval_forward(model, iters, mixed_prec, segments=segments)
+    forward = make_eval_forward(model, iters, mixed_prec, segments=segments, mesh=mesh)
     out_list, epe_list, elapsed_list = [], [], []
     for val_id in range(len(val_dataset)):
         sample = val_dataset.__getitem__(val_id)
@@ -149,13 +164,13 @@ def validate_kitti(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
 
 def validate_things(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
                     root: Optional[str] = None, bucket: Optional[int] = None,
-                    segments: int = 1) -> Dict[str, float]:
+                    segments: int = 1, mesh=None) -> Dict[str, float]:
     """FlyingThings3D finalpass TEST subset: EPE and D1 (> 1 px,
     ``|gt| < 192``), per pixel."""
     kw = {"root": root} if root else {}
     val_dataset = datasets.SceneFlowDatasets(aug_params=None, dstype="frames_finalpass",
                                              things_test=True, **kw)
-    forward = make_eval_forward(model, iters, mixed_prec, segments=segments)
+    forward = make_eval_forward(model, iters, mixed_prec, segments=segments, mesh=mesh)
     out_list, epe_list = [], []
     for sample in prefetch_samples(val_dataset):
         flow_pr, _ = _run_pair(forward, sample, bucket)
@@ -172,11 +187,12 @@ def validate_things(model, cfg=None, iters: int = 32, mixed_prec: bool = False,
 
 def validate_middlebury(model, cfg=None, iters: int = 32, split: str = "F",
                         mixed_prec: bool = False, root: Optional[str] = None,
-                        bucket: Optional[int] = None, segments: int = 1) -> Dict[str, float]:
+                        bucket: Optional[int] = None, segments: int = 1,
+                        mesh=None) -> Dict[str, float]:
     """Middlebury V3: EPE and D1 (> 2 px), averaged per image."""
     kw = {"root": f"{root}/Middlebury"} if root else {}
     val_dataset = datasets.Middlebury(aug_params=None, split=split, **kw)
-    forward = make_eval_forward(model, iters, mixed_prec, segments=segments)
+    forward = make_eval_forward(model, iters, mixed_prec, segments=segments, mesh=mesh)
     out_list, epe_list = [], []
     for val_id, sample in enumerate(prefetch_samples(val_dataset)):
         flow_pr, _ = _run_pair(forward, sample, bucket)

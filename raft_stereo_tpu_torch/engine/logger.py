@@ -42,8 +42,14 @@ class _JsonlWriter:
 
 
 class Logger:
+    """The lead's training log (a rank other than the lead of a joined
+    process group may not build one: ``engine/train.py`` gives it a null
+    logger)."""
+
     def __init__(self, log_dir: str = "runs", scheduler=None,
                  registry=None):
+        from raft_stereo_tpu_torch.engine.checkpoint import check_lead
+        check_lead("the training log")
         self.log_dir = log_dir
         self.scheduler = scheduler
         # graftscope (obs/metrics.py): when a MetricsRegistry is attached,

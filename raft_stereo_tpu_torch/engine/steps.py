@@ -13,6 +13,18 @@ kind ``train_step``, its peak device bytes (``argument_bytes`` what was
 allocated at the step's start, ``temp_bytes`` the rest of its peak) and, in
 ``launches``, the step's kernel launches by kernel (``kernels.launches``
 counted over it).
+
+With a :class:`~raft_stereo_tpu_torch.parallel.ProcessGrid` (several
+processes, one card each) each rank steps on its part of the global batch:
+its data index's rows, and under a space axis its rows of the height (the
+model runs the encoders whole and the loop on those rows). The loss and its
+metrics are the global batch's (``engine/loss.py``), and after the backward
+the gradients are summed over every rank, so each rank holds the single
+process's gradient of the global batch and takes the same step: the ranks'
+losses are shares of the global loss, over data (samples) and over space
+(rows) alike, and the encoders' gradients on a space row are partial sums,
+one a rank. A plain mean over the ranks (DDP's) would be off by the space
+extent and by unequal counts of valid pixels.
 """
 
 from __future__ import annotations
@@ -27,17 +39,21 @@ from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.engine.loss import sequence_loss
 from raft_stereo_tpu_torch.engine.optimizer import TrainOptimizer
 from raft_stereo_tpu_torch.models.raft_stereo import raft_stereo_forward
+from raft_stereo_tpu_torch.parallel.mesh import space_mesh_of
 
 
 class TrainStep:
     """``step(batch) -> metrics``: batch holds ``image1``, ``image2`` (B, H,
     W, 3), ``flow`` (B, H, W, 1) and ``valid`` (B, H, W) on the model's
-    device; metrics are host floats. ``timing`` adds ``fwd_bwd_ms`` and
+    device, this rank's data rows at full height under a ``grid``; metrics
+    are host floats, the global batch's. ``timing`` adds ``fwd_bwd_ms`` and
     ``optimizer_ms`` (CUDA events on the card, a second wait a step)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: TrainOptimizer, train_iters: int,
-                 ledger=None, timing: bool = False):
+                 ledger=None, timing: bool = False, grid=None):
         self.model = model
+        self.grid = grid
+        self.space = space_mesh_of(grid)
         self.optimizer = optimizer
         self.train_iters = train_iters
         self.ledger = ledger
@@ -55,15 +71,22 @@ class TrainStep:
                 at_start = torch.cuda.memory_allocated(dev)
         marks = self._mark(cuda)
         self.optimizer.zero_grad()
+        flow, valid = batch["flow"], batch["valid"]
+        if self.space is not None:
+            rows = self.space.rows(flow.shape[1])
+            flow, valid = flow[:, rows], valid[:, rows]
         preds = self.model(batch["image1"], batch["image2"], iters=self.train_iters,
-                           test_mode=False)
-        loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"])
+                           test_mode=False, space=self.space)
+        loss, metrics = sequence_loss(preds, flow, valid, grid=self.grid)
+        total = metrics.pop("loss", loss.detach())
         loss.backward()
+        if self.grid is not None:
+            self.grid.all_reduce_sum_list_(
+                [p.grad for p in self.optimizer.params if p.grad is not None])
         grad_norm, finite = self.optimizer.clip()
         marks += self._mark(cuda)
         names = sorted(metrics) + ["loss", "grad_norm", "grads_finite"]
-        values = [metrics[k] for k in sorted(metrics)] + [loss.detach(), grad_norm,
-                                                           finite.float()]
+        values = [metrics[k] for k in sorted(metrics)] + [total, grad_norm, finite.float()]
         host = dict(zip(names, torch.stack([v.float() for v in values]).tolist()))
         applied = self.optimizer.step(host["grads_finite"] > 0.5)
         marks += self._mark(cuda)
@@ -112,17 +135,25 @@ class TrainStep:
 
 
 def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer, train_iters: int,
-                    ledger=None, timing: bool = False) -> TrainStep:
-    """The JAX package's ``make_train_step``: ``step(batch) -> metrics``."""
-    return TrainStep(model, optimizer, train_iters, ledger=ledger, timing=timing)
+                    ledger=None, timing: bool = False, grid=None) -> TrainStep:
+    """The JAX package's ``make_train_step``: ``step(batch) -> metrics``
+    (``grid``: the JAX package's ``mesh``)."""
+    return TrainStep(model, optimizer, train_iters, ledger=ledger, timing=timing, grid=grid)
 
 
-def make_eval_step(model: torch.nn.Module, valid_iters: int):
+def make_eval_step(model: torch.nn.Module, valid_iters: int, grid=None):
     """``eval_step(image1, image2) -> (flow_low, flow_up)``, the test-mode
-    forward."""
+    forward. Under a ``grid`` with a space axis the images are this rank's
+    data rows at full height, and the outputs are gathered over the space
+    row: the data rows' whole maps, on every rank of the row."""
+    space = space_mesh_of(grid)
 
     def step(image1: torch.Tensor, image2: torch.Tensor):
-        return raft_stereo_forward(model, image1, image2, iters=valid_iters)
+        flow_low, flow_up = raft_stereo_forward(model, image1, image2, iters=valid_iters,
+                                                space=space)
+        if space is not None:
+            return space.gather_rows(flow_low), space.gather_rows(flow_up)
+        return flow_low, flow_up
 
     return step
 

@@ -1,5 +1,5 @@
 """The training loop (the JAX package's ``engine/train.py``, reference
-``train_stereo.py:132-211``), on one card.
+``train_stereo.py:132-211``), on one card or several processes.
 
 A step is :class:`~.steps.TrainStep` (forward, loss, backward, clip, AdamW +
 OneCycle, skipped when a gradient is not finite) on batches from the loader
@@ -20,10 +20,19 @@ The port's additions: a resumed run's loader starts at the step's batch
 batches; each step's host metrics go to ``<log_dir>/steps.jsonl``; the
 train step's ledger row and launches by kernel to ``<log_dir>/ledger.json``.
 
-Data parallelism over several cards (the JAX package's mesh, its
-``spatial_shard`` and its multi-host launch) is the next slice: with more
-than one visible card, ``spatial_shard`` > 1 or ``COORDINATOR_ADDRESS`` set,
-:func:`train` raises before it builds the model.
+Several processes (the JAX package's multi-host launch: ``COORDINATOR_
+ADDRESS``, ``PROCESS_ID``, ``NUM_PROCESSES``; one process a card): the
+processes join one group (``parallel/mesh.py:maybe_distributed_init``) and
+form the grid :func:`choose_mesh` picks, ``spatial_shard`` ranks a space
+row and the rest the data axis. Every rank builds the same seeded model and
+takes the same steps on the global batch (``engine/steps.py``); each
+decodes only its rows of it (``StereoLoader.local_rows``). Only the lead
+(rank 0) restores ``restore_ckpt`` and sends the model, the optimizer and
+the step to the others, and only the lead writes: checkpoints,
+validation, the logs and the ledger. SIGTERM
+to any rank stops every rank at the same step: each step sums the ranks'
+stop flags over the world (:class:`PreemptGuard`), and the lead saves the
+preempt bundle.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig, resolve_device
 from raft_stereo_tpu_torch.data.loader import device_prefetch, fetch_dataloader
@@ -46,32 +56,33 @@ from raft_stereo_tpu_torch.engine.logger import Logger
 from raft_stereo_tpu_torch.engine.optimizer import make_optimizer, onecycle_linear_schedule
 from raft_stereo_tpu_torch.engine.steps import make_train_step
 from raft_stereo_tpu_torch.models.raft_stereo import init_raft_stereo
+from raft_stereo_tpu_torch.parallel.mesh import (
+    choose_mesh, local_batch_rows, local_world_size, make_mesh, maybe_distributed_init)
 
 logger = logging.getLogger(__name__)
 
-NEXT_SLICE = ("training on more than one card (data parallelism over NCCL, height "
-              "sharding) is not in raft_stereo_tpu_torch yet; it is the next slice")
 
-
-def check_one_card(tcfg: TrainConfig, device: torch.device) -> None:
-    """Raise where the run would need more than one card."""
-    if tcfg.spatial_shard > 1:
-        raise NotImplementedError(f"--spatial_shard {tcfg.spatial_shard}: {NEXT_SLICE}")
-    if os.environ.get("COORDINATOR_ADDRESS"):
-        raise NotImplementedError(f"COORDINATOR_ADDRESS is set: {NEXT_SLICE}")
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards are visible: {NEXT_SLICE} (make one "
-            "visible with CUDA_VISIBLE_DEVICES)")
+def grid_for(tcfg: TrainConfig):
+    """The run's grid over the joined processes (None for one process):
+    :func:`choose_mesh` of the world, one card a process."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = choose_mesh(tcfg.batch_size, tcfg.spatial_shard, world, world,
+                        local_world_size())
+    return None if shape is None else make_mesh(shape.n_data, shape.n_space)
 
 
 class PreemptGuard:
     """SIGTERM asks for a checkpoint and an exit: the handler only sets a
     flag, which the loop reads at a step boundary, where the state is
-    consistent."""
+    consistent. Under a ``grid`` every rank reads the OR of all ranks'
+    flags at every step (an all-reduce), so all of them leave the loop at
+    the same step; a rank-local read would leave the others waiting at the
+    next collective."""
 
-    def __init__(self):
+    def __init__(self, grid=None, device=None):
         self.requested = False
+        self.grid = grid
+        self.device = device
         self._prev = None
         try:
             self._prev = signal.signal(signal.SIGTERM, self._on_signal)
@@ -83,11 +94,33 @@ class PreemptGuard:
         logger.warning("SIGTERM received: checkpointing at next step boundary")
 
     def stop(self, step: int = 0) -> bool:
-        return self.requested
+        if self.grid is None or self.grid.size == 1:
+            return self.requested
+        return self.grid.any_rank(self.requested, self.device)
 
     def restore(self) -> None:
         if self._prev is not None:
             signal.signal(signal.SIGTERM, self._prev)
+
+
+class _NullLogger:
+    """The logger of a rank other than the lead: takes every call, writes
+    nothing."""
+
+    total_steps = 0
+    schedule_offset = 0
+
+    def push(self, *args, **kwargs):
+        pass
+
+    def write_scalar(self, *args, **kwargs):
+        pass
+
+    def write_dict(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 def _restore(tcfg: TrainConfig, model, optimizer, ckpt_dir: str):
@@ -112,6 +145,17 @@ def _restore(tcfg: TrainConfig, model, optimizer, ckpt_dir: str):
     return step, ckpt_dir
 
 
+def _share_lead_state(model, optimizer, start_step: int) -> int:
+    """Every rank takes the lead's model, optimizer and step (a broadcast
+    from rank 0); returns the step. Only the lead restores: another rank's
+    working directory may hold no bundle, or an older one."""
+    box = [ckpt.bundle_state(model, optimizer, start_step) if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    if dist.get_rank() != 0:
+        return ckpt.load_state(box[0], model, optimizer)
+    return start_step
+
+
 def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = None,
           validate: bool = True, faults=None, device=None, log_dir: str = "runs",
           ckpt_dir: str = "checkpoints", timing: bool = False) -> Dict[str, float]:
@@ -125,15 +169,25 @@ def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = N
     (seconds since the loop began, at the step's end); ``timing`` adds
     ``fwd_bwd_ms`` and ``optimizer_ms`` (a second wait a step)."""
     dev = resolve_device(device)
-    check_one_card(tcfg, dev)
+    if maybe_distributed_init(device=dev) and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    grid = grid_for(tcfg)
+    is_lead = grid is None or grid.is_lead
     ckpt.check_run_name(tcfg.name)
     model = init_raft_stereo(cfg, seed=tcfg.seed, device=dev)
     optimizer = make_optimizer(model, tcfg.lr, tcfg.num_steps, tcfg.wdecay,
                                skip_nonfinite=tcfg.max_bad_steps)
-    start_step, ckpt_dir = _restore(tcfg, model, optimizer, ckpt_dir)
+    start_step = 0
+    if is_lead:
+        start_step, ckpt_dir = _restore(tcfg, model, optimizer, ckpt_dir)
+    if grid is not None and grid.size > 1:
+        start_step = _share_lead_state(model, optimizer, start_step)
     logger.info("Parameter Count: %d", count_parameters(model))
 
-    train_loader = fetch_dataloader(tcfg, root=data_root)
+    local_rows = None
+    if grid is not None:
+        local_rows = local_batch_rows(grid, tcfg.batch_size)
+    train_loader = fetch_dataloader(tcfg, root=data_root, local_rows=local_rows)
     train_loader.resume_at(start_step)
     if faults is not None:
         from raft_stereo_tpu_torch.faults import FaultyDataset
@@ -141,14 +195,17 @@ def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = N
     from raft_stereo_tpu_torch.obs.ledger import ProgramLedger
     from raft_stereo_tpu_torch.obs.metrics import MetricsRegistry
     ledger = ProgramLedger()
-    train_step = make_train_step(model, optimizer, tcfg.train_iters, ledger=ledger,
-                                 timing=timing)
+    train_step = make_train_step(model, optimizer, tcfg.train_iters,
+                                 ledger=ledger if is_lead else None, timing=timing, grid=grid)
     schedule = onecycle_linear_schedule(tcfg.lr, tcfg.num_steps + 100)
-    log = Logger(log_dir=log_dir, scheduler=schedule, registry=MetricsRegistry())
+    if is_lead:
+        log = Logger(log_dir=log_dir, scheduler=schedule, registry=MetricsRegistry())
+        os.makedirs(ckpt_dir, exist_ok=True)
+        os.makedirs(log_dir, exist_ok=True)
+    else:
+        log = _NullLogger()
     log.total_steps = start_step
 
-    os.makedirs(ckpt_dir, exist_ok=True)
-    os.makedirs(log_dir, exist_ok=True)
     total_steps = start_step
     should_keep_training = start_step < tcfg.num_steps
     if not should_keep_training:
@@ -158,9 +215,10 @@ def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = N
     last_results: Dict[str, float] = {}
     skipped_total = 0
     quarantine_seen = 0
-    guard = PreemptGuard()
+    guard = PreemptGuard(grid, dev)
     image_dtype = torch.bfloat16 if cfg.mixed_precision else None
-    steps_log = open(os.path.join(log_dir, "steps.jsonl"), "a", buffering=1)
+    steps_log = (open(os.path.join(log_dir, "steps.jsonl"), "a", buffering=1) if is_lead
+                 else open(os.devnull, "w"))
     t_loop = time.perf_counter()
 
     def bundle(prefix: str) -> str:
@@ -223,7 +281,9 @@ def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = N
                     from raft_stereo_tpu_torch.faults import fire_step_faults
                     fire_step_faults(faults, total_steps)
 
-                if total_steps % tcfg.ckpt_every == 0:
+                # Writes come from the lead only: every rank holds the same
+                # state, and two writers of one file would corrupt it.
+                if total_steps % tcfg.ckpt_every == 0 and is_lead:
                     path = ckpt.save_checkpoint(bundle(f"{total_steps}_"), model, optimizer,
                                                 total_steps)
                     logger.info("Saved %s", path)
@@ -239,27 +299,28 @@ def train(cfg: RAFTStereoConfig, tcfg: TrainConfig, data_root: Optional[str] = N
                     break
                 if guard.stop(total_steps):
                     preempted = True
-                    path = ckpt.save_checkpoint(bundle(f"{total_steps}_preempt_"), model,
-                                                optimizer, total_steps)
-                    logger.warning("Preempted: saved %s; resume with --restore_ckpt to "
-                                   "continue the schedule", path)
+                    if is_lead:
+                        path = ckpt.save_checkpoint(bundle(f"{total_steps}_preempt_"), model,
+                                                    optimizer, total_steps)
+                        logger.warning("Preempted: saved %s; resume with --restore_ckpt "
+                                       "to continue the schedule", path)
                     should_keep_training = False
                     break
             batches.close()
 
-            if len(train_loader) >= 10000:
+            if len(train_loader) >= 10000 and is_lead:
                 path = ckpt.save_checkpoint(bundle(f"{total_steps}_epoch_"), model, optimizer,
                                             total_steps)
                 logger.info("Saved epoch checkpoint %s", path)
 
-        if not preempted:
+        if not preempted and is_lead:
             path = ckpt.save_checkpoint(bundle(""), model, optimizer, total_steps)
             logger.info("Saved final checkpoint %s", path)
     finally:
         steps_log.close()
         log.close()
         guard.restore()
-        if len(ledger):
+        if is_lead and len(ledger):
             from raft_stereo_tpu_torch.obs.ledger import save_doc
             doc = ledger.to_doc(backend=dev.type, device_kind=(
                 torch.cuda.get_device_name(dev) if dev.type == "cuda" else None))

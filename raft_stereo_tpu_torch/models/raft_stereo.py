@@ -39,6 +39,19 @@ BatchNorm's running statistics are buffers, as in the reference: they get
 no gradient, no weight decay and no part in the clip norm (the JAX package
 keeps them as parameters and trains them; a route difference).
 
+Height sharding (``space``, a ``parallel.ProcessGrid`` with a space axis;
+the JAX package's ``space_mesh``): every rank of a space row runs the
+encoders whole, at full height, on the plain route (the JAX package gates
+its encoder kernels off under a ``space`` mesh), then keeps its rows of the
+feature maps and of each level's context and state. The correlation volume
+and its lookup are built over those rows only (rows are independent). The
+refinement loop runs on them (``models/update.py``: the kernels' spatial
+entries, halo rows between neighbours), without the resident iteration,
+gru16+32 or the int8 lanes; the mask head and the convex upsample take one
+halo row. The outputs are the rank's rows; :meth:`ProcessGrid.gather_rows`
+gives the whole map. Gradients of the replicated encoders are partial on
+each rank and add up over the space row (``engine/steps.py``).
+
 The serving scheduler composes carries into one batch and back
 (:func:`stack_refinement_states`, :func:`take_refinement_rows`): every leaf
 of a carry, a ``Lane8`` container's ``q`` and ``scale`` included, has the
@@ -64,7 +77,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import (
-    RAFTStereoConfig, fuse_iter_on, lane_pack8_on, resolve_device)
+    RAFTStereoConfig, fuse_iter_on, lane_pack8_on, plain_encoders, resolve_device)
 from raft_stereo_tpu_torch.corr import make_corr
 from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quantize_feature8
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
@@ -101,13 +114,16 @@ class RAFTStereo(nn.Module):
                                      downsample=cfg.n_downsample)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 12,
-                flow_init: Optional[torch.Tensor] = None, test_mode: bool = False):
+                flow_init: Optional[torch.Tensor] = None, test_mode: bool = False,
+                space=None):
         """Test mode: ``(flow_low, flow_up)``; train mode: the per-iteration
-        upsampled predictions ``(iters, B, H, W, 1)``."""
+        upsampled predictions ``(iters, B, H, W, 1)``. With ``space`` the
+        outputs are this rank's rows."""
         if not test_mode:
             return raft_stereo_train_forward(self, image1, image2, iters=iters,
-                                             flow_init=flow_init)
-        return raft_stereo_forward(self, image1, image2, iters=iters, flow_init=flow_init)
+                                             flow_init=flow_init, space=space)
+        return raft_stereo_forward(self, image1, image2, iters=iters, flow_init=flow_init,
+                                   space=space)
 
 
 def init_raft_stereo(cfg: RAFTStereoConfig, *, seed: int = 0,
@@ -130,7 +146,15 @@ def _packed_context_level(conv, x: torch.Tensor, dtype: torch.dtype) -> Lane8:
 
 
 def _context_and_features(model: RAFTStereo, image1: torch.Tensor,
-                          image2: torch.Tensor, pack: bool):
+                          image2: torch.Tensor, pack: bool, space=None):
+    if space is not None:
+        # The encoders run whole on every rank of the space row, plain;
+        # each rank keeps its rows of every map.
+        with plain_encoders():
+            net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, False)
+        return (tuple(x[:, space.rows(x.shape[1])] for x in net),
+                tuple(tuple(c[:, space.rows(c.shape[1])] for c in lvl) for lvl in inp),
+                fmap1[:, space.rows(fmap1.shape[1])], fmap2[:, space.rows(fmap2.shape[1])])
     cfg = model.cfg
     dt = cfg.compute_dtype
     image1 = (2 * (image1.float() / 255.0) - 1.0).to(dt)
@@ -160,14 +184,15 @@ def _context_and_features(model: RAFTStereo, image1: torch.Tensor,
 
 @torch.no_grad()
 def raft_stereo_prepare(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
-                        *, flow_init: Optional[torch.Tensor] = None) -> dict:
+                        *, flow_init: Optional[torch.Tensor] = None, space=None) -> dict:
     """Everything outside the refinement loop: the encoders and the zqr
     context convs. Returns the carry ``{net, inp, fmap1, fmap2, coords1}``;
     ``flow_init`` seeds ``coords1 = coords0 + flow_init``. Under
     ``RAFT_LANE_PACK8`` each ``inp`` level (all 3ch channels) and the two
-    fmaps are int8 containers."""
-    pack = lane_pack8_on()
-    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack)
+    fmaps are int8 containers. With ``space`` the carry holds this rank's
+    rows (``flow_init`` too), never packed."""
+    pack = lane_pack8_on() and space is None
+    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack, space)
     b, h, w, _ = fmap1.shape
     coords1 = coords_grid(b, h, w, device=fmap1.device).clone()
     if flow_init is not None:
@@ -180,12 +205,12 @@ def raft_stereo_prepare(model: RAFTStereo, image1: torch.Tensor, image2: torch.T
 
 @torch.no_grad()
 def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
-                              warm_start: bool = False):
+                              warm_start: bool = False, space=None):
     """Advance the carry ``iters`` iterations. Returns ``(new_state,
     dnorm)``, where ``dnorm`` (B,) fp32 is the mean per-iteration |delta x|
-    over the segment. ``warm_start`` keeps the motion encoder off the
-    kernels (the motion kernel and the resident iteration), as a
-    caller-supplied flow_init requires."""
+    over the segment (over the whole height under ``space``). ``warm_start``
+    keeps the motion encoder off the kernels (the motion kernel and the
+    resident iteration), as a caller-supplied flow_init requires."""
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
@@ -205,12 +230,13 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     coords_in = state["coords1"]
     b, h, w = coords_in.shape[:3]
     coords0 = coords_grid(b, h, w, device=coords_in.device)
-    fused = ub.prepare_fused(inp, dt) if cfg.loop_kernels(test_mode=True) else None
+    fused = (ub.prepare_fused(inp, dt, space=space, net=state["net"])
+             if cfg.loop_kernels(test_mode=True) else None)
     # The resident iteration, as in the JAX package: with the kernels in
-    # use, reg_cuda's operands, RAFT_FUSE_ITER on and no warm start (the
-    # kernel's motion encoder drops the flow-y weights).
+    # use, reg_cuda's operands, RAFT_FUSE_ITER on, no warm start (the
+    # kernel's motion encoder drops the flow-y weights) and no height shard.
     resident = (fused is not None and corr_ops is not None and not warm_start
-                and fuse_iter_on())
+                and fuse_iter_on() and space is None)
     net, coords1 = state["net"], coords_in
     n = cfg.n_gru_layers
     for _ in range(iters):
@@ -219,69 +245,76 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
             # The JAX package's pre-steps: the coarse GRUs step more often
             # than gru08, gru32 alone first (3 levels), then gru32 with gru16.
             if n == 3:
-                net = ub.step_coarse(net, inp, fused, iter16=False)
+                net = ub.step_coarse(net, inp, fused, iter16=False, space=space)
             if n >= 2:
-                net = ub.step_coarse(net, inp, fused)
+                net = ub.step_coarse(net, inp, fused, space=space)
         if resident:
             net, delta_flow = ub.step_resident(net, inp, corr_ops, coords1[..., 0], flow,
                                                fused=fused)
         else:
             corr = corr_fn(coords1[..., 0])
             net, delta_flow = ub(net, inp, corr, flow, fused=fused,
-                                 fuse_motion=not warm_start)
+                                 fuse_motion=not warm_start, space=space)
         dx = delta_flow[..., :1].float()
         coords1 = coords1 + torch.cat([dx, torch.zeros_like(dx)], dim=-1)
     dnorm = (coords1 - coords_in)[..., 0].abs().mean(dim=(1, 2)) / float(iters)
+    if space is not None:
+        # Equal shards: the whole map's mean is the mean of the shards'.
+        dnorm = space.gather_rows(dnorm[:, None]).mean(dim=1)
     return dict(state, net=net, coords1=coords1), dnorm
 
 
 @torch.no_grad()
-def raft_stereo_epilogue(model: RAFTStereo, state: dict):
+def raft_stereo_epilogue(model: RAFTStereo, state: dict, space=None):
     """Mask head and convex upsample of the x channel, in fp32, from a
     carry. Returns ``(flow_low, flow_up)``."""
     coords1 = state["coords1"]
     b, h, w = coords1.shape[:3]
     flow_low = coords1 - coords_grid(b, h, w, device=coords1.device)
-    up_mask = model.update_block.mask_head(state["net"][0])
+    up_mask = model.update_block.mask_head(state["net"][0], space)
     flow_up = convex_upsample(flow_low[..., :1].float(), up_mask.float(),
-                              model.cfg.downsample_factor)
+                              model.cfg.downsample_factor, space)
     return flow_low, flow_up
 
 
 @torch.no_grad()
 def raft_stereo_segment(model: RAFTStereo, state: dict, *, iters: int,
-                        warm_start: bool = False):
+                        warm_start: bool = False, space=None):
     """Advance ``iters`` iterations and upsample. Returns ``(new_state,
     flow_low, flow_up)``."""
     new_state, _ = raft_stereo_segment_carry(model, state, iters=iters,
-                                             warm_start=warm_start)
-    return (new_state, *raft_stereo_epilogue(model, new_state))
+                                             warm_start=warm_start, space=space)
+    return (new_state, *raft_stereo_epilogue(model, new_state, space))
 
 
 @torch.no_grad()
 def raft_stereo_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
-                        *, iters: int = 12, flow_init: Optional[torch.Tensor] = None):
-    """Test-mode forward: ``(flow_low, flow_up)``."""
-    state = raft_stereo_prepare(model, image1, image2, flow_init=flow_init)
+                        *, iters: int = 12, flow_init: Optional[torch.Tensor] = None,
+                        space=None):
+    """Test-mode forward: ``(flow_low, flow_up)``, this rank's rows under
+    ``space`` (whose ``flow_init`` is its rows too)."""
+    state = raft_stereo_prepare(model, image1, image2, flow_init=flow_init, space=space)
     _, flow_low, flow_up = raft_stereo_segment(model, state, iters=iters,
-                                               warm_start=flow_init is not None)
+                                               warm_start=flow_init is not None, space=space)
     return flow_low, flow_up
 
 
 def raft_stereo_train_forward(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
-                              *, iters: int = 12,
-                              flow_init: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              *, iters: int = 12, flow_init: Optional[torch.Tensor] = None,
+                              space=None) -> torch.Tensor:
     """Train-mode forward (the JAX package's ``raft_stereo_forward(...,
     test_mode=False)``): the per-iteration upsampled predictions ``(iters,
-    B, H, W, 1)`` fp32, differentiable in the model's parameters."""
+    B, H, W, 1)`` fp32, differentiable in the model's parameters; this
+    rank's rows of them under ``space``."""
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
-    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack=False)
+    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, False, space)
     corr_dtype = torch.float32 if cfg.corr_kind in ("reg", "alt") else dt
     corr_fn, _ = make_corr(cfg.corr_kind, fmap1.to(corr_dtype), fmap2.to(corr_dtype),
                            num_levels=cfg.corr_levels, radius=cfg.corr_radius, out_dtype=dt)
-    fused = ub.prepare_fused(inp, dt, train=True) if cfg.loop_kernels(test_mode=False) else None
+    fused = (ub.prepare_fused(inp, dt, train=True, space=space, net=net)
+             if cfg.loop_kernels(test_mode=False) else None)
     b, h, w = fmap1.shape[:3]
     coords0 = coords_grid(b, h, w, device=fmap1.device)
     coords1 = coords0 if flow_init is None else coords0 + flow_init
@@ -292,16 +325,17 @@ def raft_stereo_train_forward(model: RAFTStereo, image1: torch.Tensor, image2: t
         flow = (coords1 - coords0).to(dt)
         if cfg.slow_fast_gru:
             if n == 3:
-                net = ub.step_coarse(net, inp, fused, iter16=False)
+                net = ub.step_coarse(net, inp, fused, iter16=False, space=space)
             if n >= 2:
-                net = ub.step_coarse(net, inp, fused)
+                net = ub.step_coarse(net, inp, fused, space=space)
         corr = corr_fn(coords1[..., 0])
-        net, delta_flow = ub(net, inp, corr, flow, fused=fused, fuse_motion=fuse_motion)
+        net, delta_flow = ub(net, inp, corr, flow, fused=fused, fuse_motion=fuse_motion,
+                             space=space)
         dx = delta_flow[..., :1].float()
         coords1 = coords1 + torch.cat([dx, torch.zeros_like(dx)], dim=-1)
-        up_mask = ub.mask_head(net[0])
+        up_mask = ub.mask_head(net[0], space)
         flow_up = convex_upsample((coords1 - coords0)[..., :1].float(), up_mask.float(),
-                                  cfg.downsample_factor)
+                                  cfg.downsample_factor, space)
         return (flow_up, coords1, *net)
 
     preds = []
@@ -353,16 +387,17 @@ def take_refinement_rows(state: dict, rows: Sequence[int]) -> dict:
 @torch.no_grad()
 def raft_stereo_inference(model: RAFTStereo, image1: torch.Tensor, image2: torch.Tensor,
                           *, iters: int = 32, segments: int = 1,
-                          flow_init: Optional[torch.Tensor] = None):
+                          flow_init: Optional[torch.Tensor] = None, space=None):
     """The test-mode forward with the loop split into ``segments`` chunks of
     ``iters // segments``. Returns ``(flow_low, flow_up)``."""
     if segments < 1:
         raise ValueError(f"segments must be >= 1, got {segments}")
     if iters % segments:
         raise ValueError(f"iters ({iters}) must be divisible by segments ({segments})")
-    state = raft_stereo_prepare(model, image1, image2, flow_init=flow_init)
+    state = raft_stereo_prepare(model, image1, image2, flow_init=flow_init, space=space)
     flow_low = flow_up = None
     for _ in range(segments):
         state, flow_low, flow_up = raft_stereo_segment(
-            model, state, iters=iters // segments, warm_start=flow_init is not None)
+            model, state, iters=iters // segments, warm_start=flow_init is not None,
+            space=space)
     return flow_low, flow_up

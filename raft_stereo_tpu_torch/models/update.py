@@ -15,6 +15,16 @@ As in the JAX package, gru32 and gru16 then run as one kernel
 may take the resident iteration (:meth:`BasicMultiUpdateBlock.
 step_resident`, ``RAFT_FUSE_ITER``); both give the serial kernels' bits.
 
+Under a height shard (``space``, a ``parallel.ProcessGrid`` with a space
+axis; the JAX package's ``space_mesh``) every map is this rank's rows. The
+GRU levels and the motion encoder that the spatial rule admits
+(``ops/stream.py:spatial_gru_is_fusable``) run the kernels' spatial entries;
+gru16+32 is never co-scheduled and the resident iteration never runs; the
+rest (fp32, levels too short for the halo, the mask head, the pools and
+resizes between levels) runs plain on rows extended from the neighbours
+(``ops/halo.py``): the exchanges XLA's partitioner inserts in the JAX
+package. A 3x3 conv reads 1 row past its output, a 7x7 conv 3.
+
 Hidden-dim convention as in the reference: ``hidden_dims[2]`` is the finest
 scale (gru08), ``hidden_dims[0]`` the coarsest.
 """
@@ -30,6 +40,7 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig, fuse_gru1632_on
 from raft_stereo_tpu_torch.models.layers import Conv2d
 from raft_stereo_tpu_torch.ops import stream
 from raft_stereo_tpu_torch.ops.basic import conv2d
+from raft_stereo_tpu_torch.ops.halo import run_extended
 from raft_stereo_tpu_torch.ops.pooling import pool2x
 from raft_stereo_tpu_torch.ops.resident import fused_iter
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners
@@ -94,10 +105,25 @@ class BasicMotionEncoder(nn.Module):
         return torch.cat([out, flow.to(out.dtype)], dim=-1)
 
 
-class FusedInputs(NamedTuple):
-    """Loop-invariant inputs of the kernels, built once per frame."""
+# Rows past its output that each plain module reads on a height shard.
+GRU_HALO = 2      # z, r from 3x3 convs of [h; x]; q from a 3x3 conv of r * h
+HEAD_HALO = 2     # FlowHead: two 3x3 convs
+MOTION_HALO = 5   # the flow branch: 7x7, 3x3, then the 3x3 fusion conv
+MASK_HALO = 1     # a 3x3 conv, then a 1x1
 
-    czrq: List[stream.Czrq]              # per level, prepare_gru_context_any
+
+def _global_size(t: torch.Tensor, space) -> Tuple[int, int]:
+    """The whole map's (H, W) of a map whose rows may be a shard's."""
+    ns = 1 if space is None else space.n_space
+    return (t.shape[1] * ns, t.shape[2])
+
+
+class FusedInputs(NamedTuple):
+    """Loop-invariant inputs of the kernels, built once per frame. Under a
+    height shard a level's ``czrq`` is its extended rows' (or None: the
+    level runs plain)."""
+
+    czrq: List[Optional[stream.Czrq]]    # per level, prepare_gru_context_any
     gru: List[stream.GruWeights]         # per level
     head: stream.HeadWeights
     motion: stream.MotionWeights
@@ -123,36 +149,56 @@ class BasicMultiUpdateBlock(nn.Module):
     def grus(self) -> Tuple[ConvGRU, ConvGRU, ConvGRU]:
         return (self.gru08, self.gru16, self.gru32)
 
-    def mask_head(self, net0: torch.Tensor) -> torch.Tensor:
+    def mask_head(self, net0: torch.Tensor, space=None) -> torch.Tensor:
         """Convex-upsampling mask, scaled by 0.25 as in the reference."""
+        if space is not None:
+            return 0.25 * run_extended(self.mask, MASK_HALO, space, net0)
         return 0.25 * self.mask(net0)
 
     def prepare_fused(self, inp: Sequence[Sequence[torch.Tensor]],
-                      dtype: torch.dtype, *, train: bool = False) -> FusedInputs:
+                      dtype: torch.dtype, *, train: bool = False, space=None,
+                      net: Optional[Sequence[torch.Tensor]] = None) -> FusedInputs:
         """The kernels' loop-invariant inputs. In training (``train``) the
         czrq context stays bf16 whatever ``RAFT_LANE_PACK8`` says, as in the
-        JAX package; everything here is differentiable torch."""
+        JAX package; everything here is differentiable torch. Under
+        ``space`` each level whose state ``net[i]`` the spatial rule admits
+        gets its extended czrq (bf16 always), the others None."""
         grus = self.grus[:self.n_gru_layers]
-        ctx = stream.prepare_gru_context if train else stream.prepare_gru_context_any
+        if space is not None:
+            czrq = [stream.spatial_prepare_gru_context(space, g, c, dtype)
+                    if stream.spatial_gru_is_fusable(h, space.n_space) else None
+                    for g, c, h in zip(grus, inp, net)]
+        else:
+            ctx = stream.prepare_gru_context if train else stream.prepare_gru_context_any
+            czrq = [ctx(g, c, dtype) for g, c in zip(grus, inp)]
         return FusedInputs(
-            czrq=[ctx(g, c, dtype) for g, c in zip(grus, inp)],
+            czrq=czrq,
             gru=[stream.gru_weights(g, dtype, name)
                  for g, name in zip(grus, ("gru08", "gru16", "gru32"))],
             head=stream.head_weights(self.flow_head, dtype),
             motion=stream.motion_weights(self.encoder, dtype))
 
     def _gru(self, idx: int, h: torch.Tensor, inp, fused: Optional[FusedInputs],
-             *xs: torch.Tensor) -> torch.Tensor:
-        if fused is not None:
+             *xs: torch.Tensor, space=None) -> torch.Tensor:
+        if fused is not None and fused.czrq[idx] is not None:
+            if space is not None:
+                return stream.fused_conv_gru_spatial(space, fused.gru[idx], h,
+                                                     fused.czrq[idx], *xs)[0]
             return stream.fused_conv_gru(fused.gru[idx], h, fused.czrq[idx], *xs)[0]
-        return self.grus[idx](h, inp[idx], *xs)
+        gru = self.grus[idx]
+        if space is not None:
+            return run_extended(lambda h, cz, cr, cq, *xs: gru(h, (cz, cr, cq), *xs),
+                                GRU_HALO, space, h, *inp[idx], *xs)
+        return gru(h, inp[idx], *xs)
 
     def gru1632_engaged(self, net: Sequence[torch.Tensor],
-                        fused: Optional[FusedInputs]) -> bool:
+                        fused: Optional[FusedInputs], space=None) -> bool:
         """Whether the coarse GRUs run the gru16+32 kernel: three levels, the
         kernels in use (bf16), ``RAFT_FUSE_GRU1632`` on, gru16 and gru32 of
-        one hidden width, and gru32's map exactly half of gru16's."""
-        if fused is None or self.n_gru_layers != 3 or not fuse_gru1632_on():
+        one hidden width, gru32's map exactly half of gru16's, and no height
+        shard (the JAX package's ``space_mesh is None``)."""
+        if (fused is None or self.n_gru_layers != 3 or not fuse_gru1632_on()
+                or space is not None):
             return False
         h16, h32 = net[1], net[2]
         return (h16.shape[-1] == h32.shape[-1] and h16.shape[1] == 2 * h32.shape[1]
@@ -160,7 +206,7 @@ class BasicMultiUpdateBlock(nn.Module):
 
     def step_coarse(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
                     fused: Optional[FusedInputs] = None, *, iter32: bool = True,
-                    iter16: bool = True) -> Tuple[torch.Tensor, ...]:
+                    iter16: bool = True, space=None) -> Tuple[torch.Tensor, ...]:
         """The coarse GRUs of one step, gru32 (``iter32``) then gru16
         (``iter16``), those the model has, leaving gru08 as it is: the JAX
         package's update block with ``iter08=False, update=False``. With both
@@ -168,18 +214,18 @@ class BasicMultiUpdateBlock(nn.Module):
         one launch does both; otherwise each runs its own step."""
         net = list(net)
         n = self.n_gru_layers
-        if iter32 and iter16 and self.gru1632_engaged(net, fused):
+        if iter32 and iter16 and self.gru1632_engaged(net, fused, space):
             net[1], net[2] = stream.fused_gru1632(
                 fused.gru[1], fused.gru[2], net[1], net[2], fused.czrq[1], fused.czrq[2],
                 pool2x(net[0]), pool2x(net[1]))
             return tuple(net)
         if iter32 and n == 3:
-            net[2] = self._gru(2, net[2], inp, fused, pool2x(net[1]))
+            net[2] = self._gru(2, net[2], inp, fused, pool2x(net[1], space), space=space)
         if iter16 and n >= 2:
-            xs16 = (pool2x(net[0]),)
+            xs16 = (pool2x(net[0], space),)
             if n == 3:
-                xs16 += (interp_align_corners(net[2], net[1].shape[1:3]),)
-            net[1] = self._gru(1, net[1], inp, fused, *xs16)
+                xs16 += (interp_align_corners(net[2], _global_size(net[1], space), space),)
+            net[1] = self._gru(1, net[1], inp, fused, *xs16, space=space)
         return tuple(net)
 
     def _delta_flow(self, dx: torch.Tensor) -> torch.Tensor:
@@ -190,7 +236,7 @@ class BasicMultiUpdateBlock(nn.Module):
 
     def forward(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
                 corr: torch.Tensor, flow: torch.Tensor, *,
-                fused: Optional[FusedInputs] = None, fuse_motion: bool = True):
+                fused: Optional[FusedInputs] = None, fuse_motion: bool = True, space=None):
         """One test-mode refinement step, coarse to fine. Returns ``(net,
         delta_flow)``; the mask head is left to the caller, which needs it
         once, after the loop.
@@ -200,19 +246,31 @@ class BasicMultiUpdateBlock(nn.Module):
         off (a caller-supplied flow_init may carry a nonzero y, whose weights
         the kernel drops).
         """
-        net = list(self.step_coarse(net, inp, fused))
-        if fused is not None and fuse_motion:
+        net = list(self.step_coarse(net, inp, fused, space=space))
+        if space is not None:
+            if (fused is not None and fuse_motion
+                    and stream.spatial_motion_is_fusable(corr, space.n_space)):
+                motion = stream.fused_motion_spatial(space, fused.motion, flow, corr)
+            else:
+                motion = run_extended(self.encoder, MOTION_HALO, space, flow, corr)
+        elif fused is not None and fuse_motion:
             motion = stream.fused_motion(fused.motion, flow, corr)
         else:
             motion = self.encoder(flow, corr)
         xs = (motion,)
         if self.n_gru_layers > 1:
-            xs += (interp_align_corners(net[1], net[0].shape[1:3]),)
-        if fused is None:
-            net[0] = self._gru(0, net[0], inp, None, *xs)
+            xs += (interp_align_corners(net[1], _global_size(net[0], space), space),)
+        if fused is None or fused.czrq[0] is None:
+            net[0] = self._gru(0, net[0], inp, None, *xs, space=space)
+            if space is not None:
+                return tuple(net), run_extended(self.flow_head, HEAD_HALO, space, net[0])
             return tuple(net), self.flow_head(net[0])
-        net[0], dx = stream.fused_conv_gru(fused.gru[0], net[0], fused.czrq[0], *xs,
-                                           head=fused.head)
+        if space is not None:
+            net[0], dx = stream.fused_gru_head_spatial(space, fused.gru[0], fused.head,
+                                                       net[0], fused.czrq[0], *xs)
+        else:
+            net[0], dx = stream.fused_conv_gru(fused.gru[0], net[0], fused.czrq[0], *xs,
+                                               head=fused.head)
         return tuple(net), self._delta_flow(dx)
 
     def step_resident(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],

@@ -464,3 +464,84 @@ def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
         h32_out.data_ptr(), bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     _count("gru1632", lane8)
     return h16_out, h32_out
+
+
+# -- height-sharded entries (``space``) ---------------------------------------
+#
+# The JAX package's spatial entries (``fused_conv_gru_spatial``,
+# ``fused_gru_head_spatial``, ``fused_motion_spatial``): a shard cannot run
+# its rows alone, since the 3x3 convs read across its edges. Each rank
+# extends its rows by ``halo.HALO`` neighbour rows on each side that has a
+# neighbour (``ops/halo.py:extend_rows``; none at the image's edges, where
+# the kernel's own zero padding is the image's), runs the same kernel over
+# the extended rows and crops the result back to its own. The backward is
+# the kernels': autograd through the plain version over the extended rows
+# (``ops/grad.py``), then the exchange's transpose. The czrq context is
+# built per shard from the extended context (:func:`spatial_prepare_gru_
+# context`), so its gradient reaches the context through the same
+# transpose (the JAX package zeroes czrq's cotangent and differentiates the
+# context instead: the same sum).
+
+
+def _spatial_ok(x: torch.Tensor) -> bool:
+    from raft_stereo_tpu_torch.ops.halo import HALO
+    return x.dtype == torch.bfloat16 and x.shape[1] >= HALO
+
+
+def spatial_gru_is_fusable(h: torch.Tensor, ns: int) -> bool:
+    """Whether a GRU level whose local state is ``h`` (rows of an ``ns``-way
+    height shard) runs the spatial entries: bf16, at least ``halo.HALO``
+    local rows (the JAX package's ``hl >= _HALO``; the shard heights are
+    equal by construction), and a hidden width the kernel takes."""
+    return ns > 1 and _spatial_ok(h) and h.shape[-1] % 32 == 0
+
+
+def spatial_motion_is_fusable(corr: torch.Tensor, ns: int) -> bool:
+    """:func:`spatial_gru_is_fusable`'s rule for the motion encoder."""
+    return ns > 1 and _spatial_ok(corr)
+
+
+def spatial_prepare_gru_context(space, gru, context: Sequence[torch.Tensor],
+                                dtype: torch.dtype) -> torch.Tensor:
+    """:func:`prepare_gru_context` over this rank's context rows extended
+    by ``halo.HALO`` neighbour rows (one exchange of the concatenated
+    context, once a frame)."""
+    from raft_stereo_tpu_torch.ops.halo import HALO, extend_rows
+    ext, _ = extend_rows(torch.cat(list(context), dim=-1), HALO, space)
+    return prepare_gru_context(gru, [ext], dtype)
+
+
+def fused_conv_gru_spatial(space, w: GruWeights, h: torch.Tensor, czrq_ext: torch.Tensor,
+                           *x_list: torch.Tensor, head: Optional[HeadWeights] = None
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`fused_conv_gru` on this rank's rows of a height shard:
+    ``czrq_ext`` from :func:`spatial_prepare_gru_context`; ``h`` and
+    ``x_list`` local rows. Returns ``(h', dx)`` on the local rows. With
+    ``head``, the JAX package's ``fused_gru_head_spatial``."""
+    from raft_stereo_tpu_torch.ops.halo import HALO, extend_rows
+    hl = h.shape[1]
+    he, top = extend_rows(h, HALO, space)
+    xs = [extend_rows(x, HALO, space)[0] for x in x_list]
+    if czrq_ext.shape[1] != he.shape[1]:
+        raise ValueError(f"czrq has {czrq_ext.shape[1]} rows, the extended state "
+                         f"{he.shape[1]}: build it with spatial_prepare_gru_context")
+    out, dx = fused_conv_gru(w, he, czrq_ext, *xs, head=head)
+    return out[:, top:top + hl], None if dx is None else dx[:, top:top + hl]
+
+
+def fused_gru_head_spatial(space, w: GruWeights, head: HeadWeights, h: torch.Tensor,
+                           czrq_ext: torch.Tensor, *x_list: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ConvGRU + FlowHead on a height shard; the x delta leaves out
+    ``conv2.b[0]``, like :func:`fused_conv_gru` with a head."""
+    return fused_conv_gru_spatial(space, w, h, czrq_ext, *x_list, head=head)
+
+
+def fused_motion_spatial(space, w: MotionWeights, flow: torch.Tensor,
+                         corr: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_motion` on this rank's rows of a height shard."""
+    from raft_stereo_tpu_torch.ops.halo import HALO, extend_rows
+    hl = corr.shape[1]
+    fe, top = extend_rows(flow, HALO, space)
+    ce, _ = extend_rows(corr, HALO, space)
+    return fused_motion(w, fe, ce)[:, top:top + hl]

@@ -11,9 +11,10 @@ document; with ``--http_port`` it serves ``POST /v1/stereo``, ``GET
 unless ``--device cpu``.
 
 Model construction differs from the root CLI: ``--restore_ckpt`` takes a
-reference ``.pth`` (``transplant.load_pth``); a native ``.msgpack`` raises
-(it comes with training, ROADMAP Queue A 7); no checkpoint means random
-weights from seed 0 (``init_raft_stereo(cfg, seed=0)``). ``--mesh_data``
+reference ``.pth`` or one of the port's own ``.pt`` training bundles
+(``engine/checkpoint.load_params``; the JAX package's ``.msgpack`` bundles
+are its own and do not load here); no checkpoint means random weights from
+seed 0 (``init_raft_stereo(cfg, seed=0)``). ``--mesh_data``
 above 1 (pod serving, not ported) raises before the model loads. Video
 streams (``X-Raft-Session``, ``--stream_sessions``, ``--stream_ttl_ms``,
 ``--converge_tol``) and the response cache (``--cache_bytes``, on at 256 MiB
@@ -55,9 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument('--restore_ckpt', default=None,
-                        help="checkpoint (.pth reference weights; a native "
-                        ".msgpack comes with training); omitted = random init "
-                        "(smoke runs)")
+                        help="checkpoint (.pth reference weights or a .pt "
+                        "training bundle); omitted = random init (smoke runs)")
     parser.add_argument('-l', '--left_imgs', default=None,
                         help="glob for left frames (batch mode; not "
                         "needed with --http_port)")
@@ -233,10 +233,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_ported(args) -> None:
     """The flags of modules not ported yet end the run before the model
     loads, naming the ROADMAP item."""
-    if args.restore_ckpt is not None and not args.restore_ckpt.endswith(".pth"):
-        raise SystemExit(f"--restore_ckpt {args.restore_ckpt}: only reference .pth "
-                         "weights load here; native checkpoints come with training "
-                         "(ROADMAP Queue A 7)")
     if args.mesh_data is not None and args.mesh_data > 1:
         raise SystemExit(f"--mesh_data {args.mesh_data}: pod serving is not ported "
                          "(ROADMAP Queue A 6: one process per GPU)")
@@ -341,12 +337,12 @@ def serve(args) -> int:
     from raft_stereo_tpu_torch.serve import (AdmissionConfig, InferenceSession,
                                              ServiceConfig, SessionConfig,
                                              StereoService)
-    from raft_stereo_tpu_torch.transplant import load_pth
+    from raft_stereo_tpu_torch.engine.checkpoint import load_params
 
     cfg = RAFTStereoConfig.from_namespace(args)
     if args.restore_ckpt is not None:
         model = RAFTStereo(cfg)
-        load_pth(model, args.restore_ckpt)
+        load_params(args.restore_ckpt, model)
     else:
         logging.warning("no --restore_ckpt: serving RANDOM weights "
                         "(wiring smoke only)")

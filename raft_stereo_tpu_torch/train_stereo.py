@@ -1,11 +1,15 @@
 """Training CLI of the port: ``python -m raft_stereo_tpu_torch.train_stereo``.
 
 The flags of the repository's ``train_stereo.py`` (the reference's, plus its
-extensions), and ``--device`` (CUDA unless ``--device cpu``). It trains on
-one card: more than one visible card, ``--spatial_shard`` > 1 or
-``COORDINATOR_ADDRESS`` raise before the model is built (the next slice).
-Checkpoints go to ``checkpoints/`` (or the directory ``--restore_ckpt``
-names), logs to ``runs/``, both under the working directory.
+extensions), and ``--device`` (CUDA unless ``--device cpu``).
+
+Several processes, one card each, launch as the JAX package's pods do: each
+process gets ``COORDINATOR_ADDRESS`` (``host:port``, served by process 0),
+``PROCESS_ID`` and ``NUM_PROCESSES``. They form one grid
+(``parallel/mesh.py``): ``--spatial_shard`` ranks split each sample's
+height, the rest split the batch. Checkpoints go to ``checkpoints/`` (or
+the directory ``--restore_ckpt`` names), logs to ``runs/``, both under the
+working directory, written by process 0 only.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "directory (torch.profiler trace)")
     parser.add_argument('--spatial_shard', type=int, default=1,
                         help="shard each sample's height over this many "
-                             "cards (not in this package yet: > 1 raises)")
+                             "processes (one card each); the rest form the "
+                             "data axis")
     parser.add_argument('--fused_train', action='store_true',
                         help="engage the refinement loop's GRU and motion "
                              "kernels in the train step (bf16; their "
@@ -110,7 +115,15 @@ def main(argv=None) -> None:
 
     cfg = RAFTStereoConfig.from_namespace(args)
     tcfg = TrainConfig.from_namespace(args)
-    train(cfg, tcfg, data_root=args.dataset_root, device=args.device)
+    try:
+        train(cfg, tcfg, data_root=args.dataset_root, device=args.device)
+    except ValueError as e:
+        if "spatial_shard" in str(e) or "batch_size" in str(e):
+            raise SystemExit(f"--{e}") from None
+        raise
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -84,7 +84,7 @@ def test_bench_main_on_cpu(capsys, monkeypatch, tmp_path, arch):
 
 
 def _cli(*args, **env):
-    full = dict(os.environ, PYTHONPATH=str(REPO), **TINY, **env)
+    full = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2", **TINY, **env)
     return subprocess.run([sys.executable, "-m", "raft_stereo_tpu_torch.bench", *args],
                           cwd=REPO, env=full, capture_output=True, text=True, timeout=300)
 

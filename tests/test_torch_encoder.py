@@ -632,8 +632,11 @@ def test_bf16_forward_matches_jax_defaults(rng, monkeypatch, sequential_fnet):
     kw = dict(SMALL, corr_implementation="reg_tpu", mixed_precision=True)
     params = _temper(jx_init(jax.random.PRNGKey(9), JaxConfig(**kw)))
     i1, i2 = (rng.uniform(0, 255, (1, 64, 128, 3)).astype(np.float32) for _ in range(2))
-    ref_lo, ref_up = jx_forward(params, JaxConfig(**kw), jnp.asarray(i1), jnp.asarray(i2),
-                                iters=3, test_mode=True)
+    # Jitted: traced once (the kernel calls are counted at the trace), and
+    # twice as fast as the eager interpreter on the CPU.
+    ref_lo, ref_up = jax.jit(lambda p, a, b: jx_forward(p, JaxConfig(**kw), a, b, iters=3,
+                                                        test_mode=True))(
+        params, jnp.asarray(i1), jnp.asarray(i2))
     # lax.map traces the feature net once for both images.
     nets = 2 if sequential_fnet else 1
     assert jcalls["_run_stem"] == nets and jcalls["_run_pass"] >= 19, jcalls

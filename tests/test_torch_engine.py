@@ -40,7 +40,7 @@ from raft_stereo_tpu_torch.engine import checkpoint as ckpt
 from raft_stereo_tpu_torch.engine.loss import sequence_loss
 from raft_stereo_tpu_torch.engine.optimizer import make_optimizer
 from raft_stereo_tpu_torch.engine.steps import make_train_step
-from raft_stereo_tpu_torch.engine.train import check_one_card, train
+from raft_stereo_tpu_torch.engine.train import train
 from raft_stereo_tpu_torch.faults import FaultPlan, FaultyDataset, truncate_file
 
 REPO = Path(__file__).resolve().parents[1]
@@ -364,11 +364,18 @@ def test_loader_retry_quarantine_and_substitution():
 
 
 def test_multi_card_work_raises_before_the_model():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        check_one_card(TrainConfig(spatial_shard=2), torch.device("cpu"))
+    """What a single process cannot run stops train() before it builds the
+    model: a space axis wider than the world (the JAX package's message),
+    and a multi-process launch whose topology is incomplete."""
+    with pytest.raises(ValueError, match="does not divide the 1 available device"):
+        train(RAFTStereoConfig(**TINY), TrainConfig(spatial_shard=2), device="cpu")
     os.environ["COORDINATOR_ADDRESS"] = "localhost:1234"
     try:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            check_one_card(TrainConfig(), torch.device("cpu"))
+        with pytest.raises(RuntimeError, match="set all three"):
+            train(RAFTStereoConfig(**TINY), TrainConfig(), device="cpu")
+        os.environ["PROCESS_ID"] = "0"
+        with pytest.raises(RuntimeError, match="must be set together"):
+            train(RAFTStereoConfig(**TINY), TrainConfig(), device="cpu")
     finally:
         del os.environ["COORDINATOR_ADDRESS"]
+        os.environ.pop("PROCESS_ID", None)

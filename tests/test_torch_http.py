@@ -1214,15 +1214,57 @@ def test_bomb_png_raises_image_too_large_in_both_packages(tmp_path, monkeypatch)
 
 def test_cli_unported_flags_raise_before_the_model_loads():
     """Flags of modules not ported yet end the run at once, naming the
-    ROADMAP item."""
+    ROADMAP item (the port's own bundles load: the next test)."""
     from raft_stereo_tpu_torch.serve_stereo import build_parser, serve
-    for argv, item in ((["--mesh_data", "2"], "Queue A 6"),
-                       (["--restore_ckpt", "w.msgpack"], "Queue A 7")):
+    for argv, item in ((["--mesh_data", "2"], "Queue A 6"),):
         args = build_parser().parse_args(["--http_port", "0", *argv])
         t0 = time.monotonic()
         with pytest.raises(SystemExit, match=item):
             serve(args)
         assert time.monotonic() - t0 < 1.0
+
+
+def test_cli_and_demo_serve_the_ports_own_bundle(tmp_path, capsys):
+    """A ``.pt`` bundle written by ``engine/checkpoint.save_checkpoint``
+    from a seeded tiny model (seed 7; the CLI's own random weights are
+    seed 0) serves through the CLI in batch mode and runs in the demo:
+    both disparities equal the in-process model's, loaded from the same
+    bundle, on the same pair (fp32, bit for bit)."""
+    from raft_stereo_tpu_torch.engine import checkpoint as ckpt
+    from raft_stereo_tpu_torch.models import raft_stereo_forward
+    from raft_stereo_tpu_torch.ops.padder import InputPadder
+    from raft_stereo_tpu_torch.serve_stereo import build_parser, serve
+    seeded = init_raft_stereo(RAFTStereoConfig(**TINY), seed=7, device="cpu")
+    bundle = ckpt.save_checkpoint(str(tmp_path / "tiny.pt"), seeded)
+    left, right = png_pair(seed=11)
+    (tmp_path / "s").mkdir()
+    (tmp_path / "s" / "im0.png").write_bytes(wire.encode_image_png(left))
+    (tmp_path / "s" / "im1.png").write_bytes(wire.encode_image_png(right))
+    arch = ["--n_gru_layers", "1", "--hidden_dims", "32", "32", "32", "--corr_levels", "2",
+            "--corr_radius", "2", "--corr_implementation", "reg", "--valid_iters", "2"]
+    pair = ["-l", str(tmp_path / "s" / "im0.png"), "-r", str(tmp_path / "s" / "im1.png")]
+    args = build_parser().parse_args([
+        "--device", "cpu", "--no_canary", "--watchdog_ms", "0", "--max_queue", "1",
+        "--segments", "2", "--cache_bytes", "0", "--restore_ckpt", bundle, "--output_directory",
+        str(tmp_path / "served"), *arch, *pair])
+    assert serve(args) == 0
+    capsys.readouterr()
+    served = np.load(next((tmp_path / "served").glob("*_disp.npy")))
+    port_demo.main(["--restore_ckpt", bundle, *pair, "--output_directory",
+                    str(tmp_path / "demo"), "--save_numpy", "--device", "cpu", *arch])
+    demo_disp = -np.load(tmp_path / "demo" / "s.npy")
+
+    model = init_raft_stereo(RAFTStereoConfig(**TINY), seed=0, device="cpu")
+    ckpt.load_params(bundle, model)
+    assert all(torch.equal(a, b) for a, b in
+               zip(model.state_dict().values(), seeded.state_dict().values()))
+    images = [torch.from_numpy(x[None].astype(np.float32)) for x in (left, right)]
+    padder = InputPadder(images[0].shape, divis_by=32)
+    _, flow_up = raft_stereo_forward(model, *padder.pad(*images), iters=2)
+    ref = -padder.unpad(flow_up)[0, ..., 0].numpy()
+    assert served.shape == demo_disp.shape == ref.shape == (H, W)
+    np.testing.assert_array_equal(served, ref)
+    np.testing.assert_array_equal(demo_disp, ref)
 
 
 def test_cli_serves_with_the_stream_and_cache_flags(tmp_path, monkeypatch, capsys):

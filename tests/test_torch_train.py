@@ -247,15 +247,25 @@ def assert_nonzero_leaves(grads: dict, side: str) -> None:
 
 @pytest.fixture(scope="module")
 def reg_fp32():
-    """The fp32 ``reg`` case, shared by the gradient and the step tests."""
+    """The fp32 ``reg`` case, shared by the gradient, statistics and step
+    tests: JAX's eager raw gradients, and the stop-gradient ones they give.
+    ``lax.stop_gradient`` on the BatchNorm statistics zeroes their leaves
+    and changes no other leaf's bit (eagerly the same operations run in the
+    same order), so one eager ``value_and_grad`` serves both."""
     model = port_model(SMALL)
     params = jax_params(model, SMALL)
     data = batch(0, 1, 64, 128)
-    return model, params, data, jax_grads(params, SMALL, data, jit=False)
+    loss, raw, raw_tree = jax_grads(params, SMALL, data, stop_bn=False, jit=False)
+    grads = {k: np.zeros_like(v) if k.endswith(("running_mean", "running_var")) else v
+             for k, v in raw.items()}
+    tree = jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.zeros_like(x)
+        if getattr(path[-1], "key", None) in ("mean", "var") else x, raw_tree)
+    return model, params, data, (loss, grads, tree), raw
 
 
 def test_fp32_gradients_match_jax(reg_fp32):
-    model, _, data, (jloss, jgrads, _) = reg_fp32
+    model, _, data, (jloss, jgrads, _), _ = reg_fp32
     ploss, pgrads = port_grads(model, data)
     np.testing.assert_allclose(ploss, jloss, rtol=1e-5)
     assert_nonzero_leaves(pgrads, "port")
@@ -268,8 +278,7 @@ def test_bn_statistics_get_no_gradient_in_the_port(reg_fp32):
     gradients (no stop-gradient) give the BatchNorm statistics nonzero
     leaves, while the port's statistics are buffers (its other half is
     pinned in test_torch_train_alt.py)."""
-    model, params, data, _ = reg_fp32
-    _, raw, _ = jax_grads(params, SMALL, data, stop_bn=False)
+    model, _, _, _, raw = reg_fp32
     stats = [k for k in raw if k.endswith(("running_mean", "running_var"))]
     assert stats and max(float(np.abs(raw[k]).max()) for k in stats) > 0
     state = model.state_dict(keep_vars=True)
@@ -283,7 +292,7 @@ def test_one_train_step_matches_jax(reg_fp32):
     AdamW, weight decay and OneCycle position. The gradients themselves
     are held to JAX's in test_fp32_gradients_match_jax; the step's loss and
     gradient norm are held to JAX's here."""
-    base, params, data, (jloss, _, jgrads) = reg_fp32
+    base, params, data, (jloss, _, jgrads), _ = reg_fp32
     model = port_model(SMALL)
     model.load_state_dict(base.state_dict())
     _, pgrads = port_grads(model, data)  # the gradients the step will take

@@ -2,8 +2,10 @@
 the CPU, on a synthetic tree: ``python -m raft_stereo_tpu_torch.train_stereo
 --device cpu`` trains, checkpoints and resumes from its checkpoint
 directory; ``python -m raft_stereo_tpu_torch.evaluate_stereo`` runs the
-validator, and with ``--spatial_shard 2`` raises before the model is built,
-naming the next slice (the trainer's own check is in test_torch_engine.py).
+validator, and with ``--spatial_shard 2`` in one process exits before the
+model is built, with the JAX package's message (two processes run it in
+test_torch_multihost.py; the trainer's own check is in
+test_torch_engine.py).
 """
 
 import json
@@ -58,7 +60,8 @@ def test_validate_things_and_evaluate_cli(things):
         [sys.executable, "-m", "raft_stereo_tpu_torch.evaluate_stereo", "--dataset", "things",
          "--spatial_shard", "2", "--device", "cpu"], cwd=REPO,
         env=ENV, capture_output=True, text=True, timeout=120)
-    assert bad.returncode != 0 and "next slice" in bad.stderr
+    assert bad.returncode != 0
+    assert "--spatial_shard 2 does not divide the 1 available device(s)" in bad.stderr
 
 
 def test_train_cli_trains_checkpoints_and_resumes(things, tmp_path):

@@ -59,11 +59,13 @@ Phases, each fatal on failure:
    realtime model's shapes (``REALTIME``, KITTI at 1/8): the head-less gru16
    step at 24x78 with one x input, and the resident kernel at 48x156 with
    its 24x78 gru16 state upsampled; and writes past a kernel's outputs
-   (``check_overruns``): one KITTI frame of 2 iterations on the default path
-   with every output and scratch map the six kernels' wrappers allocate
-   (stem, pass, point3, point2, gru16+32, resident) inside a larger buffer
-   of sentinel bytes (``guarded_allocations``), whose margins must come out
-   unchanged (compute-sanitizer refuses this card);
+   (``check_overruns``): one KITTI frame of 2 iterations on each of the
+   default path (stem, pass, point3, point2, gru16+32, resident), the serial
+   loop (lookup, the three GRU steps, motion) and ``alt_cuda`` (alt,
+   gru16+32, motion, gru08+head), with every output and scratch map their
+   wrappers allocate inside a larger buffer of sentinel bytes
+   (``guarded_allocations``), whose margins must come out unchanged
+   (compute-sanitizer refuses this card);
 4. the main path at full width: the default model (hidden 128x3, 3 GRU
    levels, 4 corr levels, radius 4, bf16, reg_cuda) with weights from a
    seed, through the demo's inference function at 32 iterations, with the
@@ -231,6 +233,25 @@ Phases, each fatal on failure:
    on the same batch. Each rank's frame ms, peak bytes and step launches
    (``"phase": "parallel"``); the kernels line gives the conv_gru, motion
    and lookup rows their launches there (``spatial_shard_2_launches``).
+12. pod serving (``phase_mesh``): a session whose data mesh lists
+   ``cuda:0`` twice (``mesh_devices``; buckets 2 and 4, every batched
+   program two shard graphs of half the rows), the tempered model at
+   KITTI size, 32 iterations in 4 segments, ``max_batch`` 4, the counts set
+   to 0 before it is built and read after its first served requests (every
+   encoder and default-loop kernel launched). Four seeded uint8 pairs
+   through the bucket-4 programs by hand: each row bit for bit a
+   one-device session's at bucket 2, and in the CROSS_WIDTH_PIN band of its
+   bucket-4 rows; through the scheduler the same bits; each shard program's
+   captured launches those of a one-device program of its rows; both
+   chips probed healthy (``probe_s``). Then ``quarantine_chip(1)`` (the
+   mesh one chip wide, a new epoch), served; ``heal_mesh`` after
+   RAFT_HEAL_BACKOFF_MS (MESH_BACKOFF_MS): chip 1 re-admitted, the new
+   epoch's graphs captured before it returns, and the requests served
+   again bit for bit as the first time with no capture.
+   Capture s a shard; frames/s at mesh 2 and on one device (bucket 4, 8
+   clients) in turns (``"phase": "mesh"``); the kernels line gives the
+   encoder and default-loop rows their launches in each shard of each mesh
+   program (``mesh_shard_launches``: ``"advance@b4": [8, 8]``).
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -1475,7 +1496,16 @@ def lane8_checks() -> list:
 # OVERRUN_SENTINEL on each side, and the margins must come out unchanged.
 OVERRUN_MARGIN = 1 << 20
 OVERRUN_SENTINEL = 0xA5
-OVERRUN_KERNELS = ("enc_stem", "enc_pass", "enc_point3", "enc_point2", "gru1632", "fused_iter")
+# The frames the check runs: (switches, correlation, the kernels each must
+# launch). Every hand-written kernel of a model path is in one of them.
+OVERRUN_ROUTES = {
+    "default": ({}, "reg_cuda", ("enc_stem", "enc_pass", "enc_point3", "enc_point2",
+                                 "gru1632", "fused_iter")),
+    "serial": ({"RAFT_FUSE_ITER": "0", "RAFT_FUSE_GRU1632": "0"}, "reg_cuda",
+               ("corr_lookup", "conv_gru:gru08", "conv_gru:gru16", "conv_gru:gru32",
+                "motion")),
+    "alt_cuda": ({}, "alt_cuda", ("corr_alt", "gru1632", "motion", "conv_gru:gru08")),
+}
 
 
 class guarded_allocations:
@@ -1528,24 +1558,33 @@ class guarded_allocations:
 
 
 def check_overruns(model, pair, iters: int = 2) -> dict:
-    """The default path's six kernels (stem, pass, point3, point2, gru16+32,
-    resident) at the KITTI shapes, through one frame of ``iters`` iterations
-    with every output and scratch map a wrapper allocates inside a guarded
-    buffer: no margin may change."""
+    """Every kernel of the model paths at the pair's shapes, through one
+    frame of ``iters`` iterations on each of OVERRUN_ROUTES, with every
+    output and scratch map a wrapper allocates inside a guarded buffer: no
+    margin may change, and each route must launch each of its kernels."""
+    import dataclasses
+
     from raft_stereo_tpu_torch import kernels
     from raft_stereo_tpu_torch.demo import infer_pair
-    infer_pair(model, *pair, iters=iters)  # weight layouts cached outside the guard
-    torch.cuda.synchronize()
-    before = dict(kernels.launches)
-    with guarded_allocations() as guard:
-        infer_pair(model, *pair, iters=iters)
-    bad = guard.intact()
-    launched = {k: kernels.launches[k] - before.get(k, 0) for k in OVERRUN_KERNELS}
-    result = {"phase": "overrun", "ok": not bad and all(launched.values()),
+    from raft_stereo_tpu_torch.serve.session import _view
+    routes = {}
+    for name, (env, corr, want) in OVERRUN_ROUTES.items():
+        view = _view(model, dataclasses.replace(model.cfg, corr_implementation=corr))
+
+        def frame(view=view):
+            infer_pair(view, *pair, iters=iters)  # weight layouts cached outside the guard
+            torch.cuda.synchronize()
+            before = dict(kernels.launches)
+            with guarded_allocations() as guard:
+                infer_pair(view, *pair, iters=iters)
+            bad = guard.intact()
+            launched = {k: kernels.launches.get(k, 0) - before.get(k, 0) for k in want}
+            return {"ok": not bad and all(launched.values()), "buffers": len(guard.buffers),
+                    "launches": launched, "bad_buffers": bad}
+        routes[name] = _with_env(env, frame)
+    result = {"phase": "overrun", "ok": all(r["ok"] for r in routes.values()),
               "input": "x".join(map(str, pair[0].shape[1:3])), "iters": iters,
-              "buffers": len(guard.buffers), "margin_bytes": OVERRUN_MARGIN,
-              "launches": launched, "bad_buffers": bad}
-    del guard
+              "margin_bytes": OVERRUN_MARGIN, "routes": routes}
     print(json.dumps(result))
     if not result["ok"]:
         raise SystemExit(f"writes past a kernel's outputs, or a kernel not run: {result}")
@@ -4155,6 +4194,210 @@ def phase_parallel(smi: str) -> dict:
     return result
 
 
+# -- phase 12: pod serving -----------------------------------------------------------
+
+# The mesh's devices: one card listed twice (the machine has one), so the two
+# shards share its SMs and its stream.
+MESH_DEVICES = ("cuda:0", "cuda:0")
+MESH_BUCKETS = (2, 4)
+MESH_PAIRS = 4
+MESH_BACKOFF_MS = 50.0
+MESH_ROUNDS = ("mesh", "one", "one", "mesh")  # rate rounds, in turns
+
+
+def _rows_by_hand(sess, pairs, b: int, ph: int, pw: int) -> list:
+    """``pairs`` through the session's b-row programs by hand (prepare, the
+    segments' advances, epilogue), ``b`` at a time: the padded-off flows."""
+    import numpy as np
+    padder = sess.padder_for(pairs[0][0].shape)
+    out = []
+    for i in range(0, len(pairs), b):
+        lp, rp = (np.ascontiguousarray(np.concatenate(x)) for x in zip(*(padder.pad_np(
+            p[0].astype(np.float32), p[1].astype(np.float32)) for p in pairs[i:i + b])))
+        (state,) = sess.invoke(sess.get_program("prepare", ph, pw, 0, b=b), lp, rp)
+        adv = sess.get_program("advance", ph, pw, SERVER_ITERS_PER_TICK, b=b)
+        for _ in range(SERVER_SEGMENTS):
+            state, _, _ = sess.invoke(adv, state)
+        flow_up, _ = sess.invoke(sess.get_program("epilogue", ph, pw, 0, b=b), state)
+        out += [-padder.unpad_np(flow_up[j:j + 1])[0, ..., 0] for j in range(b)]
+    return out
+
+
+def _scheduled(sess, pairs) -> list:
+    """``pairs`` through a continuous-batching scheduler driven on this
+    thread, every pair uploaded before the first tick (so all join one
+    batch): the disparities in pair order, each required ok and full."""
+    from raft_stereo_tpu_torch.serve import BatchScheduler
+    out = {}
+    sched = BatchScheduler(sess, resolve=lambda rq, rs: out.__setitem__(rq["id"], rs))
+    try:
+        for i, p in enumerate(pairs):
+            sched.submit(_request(i, p))
+        for bucket in sched._buckets.values():
+            for row in list(bucket.pending):
+                row.uploaded.wait(timeout=600)
+        while len(out) < len(pairs):
+            if not sched.run_tick():
+                time.sleep(0.001)
+    finally:
+        sched.shutdown()
+    for i in range(len(pairs)):
+        if out[i]["status"] != "ok" or out[i]["quality"] != "full":
+            raise SystemExit(f"mesh: request {i} gave {out[i].get('status')} "
+                             f"{out[i].get('code') or out[i].get('quality')}")
+    return [out[i]["disparity"] for i in range(len(pairs))]
+
+
+def _mesh_shards_checked(sess, ph: int, pw: int) -> dict:
+    """Each mesh program's shards: a shard of k rows captured the launches of
+    a one-device program of k rows (ENC_KITTI a row for the prepares; a
+    fused_iter and a gru1632 an iteration for the advance; none for the
+    epilogue)."""
+    out = {}
+    for b in MESH_BUCKETS:
+        k = b // len(MESH_DEVICES)
+        want = {"prepare": {n: k * c for n, c in ENC_KITTI.items()},
+                "prepare_warm": {n: k * c for n, c in ENC_KITTI.items()},
+                "advance": {"fused_iter": SERVER_ITERS_PER_TICK,
+                            "gru1632": SERVER_ITERS_PER_TICK},
+                "epilogue": {}}
+        for kind, it in (("prepare", 0), ("prepare_warm", 0),
+                         ("advance", SERVER_ITERS_PER_TICK), ("epilogue", 0)):
+            shards = sess.program_shards(kind, ph, pw, it, b=b)
+            if len(shards) != len(MESH_DEVICES) or any(s["launches"] != want[kind]
+                                                       for s in shards):
+                raise SystemExit(f"mesh: {kind} at b={b} shards captured {shards}, "
+                                 f"expected {len(MESH_DEVICES)} x {want[kind]}")
+            out[f"{kind}@b{b}"] = shards
+    return out
+
+
+def phase_mesh(smi: str) -> dict:
+    """Pod serving (see the module docstring, phase 12)."""
+    import gc
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.serve import (InferenceSession, ServiceConfig, SessionConfig,
+                                             StereoService)
+    from raft_stereo_tpu_torch.serve.guard import CANARY_ATOL, CANARY_RTOL
+    t_phase = time.perf_counter()
+    for knob in SWITCHES + ENCODER_SWITCHES:
+        os.environ.pop(knob, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = seeded_model("cuda")
+    pairs = _server_pairs(MESH_PAIRS, seed=43)
+    os.environ["RAFT_HEAL_BACKOFF_MS"] = str(MESH_BACKOFF_MS)
+    scfg = dict(valid_iters=ITERS, segments=SERVER_SEGMENTS, max_batch=4,
+                warmup_shapes=(KITTI,))
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mesh = InferenceSession(model, model.cfg, SessionConfig(mesh_data=2, **scfg),
+                                mesh_devices=MESH_DEVICES)
+        mesh_setup_s = time.perf_counter() - t0
+        if tuple(mesh.batch_buckets) != MESH_BUCKETS or mesh.mesh_chips != 2:
+            raise SystemExit(f"mesh: buckets {mesh.batch_buckets}, chips {mesh.mesh_chips}")
+        ph, pw = mesh.padder_for(pairs[0][0].shape).padded_shape
+        served = _scheduled(mesh, pairs)
+        torch.cuda.synchronize()
+        launches, variants = dict(kernels.launches), dict(kernels.variants)
+        missing = [k for k in (*ENC_KITTI, "fused_iter", "gru1632") if not launches.get(k)]
+        if missing:
+            raise SystemExit(f"mesh: kernels never launched on the mesh path: {missing}")
+        hand = _rows_by_hand(mesh, pairs, 4, ph, pw)
+        shards = _mesh_shards_checked(mesh, ph, pw)
+        t0 = time.perf_counter()
+        hung = mesh.probe_chips()
+        probe_s = time.perf_counter() - t0
+        if hung:
+            raise SystemExit(f"mesh: probes read healthy chips {list(hung)} as hung")
+        t0 = time.perf_counter()
+        one = InferenceSession(model, model.cfg, SessionConfig(batch_buckets=MESH_BUCKETS,
+                                                               **scfg))
+        one_setup_s = time.perf_counter() - t0
+        one_b2 = _rows_by_hand(one, pairs, 2, ph, pw)
+        one_b4 = _rows_by_hand(one, pairs, 4, ph, pw)
+        rows = [{"bitwise_b2": torch.equal(torch.from_numpy(h), torch.from_numpy(r2)),
+                 "served_bitwise": torch.equal(torch.from_numpy(sv), torch.from_numpy(h)),
+                 "max_abs_diff_b4": float(np.abs(h - r4).max()),
+                 "bitwise_b4": h.tobytes() == r4.tobytes(),
+                 "in_band_b4": bool(np.allclose(h, r4, rtol=CANARY_RTOL, atol=CANARY_ATOL))}
+                for h, r2, r4, sv in zip(hand, one_b2, one_b4, served)]
+        # Quarantine chip 1: one chip wide under a new epoch, served.
+        if not mesh.quarantine_chip(1) or mesh.mesh_chips != 1:
+            raise SystemExit(f"mesh: quarantine left {mesh.mesh_status()}")
+        t0 = time.perf_counter()
+        shrunk = _scheduled(mesh, pairs)
+        shrunk_s = time.perf_counter() - t0
+        shrunk_rows = [{"bitwise_b4": s_.tobytes() == r4.tobytes(),
+                        "in_band_b4": bool(np.allclose(s_, r4, rtol=CANARY_RTOL,
+                                                       atol=CANARY_ATOL))}
+                       for s_, r4 in zip(shrunk, one_b4)]
+        time.sleep(2 * MESH_BACKOFF_MS / 1e3)
+        t0 = time.perf_counter()
+        healed = mesh.heal_mesh()
+        heal_s = time.perf_counter() - t0
+        compiles, warm = mesh.metrics()["compiles"], mesh.deck.status()["warm_records"]
+        regrown = _scheduled(mesh, pairs)
+        regrow = {"heal": healed, "heal_s": heal_s, "status": mesh.mesh_status(),
+                  "bitwise_first": [a.tobytes() == b.tobytes()
+                                    for a, b in zip(regrown, served)],
+                  "new_compiles": mesh.metrics()["compiles"] - compiles,
+                  "new_warm_records": mesh.deck.status()["warm_records"] - warm}
+        svc = StereoService(mesh, ServiceConfig(max_queue=2 * SERVER_CLIENTS)).start()
+        svc_one = StereoService(one, ServiceConfig(max_queue=2 * SERVER_CLIENTS)).start()
+        try:
+            rounds = [{"session": name, **_rate(svc if name == "mesh" else svc_one, pairs)}
+                      for name in MESH_ROUNDS]
+        finally:
+            svc.stop()
+            svc_one.stop()
+        capture_s = [s_["capture_s"] for rows_ in _mesh_shards_checked(mesh, ph, pw).values()
+                     for s_ in rows_]
+        line = {"phase": "mesh", "card": smi, "devices": list(MESH_DEVICES),
+                "buckets": list(mesh.batch_buckets), "padded": [ph, pw],
+                "setup_s": {"mesh": mesh_setup_s, "one_device": one_setup_s},
+                "launches": launches, "variants": variants, "rows": rows,
+                "cross_width_pin": CROSS_WIDTH_PIN, "shard_launches": shards,
+                "shard_capture_s": {"min": min(capture_s), "median":
+                                    statistics.median(capture_s), "max": max(capture_s),
+                                    "n": len(capture_s)},
+                "probe_s": probe_s,
+                "quarantine": {"rows": shrunk_rows, "served_s": shrunk_s},
+                "regrow": regrow, "rate": rounds,
+                "rate_ratio": (statistics.median(r["frames_per_s"] for r in rounds
+                                                 if r["session"] == "mesh")
+                               / statistics.median(r["frames_per_s"] for r in rounds
+                                                   if r["session"] == "one")),
+                "graph_pool_bytes": {name: sum(p["pool_bytes"] or 0.0 for p in s_.programs())
+                                     for name, s_ in (("mesh", mesh), ("one", one))},
+                "trips": [s_.breaker.trip_count for s_ in (mesh, one)],
+                "seconds": time.perf_counter() - t_phase}
+        print(json.dumps(line, default=str))
+    finally:
+        os.environ.pop("RAFT_HEAL_BACKOFF_MS", None)
+    if not all(r["bitwise_b2"] and r["served_bitwise"] for r in rows):
+        raise SystemExit(f"mesh: rows not bit for bit a one-device session's at b=2: {rows}")
+    if not all(r["bitwise_b4"] if CROSS_WIDTH_PIN == "bitwise" else r["in_band_b4"]
+               for r in rows + shrunk_rows):
+        raise SystemExit(f"mesh: rows against b=4 break the {CROSS_WIDTH_PIN} pin: "
+                         f"{rows} {shrunk_rows}")
+    if healed["readmitted"] != [1] or regrow["status"]["n_data"] != 2:
+        raise SystemExit(f"mesh: chip 1 not re-admitted: {regrow}")
+    if not all(regrow["bitwise_first"]) or regrow["new_compiles"] or \
+            regrow["new_warm_records"]:
+        raise SystemExit(f"mesh: the re-grown mesh is not the first one: {regrow}")
+    if any(line["trips"]):
+        raise SystemExit(f"mesh: breaker trips on a clean path: {line['trips']}")
+    del mesh, one, svc, svc_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4175,6 +4418,7 @@ def main() -> int:
     phase_streams(smi)
     phase_train(smi)
     parallel = phase_parallel(smi)
+    mesh = phase_mesh(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:
@@ -4208,6 +4452,18 @@ def main() -> int:
             line[-1]["spatial_shard_2_launches"] = {
                 "frame": parallel["frame_launches_per_rank"].get(r["counter"], 0),
                 "step": parallel["steps"]["space"]["launches"].get(r["counter"], 0)}
+        # Its launches in each shard of phase 12's mesh programs, by
+        # program and bucket (captured: a replay of the shard's graph makes
+        # the same launches), by variant for an encoder row; only rows at
+        # the default path's KITTI shapes.
+        if r.get("on_path") in (None, "default"):
+            key, name = (("variants", r["variant"]) if "variant" in r
+                         else ("launches", r["counter"]))
+            per_shard = {prog: [s_[key].get(name, 0) for s_ in shards_]
+                         for prog, shards_ in mesh["shard_launches"].items()
+                         if any(s_[key].get(name, 0) for s_ in shards_)}
+            if per_shard:
+                line[-1]["mesh_shard_launches"] = per_shard
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,12 @@ HOST_ENV_KNOBS: Tuple[str, ...] = (
     "RAFT_LEDGER",          # program-ledger dump target (obs/ledger.py)
     "RAFT_DECK_TICKS",      # tick-deck ring depth (obs/deck.py)
     "RAFT_CAPACITY_WINDOW_MS",  # saturation window (obs/capacity.py)
+    # The data-mesh extent changes the programs, but it keys them as a
+    # trailing cache-key component (("mesh", n, epoch), serve/session.py
+    # cache_key), never through the fingerprint: the response cache keys on
+    # the fingerprint and stays one cache above every device.
+    "RAFT_SERVE_MESH_DATA",  # devices one session drives (default 1)
+    "RAFT_SERVE_MESH_FALLBACK",  # force one device whatever is asked
     "RAFT_HEAL",            # recovery-plane switch (serve/heal.py)
     "RAFT_HEAL_BACKOFF_MS",
     "RAFT_HEAL_BACKOFF_MAX_MS",

@@ -30,8 +30,8 @@ Operations:
 
 Event lines on stdout are single JSON objects; the ``fleet_listening``
 event carries the bound ``port`` and ``endpoint`` (the readiness
-handshake of this CLI). ``--mesh_data`` is forwarded to the instances,
-which serve one card each: a value above 1 ends their launch.
+handshake of this CLI). ``--mesh_data`` is forwarded to the instances:
+each serves one session over a data mesh of that many devices.
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "next deploy")
     parser.add_argument("--mesh_data", type=int, default=None,
                         help="per-instance data-mesh width, forwarded to every "
-                        "instance; an instance drives one card, so a value "
-                        "above 1 ends its launch (pod serving is not ported)")
+                        "instance: each drives one session over this many "
+                        "devices")
     return parser
 
 

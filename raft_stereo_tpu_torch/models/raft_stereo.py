@@ -55,7 +55,10 @@ each rank and add up over the space row (``engine/steps.py``).
 The serving scheduler composes carries into one batch and back
 (:func:`stack_refinement_states`, :func:`take_refinement_rows`): every leaf
 of a carry, a ``Lane8`` container's ``q`` and ``scale`` included, has the
-batch as its leading axis.
+batch as its leading axis. A data-mesh session's carries are
+:class:`ShardedCarry` parts, each on its shard's device; the same two
+helpers gather and join them part by part, and :func:`shard_rows` lays a
+carry out as a mesh program's shards.
 
 Under ``RAFT_LANE_PACK8`` (the JAX package's narrow lanes): the prepare step
 quantizes each zqr level's output (the quantize-on-exit pass where its gate
@@ -70,7 +73,7 @@ segment and epilogue, so it goes through the same two quantizations.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -367,21 +370,100 @@ def _map_carry(fn, *carries):
     raise TypeError(f"unexpected carry leaf {type(first).__name__}")
 
 
+class ShardedCarry:
+    """A batched carry held in parts, each a carry of consecutive rows on
+    its own device: the rows of a data-mesh program's shards. Row ``r`` of
+    the whole is row ``r - offset`` of the part it falls in. Gathers and
+    joins (:func:`take_refinement_rows`, :func:`stack_refinement_states`)
+    leave every row on the device it is on; a row moves to another device
+    only when a mesh program places it on another shard."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: Sequence[dict]):
+        self.parts = tuple(parts)
+        if not self.parts:
+            raise ValueError("a sharded carry needs >= 1 part")
+
+    @property
+    def widths(self) -> Tuple[int, ...]:
+        return tuple(int(p["coords1"].shape[0]) for p in self.parts)
+
+    def locate(self, row: int) -> Tuple[int, int]:
+        """(part, row within the part) of row ``row`` of the whole."""
+        for j, w in enumerate(self.widths):
+            if row < w:
+                return j, row
+            row -= w
+        raise IndexError("row past the sharded carry's width")
+
+
+def carry_rows(state) -> int:
+    """Batch rows of a carry, plain or sharded."""
+    if isinstance(state, ShardedCarry):
+        return sum(state.widths)
+    return int(state["coords1"].shape[0])
+
+
 def stack_refinement_states(states: Sequence[dict]) -> dict:
-    """Concatenate carries along the batch axis (rows keep order)."""
+    """Concatenate carries along the batch axis (rows keep order). With a
+    sharded carry among them the result is sharded: the parts are joined,
+    no row moves."""
     if not states:
         raise ValueError("stack_refinement_states needs >= 1 state")
     if len(states) == 1:
         return states[0]
+    if any(isinstance(s, ShardedCarry) for s in states):
+        return ShardedCarry([p for s in states
+                             for p in (s.parts if isinstance(s, ShardedCarry) else (s,))])
     return _map_carry(lambda *xs: torch.cat(xs, dim=0), *states)
+
+
+def _take_rows(state: dict, rows: Sequence[int]) -> dict:
+    leaf = state["coords1"]
+    idx = torch.tensor([int(r) for r in rows], dtype=torch.long, device=leaf.device)
+    return _map_carry(lambda x: x.index_select(0, idx), state)
 
 
 def take_refinement_rows(state: dict, rows: Sequence[int]) -> dict:
     """Gather batch rows of a carry, in the order given; repeats are allowed
-    (padding a batch to its bucket replicates a live row)."""
-    leaf = state["coords1"]
-    idx = torch.tensor([int(r) for r in rows], dtype=torch.long, device=leaf.device)
-    return _map_carry(lambda x: x.index_select(0, idx), state)
+    (padding a batch to its bucket replicates a live row). A sharded carry
+    gathers on each part's device: each run of consecutive rows drawn from
+    one part becomes a part of the result."""
+    if not isinstance(state, ShardedCarry):
+        return _take_rows(state, rows)
+    runs: list = []  # [part index, rows within it]
+    for r in rows:
+        j, local = state.locate(int(r))
+        if runs and runs[-1][0] == j:
+            runs[-1][1].append(local)
+        else:
+            runs.append([j, [local]])
+    return ShardedCarry([_take_rows(state.parts[j], local) for j, local in runs])
+
+
+def shard_rows(state, devices: Sequence[torch.device], rows: int) -> list:
+    """A carry laid out as ``len(devices)`` shards of ``rows`` rows, shard
+    ``i`` on ``devices[i]``: a sharded carry already in that layout is its
+    parts; otherwise each shard's rows are gathered on the device they are
+    on and copied device to device (never through the host)."""
+    if isinstance(state, ShardedCarry) and state.widths == (rows,) * len(devices) and all(
+            p["coords1"].device == torch.device(d) for p, d in zip(state.parts, devices)):
+        return list(state.parts)
+    out = []
+    for i, dev in enumerate(devices):
+        piece = take_refinement_rows(state, range(i * rows, (i + 1) * rows))
+        parts = piece.parts if isinstance(piece, ShardedCarry) else (piece,)
+        moved = [_map_carry(lambda x: x.to(dev, non_blocking=True), p) for p in parts]
+        out.append(stack_refinement_states(moved))
+    return out
+
+
+def gather_rows(state, device: torch.device) -> dict:
+    """A carry, plain or sharded, as one plain carry on ``device``."""
+    if not isinstance(state, ShardedCarry):
+        return state
+    return shard_rows(state, [device], carry_rows(state))[0]
 
 
 @torch.no_grad()

@@ -47,8 +47,9 @@ forwarded to each instance, which reconcile with its
 ``raft_requests_total``).
 
 Several instances on one card each capture their own CUDA graphs in their
-own process; the capture gate (``serve/session.py:_CaptureGate``) is
-per process, so two instances' captures may overlap on the card.
+own process; the capture gates (``serve/session.py:_CaptureGate``, one a
+device) are per process, so two instances' captures may overlap on the
+card.
 
 Knobs (read at function scope; ``analysis/knobs.py`` HOST_ENV_KNOBS —
 fleet topology, never in a fingerprint):

@@ -29,10 +29,14 @@ granularity:
 **Carries stay on the card between ticks.** Joins, exits and pads are
 ``torch.cat`` and ``index_select`` on device tensors
 (``stack_refinement_states``, ``take_refinement_rows``), never a trip
-through the host. On the card every such op, and the uploader's copies, run
-under the session's ``device_ops`` (``_CaptureGate`` shared): a CUDA graph
-capture in CUDA's global mode fails if another thread allocates or copies
-while it runs. The uploader's copies run on a side stream and record an
+through the host. On a data mesh (``serve/session.py``) the carry is a
+``ShardedCarry``: the same two helpers gather and join each part on its
+own device, and the next mesh program places rows on their shards, device
+to device; joiners are sorted by their stream's chip so a stream's rows
+keep their shard. On the card every such op, and the uploader's copies, run
+under the session's ``device_ops`` (the ``_CaptureGate`` of each device
+shared): a CUDA graph capture fails on an allocation or a copy made on its
+device while it runs. The uploader's copies run on a side stream and record an
 event, which the tick's stream waits on before the pair is read.
 
 **Warm joins and the convergence exit** (``serve/stream.py``,
@@ -65,7 +69,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_stereo_tpu_torch.models.raft_stereo import (stack_refinement_states,
+from raft_stereo_tpu_torch.models.raft_stereo import (carry_rows, stack_refinement_states,
                                                       take_refinement_rows)
 from raft_stereo_tpu_torch.obs.ledger import ledger_id
 from raft_stereo_tpu_torch.obs.tracing import NULL_TRACE
@@ -152,8 +156,7 @@ class _Bucket:
 
     @property
     def carry_width(self) -> int:
-        return 0 if self.carry is None else int(
-            self.carry["coords1"].shape[0])
+        return 0 if self.carry is None else carry_rows(self.carry)
 
     @property
     def has_work(self) -> bool:
@@ -514,6 +517,17 @@ class BatchScheduler:
             # then share ONE advance (the x-only seed keeps flow y == 0).
             cold = [r for r in joiners if r.flow_init is None]
             warm = [r for r in joiners if r.flow_init is not None]
+            # Chip affinity on a data mesh: within each group a stable sort
+            # by the stream session's chip (stamped ``_chip`` at admission),
+            # so a stream's rows keep landing on the same shard (a mesh
+            # program splits the batch into contiguous shards). Rows
+            # without a chip sort first; FIFO holds within a chip, and off
+            # the mesh (no row has a chip) nothing moves.
+            def _chip_key(r: _Row) -> int:
+                c = r.request.get("_chip")
+                return c if isinstance(c, int) else -1
+            cold.sort(key=_chip_key)
+            warm.sort(key=_chip_key)
             # The published join group follows the carry order below (same
             # membership, so a harvest still finds every row).
             joiners[:] = cold + warm

@@ -1166,8 +1166,25 @@ class StereoService:
             t.join(timeout=5.0)
         self._zombies.extend(t for t in old_threads if t.is_alive())
         # A bounce on the card abandons the wedged thread: a CUDA graph
-        # replay cannot be cancelled (serve/supervise.py). One card: no
-        # chip is probed or quarantined.
+        # replay cannot be cancelled (serve/supervise.py). On a live data
+        # mesh a device_hang bounce probes every chip and quarantines only
+        # the hung ones: the mesh shrinks to the largest divisor of its
+        # base extent that fits the survivors, the epoch re-keys the mesh
+        # programs, and the other chips keep serving. Stream sessions
+        # pinned to a quarantined chip migrate; their held seed is on the
+        # host, so they stay warm.
+        quarantined: list = []
+        if kind == "device_hang" and self.session.mesh_active:
+            for chip in self.session.probe_chips():
+                if self.session.quarantine_chip(chip):
+                    quarantined.append(chip)
+            if quarantined:
+                migrated = self.stream.migrate_off_chips(quarantined,
+                                                         self.session.mesh_chips)
+                logger.warning(
+                    "quarantined chip(s) %s after device_hang: mesh now %d-wide, "
+                    "%d stream session(s) migrated", quarantined,
+                    self.session.mesh_chips, migrated)
         self.registry.counter(
             "raft_sched_restarts_total",
             "scheduler generation bounces by watchdog reason",
@@ -1212,6 +1229,9 @@ class StereoService:
             "generation": {"from": gen - 1, "to": gen},
             "requests": {"harvested": len(harvested),
                          "requeued": requeued, "failed": failed},
+            "mesh": ({"quarantined": quarantined,
+                      "n_data": self.session.mesh_chips}
+                     if quarantined else None),
             "breaker": self.session.breaker.status(),
             "metrics": self.registry.snapshot(),
         }, trace_id=f"bounce-g{gen}")
@@ -1221,12 +1241,19 @@ class StereoService:
 
     def heal_sweep(self) -> Dict:
         """One recovery-plane sweep: at most one half-open breaker-rung
-        canary (strict reverse trip order). The JAX sweep's chip probes
-        and stream re-placement have nothing to do on one card. Not wired
-        into the Supervisor's monitor thread: detection and recovery run
-        on different triggers; the CLI's wait loop drives it, tests call
-        it on the FakeClock. With ``RAFT_HEAL=0`` it does nothing."""
-        return {"breaker": self.session.heal_breaker()}
+        canary (strict reverse trip order), then one probe pass over the
+        quarantined chips whose probation is due, then the stream sessions
+        parked off the mesh re-pinned onto a re-grown one. Not wired into
+        the Supervisor's monitor thread: detection and recovery run on
+        different triggers; the CLI's wait loop drives it, tests call it on
+        the FakeClock. With ``RAFT_HEAL=0`` it does nothing."""
+        rung = self.session.heal_breaker()
+        mesh = self.session.heal_mesh()
+        repinned = 0
+        if mesh["readmitted"]:
+            # Their held seeds are on the host: they come back warm.
+            repinned = self.stream.repin_unplaced(self.session.mesh_chips)
+        return {"breaker": rung, "mesh": mesh, "stream_repinned": repinned}
 
     def supervision_status(self) -> Dict:
         """The /healthz ``supervision`` block: generation, drain state,

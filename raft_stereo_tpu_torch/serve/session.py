@@ -34,9 +34,12 @@ graph and copies the static outputs out (to the host, or into fresh device
 tensors for a carry). Nothing on the model path synchronizes with the host,
 and the output is checked only after the copy out, outside the captured
 region. A failure while capturing is an error: no program runs uncaptured
-on the card. Evicting a program frees its graph and pool. Captures run
-alone on the card and replays share it (``_CaptureGate``): a capture fails
-on another thread's allocation or synchronizing copy.
+on the card. Evicting a program frees its graph and pool. A capture runs
+alone on its device and calls share it (``_CaptureGate``, one a device): a
+capture fails on an allocation or a synchronizing copy on its device. It
+runs in CUDA's thread-local mode, so work on other devices goes on beside
+it, and it waits for its device at most ``GATE_WAIT_S``: a replay that
+never comes back (a hung device) holds up that device and no other.
 
 **On the CPU there are no graphs**: the same program runs eagerly on every
 call, with the kernels' plain versions, which is how the tests run it.
@@ -56,8 +59,25 @@ encoder kernels take one image at a time, and a B>1 encoder would run
 cuDNN convolutions and torch norms, the plain route the card's breaker
 exists never to serve. A row's carry is so bit for bit its B=1 prepare's.
 ``advance`` and ``epilogue`` run the whole batch: the loop kernels take it
-in one launch each. The session drives one card (``mesh_data`` 1); the pod
-mesh is not ported.
+in one launch each.
+
+**Pod serving** (``mesh_data`` n > 1, the JAX package's data mesh): one
+session drives an ordered list of n devices (``cuda:0 .. cuda:n-1`` by
+default, the CPU n times with ``device="cpu"``, or the ``mesh_devices`` the
+caller passes), with one scheduler, one response cache and one ingress
+above them. Batch buckets round up to multiples of n. A batched program at
+bucket b is n shard programs of b/n rows, shard i on device i with that
+device's weight replica: on the card each shard is its own CUDA graph
+(captured under its device's gate), the host replays every shard before it
+waits on any, and the carries stay on their shard's device between ticks
+(``models/raft_stereo.py:ShardedCarry``); a row that changes shard is
+copied device to device. The mesh extent and an epoch ride the cache key as
+a trailing ``("mesh", n, epoch)``, never the fingerprint, so the response
+cache stays one cache. A hung device is probed (``probe_chips``) and
+quarantined: the mesh shrinks to the largest divisor of n that fits the
+survivors and the epoch re-keys the programs; the recovery plane probes it
+again on its backoff and re-admits it (``heal_mesh``), re-capturing the new
+epoch's programs before it returns.
 
 All faults are plan-driven (``faults.ServeFaultPlan``), so every recovery
 path here is testable on the CPU with deterministic injected faults.
@@ -86,9 +106,9 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig, resolve_device
 from raft_stereo_tpu_torch.faults import (RealClock, ServeFaultPlan, ServeFaults,
                                           poison_disparity)
 from raft_stereo_tpu_torch.models.raft_stereo import (
-    RAFTStereo, _map_carry, raft_stereo_epilogue, raft_stereo_forward,
-    raft_stereo_prepare, raft_stereo_segment, raft_stereo_segment_carry,
-    stack_refinement_states)
+    RAFTStereo, ShardedCarry, _map_carry, gather_rows, raft_stereo_epilogue,
+    raft_stereo_forward, raft_stereo_prepare, raft_stereo_segment,
+    raft_stereo_segment_carry, shard_rows, stack_refinement_states)
 from raft_stereo_tpu_torch.obs.capacity import resolve_capacity_window_s
 from raft_stereo_tpu_torch.obs.deck import TickDeck
 from raft_stereo_tpu_torch.obs.flight import FlightRecorder
@@ -106,7 +126,7 @@ from raft_stereo_tpu_torch.serve.guard import (CANARY_ATOL, CANARY_RTOL, CAPTURE
 from raft_stereo_tpu_torch.serve.heal import (resolve_heal_backoff_max_ms,
                                               resolve_heal_backoff_ms, resolve_heal_enabled,
                                               resolve_heal_flap_cap, resolve_heal_window_ms)
-from raft_stereo_tpu_torch.serve.supervise import InvocationWatch
+from raft_stereo_tpu_torch.serve.supervise import InvocationWatch, _parse_number
 from raft_stereo_tpu_torch.serve.validate import AdmissionConfig, validate_pair
 
 logger = logging.getLogger(__name__)
@@ -117,13 +137,19 @@ logger = logging.getLogger(__name__)
 _ENV_LOCK = threading.Lock()
 
 
+class GateTimeout(TimeoutError):
+    """A capture or a graph's release did not get its device alone in
+    time: a call on that device has not come back (a hung device)."""
+
+
 class _CaptureGate:
-    """The card's programs, process-wide: any number of calls copy in,
-    replay and copy out at once; a capture, or a graph's release, runs
-    alone. ``torch.cuda.graph`` captures in CUDA's global mode, in which
-    another thread's allocation or synchronizing copy (a replay's copy in
-    or out) invalidates the capture. A waiting capture goes before new
-    replays."""
+    """One device's programs: any number of calls copy in, replay and copy
+    out at once; a capture, or a graph's release, runs alone. A capture
+    fails on an allocation or a synchronizing copy on its own device (a
+    replay's copy in or out) made while it runs. A waiting capture goes
+    before new calls; it waits at most ``timeout`` seconds, then raises
+    :class:`GateTimeout` and lets them in again, so a call that never comes
+    back (a replay on a hung device) holds up that device alone."""
 
     def __init__(self):
         self._cond = threading.Condition()
@@ -145,12 +171,17 @@ class _CaptureGate:
                 self._cond.notify_all()
 
     @contextlib.contextmanager
-    def alone(self):
+    def alone(self, timeout: Optional[float] = None):
         with self._cond:
             self._waiting += 1
-            while self._alone or self._shared:
-                self._cond.wait()
-            self._waiting -= 1
+            try:
+                if not self._cond.wait_for(lambda: not (self._alone or self._shared),
+                                           timeout=timeout):
+                    raise GateTimeout(f"device busy past {timeout} s: a call on it has "
+                                      "not come back")
+            finally:
+                self._waiting -= 1
+                self._cond.notify_all()
             self._alone = True
         try:
             yield
@@ -160,7 +191,46 @@ class _CaptureGate:
                 self._cond.notify_all()
 
 
-_GATE = _CaptureGate()
+# One gate a device, process-wide (every session's programs on a device
+# share its gate); captures run in CUDA's thread-local mode, so work on
+# another device never invalidates one. Two chips of a mesh that list one
+# device share its gate.
+_GATES: Dict[str, _CaptureGate] = {}
+_GATES_LOCK = threading.Lock()
+
+# How long a capture or a release waits for its device: far past a
+# replay's time, so only a call that never comes back makes it give up.
+GATE_WAIT_S = 30.0
+
+
+def _device_key(dev) -> str:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def _gate(dev) -> _CaptureGate:
+    with _GATES_LOCK:
+        return _GATES.setdefault(_device_key(dev), _CaptureGate())
+
+
+@contextlib.contextmanager
+def _held(lock):
+    """``lock`` held, or :class:`GateTimeout` after ``GATE_WAIT_S``: a
+    capture that holds it past that is stuck on a hung device."""
+    if not lock.acquire(timeout=GATE_WAIT_S):
+        raise GateTimeout(f"a capture held the switch lock past {GATE_WAIT_S} s")
+    try:
+        yield
+    finally:
+        lock.release()
+
+
+def _gates_of(devices) -> Tuple[_CaptureGate, ...]:
+    """The distinct gates of ``devices`` in one fixed order: taken in it,
+    two threads never each hold a gate the other waits for."""
+    return tuple(_gate(k) for k in sorted({_device_key(d) for d in devices}))
 
 
 class SessionError(RuntimeError):
@@ -183,6 +253,60 @@ class InferenceFailed(SessionError):
 class DeadlineExceeded(SessionError):
     def __init__(self, message: str):
         super().__init__("deadline_exceeded", message)
+
+
+# The data-mesh extent is resolved once a session and keys the programs as a
+# trailing cache-key component, like the batch bucket; ``fingerprint_id()``
+# stays mesh-independent so the response cache stays one cache above every
+# device.
+
+def resolve_serve_mesh_data(value: Optional[int] = None) -> int:
+    """The data-mesh extent (devices one session drives): an explicit value
+    wins, else ``RAFT_SERVE_MESH_DATA``, else 1 (one device, the keys
+    without a mesh component)."""
+    if value is not None:
+        n = int(value)
+    else:
+        raw = os.environ.get("RAFT_SERVE_MESH_DATA", "").strip()
+        if not raw:
+            return 1
+        n = _parse_number("RAFT_SERVE_MESH_DATA", raw, int)
+    if n < 1:
+        raise ValueError(f"RAFT_SERVE_MESH_DATA must be >= 1, got {n}")
+    return n
+
+
+def resolve_mesh_fallback() -> bool:
+    """The mesh kill switch: ``RAFT_SERVE_MESH_FALLBACK=1`` forces one
+    device whatever the config or environment asks. Host-side: it selects
+    whether mesh programs exist, never what one program computes."""
+    raw = os.environ.get("RAFT_SERVE_MESH_FALLBACK", "").strip()
+    return raw not in ("", "0", "false", "False")
+
+
+def _device_list(device: torch.device, n: int, devices=None) -> list:
+    """The mesh's ordered devices: ``devices`` when given (its first n),
+    else the CPU n times for a CPU session, else ``cuda:0 .. cuda:n-1``.
+    Raises, naming the count, where fewer than n are there, and where a
+    given device is not of the session's type."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        where = "given"
+        other = sorted({str(d) for d in devs if d.type != device.type})
+        if other:
+            raise ValueError(f"mesh_devices {other} are not {device.type} devices like the "
+                             "session's")
+    elif device.type == "cpu":
+        devs = [device] * n
+        where = "cpu"
+    else:
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        where = "cuda"
+    if n > len(devs):
+        raise ValueError(f"mesh_data {n} exceeds the {len(devs)} available {where} "
+                         "device(s)")
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs[:n]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,8 +337,10 @@ class SessionConfig:
     batch_buckets: the batch sizes programs are built at; a batch pads up
         to the smallest that fits. Empty: ``RAFT_BATCH_BUCKETS`` if set,
         else powers of two up to ``max_batch``.
-    mesh_data: None or 1. The pod mesh is one process per card; more
-        raises.
+    mesh_data: devices the session drives over its data mesh (None:
+        ``RAFT_SERVE_MESH_DATA``, else 1). Above 1 the batch buckets round
+        up to multiples of it and every batched program runs as that many
+        shards, one a device.
     heal: the recovery plane's switch (None: ``RAFT_HEAL``, else on).
     """
 
@@ -247,10 +373,8 @@ class SessionConfig:
             if list(bb) != sorted(set(bb)) or bb[0] < 1:
                 raise ValueError(f"batch_buckets must be strictly increasing positive "
                                  f"ints, got {bb}")
-        if self.mesh_data not in (None, 1):
-            raise NotImplementedError(
-                f"mesh_data={self.mesh_data}: the port's session drives one card; "
-                "the pod mesh is one process per card")
+        if self.mesh_data is not None and self.mesh_data < 1:
+            raise ValueError(f"mesh_data must be >= 1, got {self.mesh_data}")
         if self.max_batch == 1 and self.max_programs < self.warmup_programs:
             raise ValueError(f"max_programs={self.max_programs} is below the "
                              f"{self.warmup_programs} programs the warm-up and the "
@@ -445,22 +569,56 @@ def _nbytes(arg) -> int:
     return sum(total)
 
 
+def _join_shards(outs: list, sharded: bool) -> tuple:
+    """One call's fetched outputs from its parts' (in part order): a
+    program off the mesh's as they are; a mesh program's carries as a
+    :class:`ShardedCarry`, host rows concatenated, a host scalar (a
+    checksum) summed."""
+    if not sharded:
+        return outs[0]
+    joined = []
+    for parts in zip(*outs):
+        if isinstance(parts[0], dict):
+            joined.append(ShardedCarry(parts))
+        elif np.ndim(parts[0]) == 0:
+            joined.append(np.asarray(sum(parts), dtype=np.asarray(parts[0]).dtype))
+        else:
+            joined.append(np.concatenate(parts, axis=0))
+    return tuple(joined)
+
+
+def _sum_counts(dicts) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for d in dicts:
+        for k, n in d.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 class _Program:
     """One cached program and its lock. ``env`` is the switch set its
     Python runs under. On the card, ``graph`` is its CUDA graph once
     captured, with its static buffers, the launches each kernel wrapper made
     while it was captured (a replay makes the same launches and counts
-    none), and the capture's seconds and pool bytes."""
+    none), and the capture's seconds and pool bytes.
+
+    A data-mesh program (``mesh``: the key's ``("mesh", n, epoch)``) runs
+    as ``shards``: n programs of b/n rows, shard i on ``device`` of mesh
+    chip ``chip``, each with its own graph and buffers."""
 
     __slots__ = ("key", "fn", "kind", "env", "warmed", "lock", "ledger_id", "graph",
                  "static_in", "static_out", "launches", "variants", "capture_s",
-                 "pool_bytes")
+                 "pool_bytes", "mesh", "shards", "device", "chip")
 
-    def __init__(self, key, fn, kind, env):
+    def __init__(self, key, fn, kind, env, device=None, shards=None, chip=None):
         self.key = key
         self.fn = fn
         self.kind = kind
         self.env = dict(env)
+        self.mesh = key[6] if len(key) > 6 else None
+        self.shards = shards
+        self.device = device
+        self.chip = chip
         self.warmed = False
         # Held for the capture and for every replay: the static buffers
         # serve one call at a time, and eviction waits for the call.
@@ -484,13 +642,37 @@ class _Program:
         return _fetch(self.static_out, clone=True)
 
     def release(self) -> None:
-        """Free the graph and its pool; a later call captures again."""
-        with self.lock:
-            if self.graph is not None:
-                with _GATE.alone():
-                    self.graph.reset()
-            self.graph = self.static_in = self.static_out = None
+        """Free the graph and its pool (each shard's); a later call
+        captures again. A program whose call has not come back (a replay on
+        a hung device) keeps its graph: freeing it would wait on that
+        device for good."""
+        if not self.lock.acquire(timeout=GATE_WAIT_S):
+            logger.error("program %s: a call has not come back; its graphs are left "
+                         "unfreed", self.ledger_id)
+            return
+        try:
+            for part in self.shards or (self,):
+                if part.graph is not None:
+                    try:
+                        with _gate(part.device).alone(timeout=GATE_WAIT_S):
+                            part.graph.reset()
+                    except GateTimeout:
+                        logger.error("program %s: %s busy; its graph is left unfreed",
+                                     self.ledger_id, part.device)
+                        continue
+                part.graph = part.static_in = part.static_out = None
             self.warmed = False
+        finally:
+            self.lock.release()
+
+    @property
+    def captured(self) -> bool:
+        return all(p.graph is not None for p in self.shards or (self,))
+
+    def captured_launches(self) -> Dict[str, int]:
+        """The launches captured in this program: a mesh program's are its
+        shards' together."""
+        return _sum_counts(p.launches for p in self.shards or (self,))
 
 
 class InferenceSession:
@@ -502,11 +684,15 @@ class InferenceSession:
     architecture (the correlation, the precision and ``slow_fast_gru`` may
     differ from the model's own). ``device=None`` is the card
     (``resolve_device``), which raises where there is none: the session
-    never falls back to the CPU.
+    never falls back to the CPU. ``mesh_devices`` lists the data mesh's
+    devices in order (its first ``mesh_data``; a device may be listed more
+    than once); by default they are ``cuda:0 ..`` on the card, the CPU
+    repeated on the CPU.
     """
 
     def __init__(self, model: RAFTStereo, cfg: RAFTStereoConfig,
                  session_cfg: Optional[SessionConfig] = None, *, device=None,
+                 mesh_devices=None,
                  fault_plan: Optional[ServeFaultPlan] = None, clock=None,
                  breaker: Optional[KernelCircuitBreaker] = None,
                  registry: Optional[MetricsRegistry] = None,
@@ -559,6 +745,38 @@ class InferenceSession:
         self._heal_backoff_max_s = resolve_heal_backoff_max_ms() / 1e3
         self._heal_flap_cap = resolve_heal_flap_cap()
         self._heal_window_s = resolve_heal_window_ms() / 1e3
+        # The data mesh: the base extent is resolved once (kill switch >
+        # SessionConfig > RAFT_SERVE_MESH_DATA > 1). ``_mesh_live`` holds
+        # the live chips (indices into ``_mesh_devices``, the pod), None
+        # with no mesh; a quarantine or a re-admission bumps the epoch,
+        # which re-keys the mesh programs, and ``_mesh_epochs`` keeps each
+        # epoch's chips for the programs keyed under it.
+        self._mesh_lock = threading.RLock()
+        self._mesh_devices: list = []
+        self._mesh_live: Optional[Tuple[int, ...]] = None
+        self._mesh_n = 1
+        self._mesh_epoch = 0
+        self._mesh_epochs: Dict[int, Tuple[int, ...]] = {}
+        self._quarantined: set = set()
+        self._replicas: Dict[str, RAFTStereo] = {}
+        self._streams: Dict[str, "torch.cuda.Stream"] = {}
+        # Per-chip probation (backoff, deadline, probes, re-admission
+        # times, permanent) and the last recovery's MTTR.
+        self._chip_heal: Dict[int, Dict] = {}
+        self._heal_mttr: Dict = {"last_s": None, "events": 0}
+        self._mesh_base_n = (1 if resolve_mesh_fallback()
+                             else resolve_serve_mesh_data(self.cfg.mesh_data))
+        if mesh_devices is not None and self._mesh_base_n == 1:
+            raise ValueError("mesh_devices is given but the session has no data mesh "
+                             "(mesh_data 1)")
+        if self._mesh_base_n > 1:
+            self._mesh_devices = _device_list(self.device, self._mesh_base_n, mesh_devices)
+        # Device work outside a program takes the gates of the devices it
+        # touches (on the card; ``device_ops``).
+        self._gated = self._graphs
+        self._pod_gates = _gates_of([self.device, *self._mesh_devices])
+        if self._mesh_base_n > 1:
+            self._build_mesh(tuple(range(self._mesh_base_n)))
         # The batch-bucket ladder, resolved once (SessionConfig >
         # RAFT_BATCH_BUCKETS > powers of two up to max_batch): the batch is
         # a cache-key component, so this selects which batch sizes are
@@ -700,7 +918,14 @@ class InferenceSession:
         capped = tuple(b for b in buckets if b < self.cfg.max_batch)
         covering = min((b for b in buckets if b >= self.cfg.max_batch),
                        default=self.cfg.max_batch)
-        return capped + (covering,)
+        buckets = capped + (covering,)
+        if self._mesh_n > 1:
+            # Every bucket rounds up to a multiple of the mesh extent, so a
+            # batch always splits evenly over the shards; the extra rows are
+            # pad rows (the scheduler's pad_rows), never occupancy.
+            n = self._mesh_n
+            buckets = tuple(sorted({-(-b // n) * n for b in buckets}))
+        return buckets
 
     @property
     def batch_buckets(self) -> Tuple[int, ...]:
@@ -714,27 +939,296 @@ class InferenceSession:
         raise ValueError(f"batch of {n} exceeds the largest batch bucket "
                          f"{self._batch_buckets[-1]} (max_batch={self.cfg.max_batch})")
 
-    # The pod mesh is not ported: one card, so the service's mesh branches
-    # (chip probes and quarantine on a device hang) are never taken.
+    # -- pod mesh ---------------------------------------------------------
+
+    def _replica(self, dev: torch.device) -> RAFTStereo:
+        """The weights on ``dev``: the session's model on its own device, a
+        copy made once on any other (a device listed twice shares one)."""
+        key = str(dev)
+        with self._mesh_lock:
+            model = self._replicas.get(key)
+            if model is None:
+                if dev == next(self._model.parameters()).device:
+                    model = self._model
+                else:
+                    model = RAFTStereo(self._model.cfg)
+                    with self.device_ops():  # copies from the card
+                        model.load_state_dict(self._model.state_dict())
+                    model = model.to(dev).eval()
+                self._replicas[key] = model
+            return model
+
+    def _build_mesh(self, chips: Tuple[int, ...]) -> None:
+        """(Re)build the live mesh over ``chips`` (indices into the pod) for
+        the current epoch: each live device gets its weight replica for
+        the epoch (and on the card its capture stream), and the epoch's
+        chips are kept for its programs. At construction this covers every
+        device of the pod, so a later call makes nothing new."""
+        with self._mesh_lock:  # reentrant from quarantine_chip / readmit_chip
+            for c in chips:
+                dev = self._mesh_devices[c]
+                self._replica(dev)
+                if self._graphs and str(dev) not in self._streams:
+                    self._streams[str(dev)] = torch.cuda.Stream(dev)
+            self._mesh_live = tuple(chips)
+            self._mesh_n = len(chips)
+            self._mesh_epochs[self._mesh_epoch] = self._mesh_live
+
     @property
     def mesh_active(self) -> bool:
-        return False
+        return self._mesh_live is not None
 
     @property
     def mesh_chips(self) -> int:
-        return 1
+        """Chips the live mesh spans (1: single-device serving)."""
+        return self._mesh_n if self._mesh_live is not None else 1
+
+    def _probe(self, chips, timeout_s: float, name: str) -> Tuple[int, ...]:
+        """Probe ``chips`` on a daemon thread each: a scalar to the device
+        and back (the host copy is the completion barrier), sharing that
+        device's gate (:meth:`device_ops`). A probe that raises or
+        has not finished within ``timeout_s`` is a hung chip; one still
+        waiting for its gate then is behind a capture on that device, and
+        gets ``timeout_s`` from when the capture lets it in (at most
+        ``GATE_WAIT_S`` later). The ``faults.on_chip_probe`` hook runs
+        inside each probe thread, so a fault plan can park exactly one
+        chip's probe."""
+        done: Dict[int, bool] = {}
+        queued = {i: threading.Event() for i in chips}
+        entered = {i: threading.Event() for i in chips}
+
+        def _run(i: int) -> None:
+            try:
+                self.faults.on_chip_probe(i)
+                dev = self._mesh_devices[i]
+                queued[i].set()
+                with self.device_ops([dev]):
+                    entered[i].set()
+                    torch.zeros((), device=dev).cpu()
+                done[i] = True
+            except Exception:  # noqa: BLE001 — a failed probe is a hung chip
+                done[i] = False
+
+        threads = []
+        for i in chips:
+            t = threading.Thread(target=_run, args=(i,), name=f"{name}-{i}", daemon=True)
+            t.start()
+            threads.append((i, t))
+        deadline = self.clock.now() + timeout_s
+        for _, t in threads:
+            # graftlint: disable=GC203 (deadline-capped probe join on the serialized bounce path)
+            t.join(timeout=max(0.05, deadline - self.clock.now()))
+        for i, t in threads:
+            if t.is_alive() and queued[i].is_set() and not entered[i].is_set():
+                if entered[i].wait(GATE_WAIT_S):
+                    # graftlint: disable=GC203 (deadline-capped probe join on the serialized bounce path)
+                    t.join(timeout=timeout_s)
+        return tuple(i for i, t in threads if t.is_alive() or not done.get(i, False))
+
+    def probe_chips(self, timeout_s: float = 2.0) -> Tuple[int, ...]:
+        """Probe every chip of the pod that is not quarantined; returns the
+        hung chips (indices into the pod's device list)."""
+        if not self._mesh_devices:
+            return ()
+        with self._mesh_lock:
+            chips = [i for i in range(len(self._mesh_devices)) if i not in self._quarantined]
+        return self._probe(chips, timeout_s, "chip-probe")
+
+    def _regrow_extent(self) -> int:
+        """Rebuild the mesh over the healthy chips at the largest divisor of
+        the base extent that fits them, under a new epoch. Called under the
+        mesh lock; returns the new extent."""
+        healthy = tuple(i for i in range(len(self._mesh_devices)) if i not in self._quarantined)
+        self._mesh_epoch += 1
+        if not healthy:
+            # Every chip gone: serving fails downstream, never on a
+            # quarantined chip by stealth.
+            self._mesh_live = None
+            self._mesh_n = 1
+            return 0
+        # The largest divisor of the base extent that fits: it divides every
+        # rounded batch bucket.
+        base = self._mesh_base_n
+        n = max(d for d in range(1, base + 1) if base % d == 0 and d <= len(healthy))
+        self._build_mesh(healthy[:n])
+        self.registry.gauge("raft_mesh_chips", "chips the live data mesh spans").set(n)
+        return n
+
+    def _chip_backoff(self, st: Dict, now: float) -> None:
+        """Double a chip's probation backoff (to its cap) and set its next
+        probe one backoff from ``now``."""
+        st["backoff_s"] = min(st["backoff_s"] * 2.0, self._heal_backoff_max_s)
+        st["deadline"] = now + st["backoff_s"]
+
+    def _flap_window(self, chip: int, st: Dict, now: float) -> list:
+        """The chip's re-admissions within the flap window. At the flap cap
+        the chip is out for good (logged and counted once)."""
+        window = [t for t in st["readmitted"] if now - t <= self._heal_window_s]
+        if len(window) >= self._heal_flap_cap and not st["permanent"]:
+            st["permanent"] = True
+            logger.error("chip %d: %d re-admissions in the flap window: permanently out",
+                         chip, len(window))
+            self.registry.counter("raft_heal_chips_permanent_total",
+                                  "chips permanently quarantined by the flap cap").inc()
+        return window
+
+    def quarantine_chip(self, chip: int) -> bool:
+        """Take one hung chip out of the live mesh: shrink to the largest
+        divisor of the base extent that fits the survivors and bump the
+        epoch, re-keying the mesh programs. False when the chip is already
+        quarantined or out of range."""
+        with self._mesh_lock:
+            if chip in self._quarantined or not 0 <= chip < len(self._mesh_devices):
+                return False
+            self._quarantined.add(chip)
+            if self._heal_enabled:
+                # Arm (or re-arm) the chip's probation. A re-quarantine
+                # doubles the backoff and counts against the flap cap: a chip
+                # flapping past it within the window is out for good.
+                now = self.clock.now()
+                st = self._chip_heal.get(chip)
+                if st is None:
+                    self._chip_heal[chip] = {
+                        "backoff_s": self._heal_backoff_s,
+                        "deadline": now + self._heal_backoff_s, "probes": 0,
+                        "readmitted": [], "permanent": False, "quarantined_at": now}
+                else:
+                    st["quarantined_at"] = now
+                    self._chip_backoff(st, now)
+                    self._flap_window(chip, st, now)
+            n = self._regrow_extent()
+            if n == 0:
+                logger.error("all %d mesh chips quarantined", len(self._mesh_devices))
+                return True
+            logger.warning("quarantined chip %d; mesh now %d chip(s) (epoch %d, "
+                           "quarantined=%s)", chip, n, self._mesh_epoch,
+                           sorted(self._quarantined))
+            self.registry.counter("raft_mesh_chips_quarantined_total",
+                                  "chips removed from the live data mesh").inc()
+            return True
+
+    def mesh_status(self) -> Dict:
+        """The /healthz and /debug/config ``mesh`` block (one row a chip of
+        the pod)."""
+        with self._mesh_lock:
+            return {
+                "enabled": self._mesh_live is not None,
+                "n_data": self.mesh_chips,
+                "base_n_data": self._mesh_base_n,
+                "epoch": self._mesh_epoch,
+                "live": list(self._mesh_live or ()),
+                "quarantined": sorted(self._quarantined),
+                "devices": [{"chip": i, "device": str(d),
+                             "kind": (torch.cuda.get_device_name(d) if d.type == "cuda"
+                                      else None),
+                             "quarantined": i in self._quarantined}
+                            for i, d in enumerate(self._mesh_devices)],
+            }
+
+    # -- recovery plane (chips) -------------------------------------------
+
+    def probe_quarantined(self, chips: Tuple[int, ...],
+                          timeout_s: float = 2.0) -> Tuple[int, ...]:
+        """Probe exactly the given quarantined chips (the ``probe_chips``
+        recipe) and return those that failed."""
+        chips = [i for i in chips if 0 <= i < len(self._mesh_devices)]
+        return self._probe(chips, timeout_s, "chip-heal-probe")
+
+    def readmit_chip(self, chip: int) -> bool:
+        """Re-grow the mesh onto one probe-verified chip: flap-cap check,
+        un-quarantine, the extent recomputed, the epoch bumped; then the new
+        epoch's programs are warmed (captured on the card) before this
+        returns, so no request meets a cold program on the grown mesh.
+        False when the chip is not quarantined, healing is off or the flap
+        cap fired."""
+        with self._mesh_lock:
+            if not self._heal_enabled or chip not in self._quarantined:
+                return False
+            st = self._chip_heal.get(chip)
+            now = self.clock.now()
+            if st is None or st["permanent"]:
+                return False
+            window = self._flap_window(chip, st, now)
+            if st["permanent"]:
+                return False
+            self._quarantined.discard(chip)
+            st["readmitted"] = window + [now]
+            # A later quarantine starts again at the base backoff.
+            st["backoff_s"] = self._heal_backoff_s
+            n = self._regrow_extent()
+            logger.warning("re-admitted chip %d; mesh now %d chip(s) (epoch %d, "
+                           "quarantined=%s)", chip, n, self._mesh_epoch,
+                           sorted(self._quarantined))
+            self.registry.counter("raft_heal_chips_readmitted_total",
+                                  "chips re-admitted to the live data mesh").inc()
+            mttr = now - st["quarantined_at"]
+            self._heal_mttr = {"last_s": mttr, "events": self._heal_mttr["events"] + 1}
+            self.registry.gauge("raft_heal_mttr_seconds",
+                                "last fault-injected -> capacity-restored interval "
+                                "(session clock)").set(mttr)
+        # Outside the mesh lock (captures are slow; a quarantine from
+        # another thread must not wait behind them), before returning.
+        if self.cfg.max_batch > 1:
+            for (h, w) in self.cfg.warmup_shapes:
+                self._warm_shape(h, w)
+        return True
+
+    def heal_mesh(self, probe_timeout_s: float = 2.0) -> Dict:
+        """One recovery sweep over the quarantined chips: probe each whose
+        probation deadline passed, re-admit those that pass, double the
+        backoff of those that fail. Returns ``{"probed", "readmitted",
+        "failed"}`` chip lists."""
+        out: Dict = {"probed": [], "readmitted": [], "failed": []}
+        if not self._heal_enabled or self._heal_flap_cap < 1:
+            return out
+        now = self.clock.now()
+        with self._mesh_lock:
+            candidates = []
+            for c in sorted(self._quarantined):
+                st = self._chip_heal.get(c)
+                if st is None or st["permanent"] or now < st["deadline"]:
+                    continue
+                # Handing it out pushes the deadline one backoff on, so a
+                # concurrent sweep cannot probe it twice.
+                st["probes"] += 1
+                st["deadline"] = now + st["backoff_s"]
+                candidates.append(c)
+        if not candidates:
+            return out
+        out["probed"] = list(candidates)
+        failed = set(self.probe_quarantined(tuple(candidates), timeout_s=probe_timeout_s))
+        for c in candidates:
+            ok = c not in failed and self.readmit_chip(c)
+            self.registry.counter("raft_heal_chip_probes_total",
+                                  "quarantined-chip probation probes by outcome",
+                                  result=("passed" if ok else "failed")).inc()
+            if ok:
+                out["readmitted"].append(c)
+                continue
+            out["failed"].append(c)
+            if c in failed:
+                with self._mesh_lock:
+                    st = self._chip_heal.get(c)
+                    if st is not None:
+                        self._chip_backoff(st, self.clock.now())
+        return out
 
     @contextlib.contextmanager
-    def device_ops(self):
+    def device_ops(self, devices=None):
         """Around device work done outside a program (the scheduler's row
-        gathers and joins, the uploader's copies): on the card it shares
-        the card with replays and waits out a capture (``_CaptureGate``),
-        which another thread's allocation or synchronizing copy would
-        invalidate. Never hold it across :meth:`invoke`."""
-        if not self._graphs:
+        gathers and joins, the uploader's copies, a probe): on the card it
+        shares each device it touches (``devices``; by default the
+        session's and every device of the pod) with replays and waits out a
+        capture there (``_CaptureGate``), which an allocation or a
+        synchronizing copy on that device would invalidate. Never hold it
+        across :meth:`invoke`."""
+        if not self._gated:
             yield
             return
-        with _GATE.shared():
+        gates = self._pod_gates if devices is None else _gates_of(devices)
+        with contextlib.ExitStack() as stack:
+            for g in gates:
+                stack.enter_context(g.shared())
             yield
 
     # -- program cache ----------------------------------------------------
@@ -750,7 +1244,17 @@ class InferenceSession:
 
     def cache_key(self, kind: str, h: int, w: int, iters: int,
                   cfg=None, env=None, b: int = 1) -> Tuple:
-        return (kind, b, h, w, iters, self._fingerprint(cfg, env))
+        key = (kind, b, h, w, iters, self._fingerprint(cfg, env))
+        with self._mesh_lock:
+            live, n, epoch = self._mesh_live, self._mesh_n, self._mesh_epoch
+        if live is not None and b % n == 0:
+            # The mesh changes the program (n shards), so it re-keys: as a
+            # trailing component, only on a live mesh and a bucket that
+            # splits evenly, so keys off the mesh stay as they were and
+            # key[:6] means what it always meant. The epoch keeps a shrunk
+            # or re-grown mesh from being served another epoch's program.
+            key = key + (("mesh", n, epoch),)
+        return key
 
     def fingerprint_id(self) -> str:
         """Short stable hash of the current run fingerprint; an effective
@@ -791,14 +1295,13 @@ class InferenceSession:
                     return prog
             try:
                 self.faults.on_build()  # an injected build failure fires here
-                fn = build_program(kind, _view(self._model, cfg), iters)
+                prog = self._build(key, kind, cfg, iters, run_env)
             except Exception as e:
                 setattr(e, "_raft_phase", "compile_failure")
                 with self._cache_lock:
                     self._key_locks.pop(key, None)
                 raise
             self._ctr["compiles"].inc()
-            prog = _Program(key, fn, kind, run_env)
             evicted = []
             with self._cache_lock:
                 self._cache[key] = prog
@@ -820,6 +1323,21 @@ class InferenceSession:
                 self._refresh_cache_hbm()
             return prog
 
+    def _build(self, key: Tuple, kind: str, cfg, iters: int, run_env) -> _Program:
+        """A program for ``key``: on the session's device, or for a mesh key
+        one shard a live chip of its epoch, each on that device's replica."""
+        if len(key) <= 6:
+            return _Program(key, build_program(kind, _view(self._model, cfg), iters), kind,
+                            run_env, device=self.device)
+        with self._mesh_lock:
+            chips = self._mesh_epochs[key[6][2]]
+        shards = tuple(
+            _Program(key, build_program(kind, _view(self._replica(self._mesh_devices[c]), cfg),
+                                        iters), kind, run_env,
+                     device=self._mesh_devices[c], chip=c)
+            for c in chips)
+        return _Program(key, None, kind, run_env, shards=shards)
+
     def has_program(self, kind: str, h: int, w: int, iters: int, b: int = 1) -> bool:
         """Whether this program is built and has run (no side effects): the
         degrade policy never routes a deadline request onto a cold bucket."""
@@ -840,76 +1358,127 @@ class InferenceSession:
                            analysis=analysis, backend=self._backend,
                            device_kind=self._device_kind)
 
-    def _capture(self, prog: _Program, args) -> None:
-        """Build ``prog``'s CUDA graph with ``args`` as its first inputs:
-        static buffers, a warm-up on the session's side stream, the capture
-        on the same stream, then the ledger row. Called under ``prog.lock``,
-        ``_ENV_LOCK`` with the program's switches exported, and the gate
-        alone."""
-        dev = self.device
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        prog.static_in = tuple(_static_like(a, dev) for a in args)
-        prog.copy_in(args)
-        arg_bytes = float(sum(_nbytes(a) for a in args))
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream):
-            prog.fn(*prog.static_in)  # warm-up: kernels built, attributes set
-        torch.cuda.synchronize(dev)
-        # torch.cuda.graph empties the allocator's cache as it opens; done
-        # here first, the reserved bytes it adds are the graph's pool alone.
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        launches, variants = dict(kernels.launches), dict(kernels.variants)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                prog.static_out = prog.fn(*prog.static_in)
-        except Exception as e:
-            prog.static_in = prog.static_out = None
-            setattr(e, "_raft_phase", CAPTURE_PHASE)
-            raise
-        prog.capture_s = time.perf_counter() - t0
-        prog.graph = graph
-        prog.launches = {k: n - launches.get(k, 0) for k, n in kernels.launches.items()
-                         if n != launches.get(k, 0)}
-        prog.variants = {k: n - variants.get(k, 0) for k, n in kernels.variants.items()
-                         if n != variants.get(k, 0)}
-        prog.pool_bytes = float(torch.cuda.memory_reserved(dev) - reserved)
-        peak = float(torch.cuda.max_memory_allocated(dev) - start)
-        self._record(prog, {"flops": self._twin_flops(prog), "argument_bytes": arg_bytes,
-                            "temp_bytes": max(peak - arg_bytes, 0.0),
-                            "capture_s": prog.capture_s,
-                            "graph_pool_bytes": prog.pool_bytes})
+    def _capture(self, prog: _Program, args) -> Dict:
+        """Build ``prog``'s CUDA graph (a shard's, for a mesh program) with
+        ``args`` as its first inputs: static buffers on its device, a
+        warm-up on the device's side stream, the capture on the same
+        stream, in CUDA's thread-local mode (work on another device goes on
+        beside it). Returns the ledger's numbers. Called under the
+        program's lock, ``_ENV_LOCK`` with the program's switches exported,
+        and its device's gate alone."""
+        dev = prog.device
+        stream = self._stream if dev == self.device else self._streams[str(dev)]
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            prog.static_in = tuple(_static_like(a, dev) for a in args)
+            prog.copy_in(args)
+            arg_bytes = float(sum(_nbytes(a) for a in args))
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                prog.fn(*prog.static_in)  # warm-up: kernels built, attributes set
+            torch.cuda.synchronize(dev)
+            # torch.cuda.graph empties the allocator's cache as it opens;
+            # done here first, the reserved bytes it adds are the graph's
+            # pool alone.
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            launches, variants = dict(kernels.launches), dict(kernels.variants)
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    prog.static_out = prog.fn(*prog.static_in)
+            except Exception as e:
+                prog.static_in = prog.static_out = None
+                setattr(e, "_raft_phase", CAPTURE_PHASE)
+                raise
+            prog.capture_s = time.perf_counter() - t0
+            prog.graph = graph
+            prog.launches = {k: n - launches.get(k, 0) for k, n in kernels.launches.items()
+                             if n != launches.get(k, 0)}
+            prog.variants = {k: n - variants.get(k, 0) for k, n in kernels.variants.items()
+                             if n != variants.get(k, 0)}
+            prog.pool_bytes = float(torch.cuda.memory_reserved(dev) - reserved)
+            peak = float(torch.cuda.max_memory_allocated(dev) - start)
+        return {"argument_bytes": arg_bytes, "temp_bytes": max(peak - arg_bytes, 0.0),
+                "capture_s": prog.capture_s, "graph_pool_bytes": prog.pool_bytes}
+
+    def _shard_args(self, prog: _Program, args) -> list:
+        """A program's arguments, one tuple a part. Off the mesh: ``[args]``,
+        a sharded carry's rows gathered onto the program's device (a mesh
+        program's carry meeting a program off the mesh: every chip
+        quarantined). A mesh program's shard i takes rows ``[i*k,
+        (i+1)*k)`` (k = b/n) on its device: host arrays are split (each
+        shard's copy in uploads its rows); a device tensor's rows and a
+        carry's are copied device to device where they are not already on
+        the shard's device, and a carry that is already in the shard layout
+        (the previous call's output) is passed as it is."""
+        if prog.shards is None:
+            return [tuple(gather_rows(a, prog.device) if isinstance(a, ShardedCarry) else a
+                          for a in args)]
+        devices = [s.device for s in prog.shards]
+        k = prog.key[1] // len(devices)
+        per_arg = []
+        for a in args:
+            if isinstance(a, np.ndarray):
+                per_arg.append([a[i * k:(i + 1) * k] for i in range(len(devices))])
+            elif isinstance(a, torch.Tensor):
+                per_arg.append([a[i * k:(i + 1) * k].to(d, non_blocking=True)
+                                for i, d in enumerate(devices)])
+            else:
+                per_arg.append(shard_rows(a, devices, k))
+        return [tuple(p[i] for p in per_arg) for i in range(len(devices))]
 
     def _run(self, prog: _Program, args) -> Tuple[tuple, float]:
         """One call of ``prog``: (outputs, the session-clock time its inputs
-        were in and its work dispatched)."""
+        were in and its work dispatched). A mesh program runs as its shards
+        (a program off the mesh as itself): every part's copy in and replay
+        (eager on the CPU) is issued before any part's outputs are fetched,
+        and the outputs are joined in part order. Each part holds its
+        device's gate only for its own copy in and replay and for its own
+        copy out, so a call that never comes back holds up one device."""
+        parts = prog.shards or (prog,)
+        with self.device_ops():
+            part_args = self._shard_args(prog, args)
+        sharded = prog.shards is not None
         if not self._graphs:
-            inputs = [_as_input(a) for a in args]
             with prog.lock:
                 if not prog.warmed:
                     self._record(prog, {"flops": self._twin_flops(prog)})
                 with _ENV_LOCK, _env_overrides(prog.env):
-                    raw = prog.fn(*inputs)
+                    raws = [p.fn(*[_as_input(a) for a in pa])
+                            for p, pa in zip(parts, part_args)]
                     t_disp = self.clock.now()
                 prog.warmed = True
-            return _fetch(raw, clone=False), t_disp
+            return _join_shards([_fetch(r, clone=False) for r in raws], sharded), t_disp
         with prog.lock:
-            fresh = prog.graph is None
+            fresh = [i for i, p in enumerate(parts) if p.graph is None]
             if fresh:
-                with _ENV_LOCK, _env_overrides(prog.env), _GATE.alone():
-                    self._capture(prog, args)  # copies ``args`` in
-            with _GATE.shared():
-                if not fresh:
-                    prog.copy_in(args)
-                prog.replay()
-                t_disp = self.clock.now()
-                out = prog.copy_out()
+                stats = []
+                try:
+                    with _held(_ENV_LOCK), _env_overrides(prog.env):
+                        for i in fresh:
+                            with _gate(parts[i].device).alone(timeout=GATE_WAIT_S):
+                                stats.append(self._capture(parts[i], part_args[i]))
+                except GateTimeout as e:
+                    setattr(e, "_raft_phase", CAPTURE_PHASE)
+                    raise
+                self._record(prog, {"flops": self._twin_flops(prog),
+                                    **{k: sum(s[k] for s in stats) for k in stats[0]}})
+            for i, (p, pa) in enumerate(zip(parts, part_args)):
+                with _gate(p.device).shared(), torch.cuda.device(p.device):
+                    if i not in fresh:
+                        p.copy_in(pa)  # a capture copied its first inputs in
+                    p.replay()
+            t_disp = self.clock.now()
+            outs = []
+            for p in parts:
+                with _gate(p.device).shared(), torch.cuda.device(p.device):
+                    outs.append(p.copy_out())
             prog.warmed = True
-        return out, t_disp
+        return _join_shards(outs, sharded), t_disp
 
     def invoke(self, prog: _Program, *args, trace=NULL_TRACE) -> tuple:
         """Run a cached program and fetch its results: arrays to the host,
@@ -938,6 +1507,10 @@ class InferenceSession:
         host_s = max(0.0, t_disp - t0)
         device_s = max(0.0, t_end - t_disp)
         _, b_key, h_key, w_key = prog.key[:4]
+        # The chips this call spanned, from the program's own key (a
+        # quarantine since it was built does not relabel it); its device
+        # seconds are one wall interval whatever the span.
+        chips = prog.mesh[1] if prog.mesh is not None else 1
         self.registry.counter("raft_program_calls_total",
                               "device-program invocations by kind", kind=prog.kind).inc()
         if was_warm:
@@ -961,7 +1534,7 @@ class InferenceSession:
                                   flops=(row.flops_est if row is not None else None))
             tick_seq = self.deck.note_invocation(
                 kind=prog.kind, program=prog.ledger_id, b=b_key, h=h_key, w=w_key, t0=t0,
-                t1=t_end, host_s=host_s, device_s=device_s, warming=False)
+                t1=t_end, host_s=host_s, device_s=device_s, warming=False, chips=chips)
             attrs = {"program": prog.ledger_id}
             if tick_seq is not None:
                 attrs["tick"] = tick_seq
@@ -972,7 +1545,7 @@ class InferenceSession:
                                   kind=prog.kind).inc(max(0.0, t_end - t0))
             self.deck.note_invocation(
                 kind=prog.kind, program=prog.ledger_id, b=b_key, h=h_key, w=w_key, t0=t0,
-                t1=t_end, host_s=host_s, device_s=device_s, warming=True)
+                t1=t_end, host_s=host_s, device_s=device_s, warming=True, chips=chips)
             trace.add_span(prog.kind, t0, t_end, warming=True, program=prog.ledger_id)
         if self.faults.poisoned(ordinal):
             flow_i = {"full": 0, "segment": 1, "epilogue": 0}.get(prog.kind)
@@ -983,11 +1556,28 @@ class InferenceSession:
     def program_launches(self, kind: str, h: int, w: int, iters: int,
                          b: int = 1) -> Dict[str, int]:
         """The kernel launches captured in this program under the current
-        run config (empty on the CPU, or before its first call)."""
+        run config (empty on the CPU, or before its first call); a mesh
+        program's are its shards' together."""
         key = self.cache_key(kind, h, w, iters, b=b)
         with self._cache_lock:
             prog = self._cache.get(key)
-        return dict(prog.launches) if prog is not None else {}
+        return prog.captured_launches() if prog is not None else {}
+
+    def program_shards(self, kind: str, h: int, w: int, iters: int,
+                       b: int = 1) -> list:
+        """One row a shard of this program under the current run config:
+        its chip, device, captured launches (and by variant), capture
+        seconds and pool bytes (one row for a program off the mesh; empty
+        when it is not cached)."""
+        key = self.cache_key(kind, h, w, iters, b=b)
+        with self._cache_lock:
+            prog = self._cache.get(key)
+        if prog is None:
+            return []
+        return [{"chip": p.chip, "device": str(p.device), "launches": dict(p.launches),
+                 "variants": dict(p.variants), "capture_s": p.capture_s,
+                 "pool_bytes": p.pool_bytes}
+                for p in prog.shards or (prog,)]
 
     # -- latency estimates (EMA per program) ------------------------------
 
@@ -1140,7 +1730,7 @@ class InferenceSession:
                 self._cpu_model = self._model
             elif self._cpu_model is None:
                 cpu = RAFTStereo(self._model.cfg)
-                with _GATE.shared():  # copies from the card: never beside a capture
+                with self.device_ops([self.device]):  # copies from the card
                     cpu.load_state_dict(self._model.state_dict())
                 self._cpu_model = cpu.eval()
             ref_cfg, ref_env = self.breaker.plain_cfg(self._base_cfg)
@@ -1192,8 +1782,24 @@ class InferenceSession:
         raise InferenceFailed("canary_failed", "canary never converged")
 
     def heal_status(self) -> Dict:
-        """The /healthz ``heal`` block: the pacing knobs and the breaker's
-        per-rung probation state (one card: no chip rows, no MTTR events)."""
+        """The /healthz ``heal`` block: the pacing knobs, the breaker's
+        per-rung and the mesh's per-chip probation state, the MTTR (one row
+        a rung, one a chip of the pod)."""
+        with self._mesh_lock:
+            now = self.clock.now()
+            chips = {}
+            for chip, st in sorted(self._chip_heal.items()):
+                quarantined = chip in self._quarantined
+                chips[str(chip)] = {
+                    "quarantined": quarantined,
+                    "permanent": st["permanent"],
+                    "backoff_ms": st["backoff_s"] * 1e3,
+                    "probes": st["probes"],
+                    "readmissions": len(st["readmitted"]),
+                    "eligible_in_s": (max(0.0, st["deadline"] - now)
+                                      if quarantined and not st["permanent"] else None),
+                }
+            mttr = dict(self._heal_mttr)
         return {
             "enabled": self._heal_enabled,
             "backoff_ms": self._heal_backoff_s * 1e3,
@@ -1201,8 +1807,8 @@ class InferenceSession:
             "flap_cap": self._heal_flap_cap,
             "window_ms": self._heal_window_s * 1e3,
             "breaker": self.breaker.heal_status(),
-            "chips": {},
-            "mttr": {"last_s": None, "events": 0},
+            "chips": chips,
+            "mttr": mttr,
         }
 
     def heal_breaker(self) -> Optional[Dict]:
@@ -1325,6 +1931,31 @@ class InferenceSession:
         for m in doc["by_bucket"].values():
             if m.get("rps") is not None:
                 m["headroom_rps"] = m["rps"] * max(0.0, 1.0 - (ratio or 0.0))
+        if self._mesh_base_n > 1:
+            # Per chip: a mesh call's device window busies every chip it
+            # spans at once; headroom divides by the live extent, and a
+            # quarantined chip has none.
+            mesh = self.mesh_status()
+            per_chip = cap.saturation_per_chip(
+                self.deck.snapshot(), len(self._mesh_devices), now=self.clock.now(),
+                window_s=self._capacity_window_s)
+            best = max((m.get("headroom_rps") or 0.0 for m in doc["by_bucket"].values()),
+                       default=None)
+            for row in per_chip:
+                chip = row["chip"]
+                row["quarantined"] = chip in mesh["quarantined"]
+                with self._mesh_lock:
+                    st = self._chip_heal.get(chip)
+                    if row["quarantined"] and st is not None:
+                        row["permanent"] = st["permanent"]
+                row["headroom_rps"] = (0.0 if row["quarantined"] else None if best is None
+                                       else best / max(1, self.mesh_chips))
+                self.registry.gauge(
+                    "raft_capacity_chip_saturation",
+                    "device-busy fraction over the capacity window, per mesh chip",
+                    chip=str(chip)).set(row["ratio"] if row["ratio"] is not None else 0.0)
+            doc["chips"] = {"n_data": mesh["n_data"], "base_n_data": mesh["base_n_data"],
+                            "quarantined": mesh["quarantined"], "per_chip": per_chip}
         return doc
 
     # -- reporting --------------------------------------------------------
@@ -1360,22 +1991,34 @@ class InferenceSession:
             "batch_buckets": list(self._batch_buckets),
             "max_programs": self._max_programs,
             "programs": self.programs(),
+            "mesh": self.mesh_status(),
             "deck": self.deck.status(),
             "capacity_window_s": self._capacity_window_s,
         }
 
     def programs(self) -> list:
         """One row per cached program: whether it has run, and on the card
-        its graph's launches, capture seconds and pool bytes."""
+        its graph's launches, capture seconds and pool bytes (a mesh
+        program's summed over its shards, with its ``mesh`` key part)."""
         with self._cache_lock:
             progs = list(self._cache.values())
-        return [{"id": p.ledger_id, "warmed": p.warmed, "graph": p.graph is not None,
-                 "launches": dict(p.launches), "capture_s": p.capture_s,
-                 "pool_bytes": p.pool_bytes} for p in progs]
+        rows = []
+        for p in progs:
+            parts = p.shards or (p,)
+            known = [q for q in parts if q.capture_s is not None]
+            rows.append({"id": p.ledger_id, "warmed": p.warmed, "graph": p.captured,
+                         "launches": p.captured_launches(),
+                         "capture_s": sum(q.capture_s for q in known) if known else None,
+                         "pool_bytes": (sum(q.pool_bytes for q in known) if known
+                                        else None)})
+            if p.mesh is not None:
+                rows[-1]["mesh"] = list(p.mesh)
+        return rows
 
     def status(self) -> Dict:
         with self._cache_lock:
-            cached = [f"{k[0]}@b{k[1]}:{k[2]}x{k[3]}/it{k[4]}" for k in self._cache]
+            cached = [f"{k[0]}@b{k[1]}:{k[2]}x{k[3]}/it{k[4]}"
+                      + (f"/mesh{k[6][1]}" if len(k) > 6 else "") for k in self._cache]
         counts = self.metrics()
         return {
             "device": str(self.device),
@@ -1386,6 +2029,7 @@ class InferenceSession:
             "segments": self.cfg.segments,
             "max_batch": self.cfg.max_batch,
             "batch_buckets": list(self._batch_buckets),
+            "mesh": self.mesh_status(),
             "fatal": None if self._fatal is None else self._fatal[0],
             "programs": {"cached": cached, "capacity": self._max_programs,
                          **{k: v for k, v in counts.items()

@@ -33,8 +33,13 @@ same knobs, metrics, labels and request protocol.
 
 One session holds one ``(1, H/8, W/8, 1)`` float32 field, ~196 KiB at
 2016x2976, so the default 128-session cap bounds the table at ~25 MiB.
-The session drives one card: ``migrate_off_chips`` / ``repin_unplaced``
-have no mesh to act on (``session.mesh_chips`` is 1) and move nothing.
+On a data mesh (``serve/session.py``, ``mesh_data`` > 1) a new session is
+pinned round-robin to a shard (``_chip`` on its requests; the scheduler
+keeps a chip's rows together). A device-hang bounce that quarantines a chip
+moves the sessions pinned to it onto the survivors
+(``migrate_off_chips``), parking them off the mesh when it shrinks to one
+chip, and a re-grown mesh re-pins the parked ones (``repin_unplaced``);
+the held seed is on the host, so a moved session stays warm.
 
 The sequential (``max_batch == 1``) twin of the scheduler's warm path is
 :func:`stream_infer`: prepare or prepare_warm, ``advance`` segments, then
@@ -359,7 +364,7 @@ class StreamManager:
         """Reassign every session pinned to a quarantined chip, or to an
         ordinal past the shrunken mesh, onto a surviving data shard. The
         held flow is host memory, so a migrated stream stays warm. Returns
-        the number of sessions migrated (0 on one card)."""
+        the number of sessions migrated (0 off the mesh)."""
         with self._lock:
             migrated = self._migrate_locked(set(int(c) for c in quarantined), int(n_chips))
         if migrated:

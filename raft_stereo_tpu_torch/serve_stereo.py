@@ -14,8 +14,11 @@ Model construction differs from the root CLI: ``--restore_ckpt`` takes a
 reference ``.pth`` or one of the port's own ``.pt`` training bundles
 (``engine/checkpoint.load_params``; the JAX package's ``.msgpack`` bundles
 are its own and do not load here); no checkpoint means random weights from
-seed 0 (``init_raft_stereo(cfg, seed=0)``). ``--mesh_data``
-above 1 (pod serving, not ported) raises before the model loads. Video
+seed 0 (``init_raft_stereo(cfg, seed=0)``). ``--mesh_data N`` serves one
+session over a data mesh of N devices (``cuda:0 .. cuda:N-1``; with
+``--device cpu`` the CPU N times): batch buckets round up to multiples of N,
+every batched program runs as N shards, and ``/healthz`` carries the mesh
+block and a ``chips`` block under ``capacity``. Video
 streams (``X-Raft-Session``, ``--stream_sessions``, ``--stream_ttl_ms``,
 ``--converge_tol``) and the response cache (``--cache_bytes``, on at 256 MiB
 as in the root CLI; ``--cache_near_tol``) behave as the root CLI's;
@@ -34,6 +37,11 @@ Examples::
     python -m raft_stereo_tpu_torch.serve_stereo --restore_ckpt raftstereo.pth \\
         --corr_implementation reg_cuda --http_port 8080 --max_batch 4 \\
         --warmup 375x1242
+
+    # the same over two cards (a data mesh): buckets 2 and 4, two shards each
+    python -m raft_stereo_tpu_torch.serve_stereo --restore_ckpt raftstereo.pth \\
+        --corr_implementation reg_cuda --http_port 8080 --max_batch 4 \\
+        --mesh_data 2 --warmup 375x1242
 """
 
 from __future__ import annotations
@@ -97,8 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(data mesh): one ingress drives N devices, batch "
                         "buckets round up to multiples of N, per-chip "
                         "occupancy/saturation surfaces on /healthz "
-                        "(1 = single device; more is not ported: ROADMAP "
-                        "Queue A 6)")
+                        "(1 = single device; with --device cpu the CPU is "
+                        "listed N times)")
     parser.add_argument('--max_pixels', type=int, default=8 << 20,
                         help="admission cap on per-image area")
     # graftlane (r24) + r19 pack opt-ins: CLI sugar over the env kill
@@ -230,14 +238,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _check_ported(args) -> None:
-    """The flags of modules not ported yet end the run before the model
-    loads, naming the ROADMAP item."""
-    if args.mesh_data is not None and args.mesh_data > 1:
-        raise SystemExit(f"--mesh_data {args.mesh_data}: pod serving is not ported "
-                         "(ROADMAP Queue A 6: one process per GPU)")
-
-
 def _cli_cache_bytes(args) -> int:
     """The CLI's response-cache budget, ON at 256 MiB: the --cache_bytes
     flag (0 disables) > RAFT_CACHE_BYTES (an explicit 0 there disables
@@ -317,7 +317,8 @@ def serve(args) -> int:
         raise SystemExit("batch mode needs -l/--left_imgs and "
                          "-r/--right_imgs (or serve the network with "
                          "--http_port)")
-    _check_ported(args)
+    if args.mesh_data is not None and args.mesh_data < 1:
+        raise SystemExit(f"--mesh_data must be >= 1, got {args.mesh_data}")
 
     # Pack opt-ins must land before ANY program trace (the switches are
     # read at trace time); explicit env always wins over the flag.

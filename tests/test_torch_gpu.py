@@ -1288,17 +1288,23 @@ def test_gpu_session_recaptures_after_eviction(cuda):
 
 @pytest.mark.gpu
 def test_gpu_kernels_write_nothing_past_their_outputs(cuda):
-    """The default path's six kernels (stem, pass, point3, point2, gru16+32,
-    resident) with every output and scratch map inside a larger buffer of
-    sentinel bytes (chip_smoke.guarded_allocations): the margins stay as
-    they were."""
+    """Every kernel of the model paths, on the default path (stem, pass,
+    point3, point2, gru16+32, resident), the serial loop (lookup, the three
+    GRU steps, motion) and alt_cuda (alt, gru16+32, motion, gru08+head),
+    with every output and scratch map inside a larger buffer of sentinel
+    bytes (chip_smoke.guarded_allocations): the margins stay as they
+    were."""
     import chip_smoke
     model = _session_model(cuda)
     g = torch.Generator(device=cuda).manual_seed(5)
     pair = tuple(torch.rand((1, 100, 230, 3), generator=g, device=cuda) * 255
                  for _ in range(2))
     result = chip_smoke.check_overruns(model, pair)
-    assert result["ok"] and all(result["launches"].values())
+    assert result["ok"] and set(result["routes"]) == {"default", "serial", "alt_cuda"}
+    for name, route in result["routes"].items():
+        assert route["ok"] and all(route["launches"].values()), name
+    assert {k for r in result["routes"].values() for k in r["launches"]} >= {
+        "corr_lookup", "conv_gru:gru08", "motion", "corr_alt", "fused_iter", "gru1632"}
 
 
 def _padded_batch(sess, pairs):

@@ -1065,7 +1065,9 @@ def test_iter_decoded_pairs_bounded_lookahead():
     assert n == 48 and started[0] == 96
 
 
-def test_cli_ready_handshake_stdout_and_fd(tmp_path):
+@pytest.mark.parametrize("mesh", [(), ("--mesh_data", "2", "--max_batch", "2")],
+                         ids=["one_device", "mesh_data_2"])
+def test_cli_ready_handshake_stdout_and_fd(tmp_path, mesh):
     """The live CLI's readiness handshake.
 
     ``--http_port 0`` must print exactly one machine-parseable
@@ -1076,7 +1078,9 @@ def test_cli_ready_handshake_stdout_and_fd(tmp_path):
     serve /healthz carrying the top-level fingerprint_id/uptime_s
     fields the fleet router consumes.  One real subprocess (~15 s tiny
     CPU model) — the price of pinning the contract on the production
-    entry point rather than a refactored fragment of it.
+    entry point rather than a refactored fragment of it.  With
+    ``--mesh_data 2`` (the CPU listed twice) the server also answers one
+    request over the wire and /healthz carries the mesh block.
     """
     import os
     import signal
@@ -1090,7 +1094,7 @@ def test_cli_ready_handshake_stdout_and_fd(tmp_path):
          "--valid_iters", "2", "--segments", "2",
          "--n_gru_layers", "1", "--hidden_dims", "32", "32", "32",
          "--corr_levels", "2", "--corr_radius", "2",
-         "--corr_implementation", "reg"],
+         "--corr_implementation", "reg", *mesh],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
         pass_fds=(w_fd,), cwd=os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))),
@@ -1130,6 +1134,23 @@ def test_cli_ready_handshake_stdout_and_fd(tmp_path):
         assert isinstance(health["fingerprint_id"], str)
         assert len(health["fingerprint_id"]) == 12
         assert health["uptime_s"] >= 0
+        if mesh:
+            (ct, body), (left, _) = good_multipart()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/stereo", data=body, method="POST",
+                headers={"Content-Type": ct})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                doc = wire.decode_response(resp.read())
+            assert doc["status"] == "ok" and doc["disparity"].shape == left.shape[:2]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+                health = json.loads(resp.read())
+            st = health["session"]["mesh"]
+            assert st["enabled"] and st["n_data"] == st["base_n_data"] == 2
+            assert [d["device"] for d in st["devices"]] == ["cpu", "cpu"]
+            assert health["session"]["batch_buckets"] == [2]
+            assert health["capacity"]["chips"]["n_data"] == 2
+            assert any(c.endswith("/mesh2") for c in health["session"]["programs"]["cached"])
         proc.send_signal(signal.SIGTERM)
         proc.communicate(timeout=120)
         assert proc.returncode == 0
@@ -1213,10 +1234,11 @@ def test_bomb_png_raises_image_too_large_in_both_packages(tmp_path, monkeypatch)
 
 
 def test_cli_unported_flags_raise_before_the_model_loads():
-    """Flags of modules not ported yet end the run at once, naming the
-    ROADMAP item (the port's own bundles load: the next test)."""
+    """Every flag is ported now (``--mesh_data 2``: the mesh case of
+    ``test_cli_ready_handshake_stdout_and_fd``); a mesh below one device
+    ends the run at once, before the model loads, naming the flag."""
     from raft_stereo_tpu_torch.serve_stereo import build_parser, serve
-    for argv, item in ((["--mesh_data", "2"], "Queue A 6"),):
+    for argv, item in ((["--mesh_data", "0"], "--mesh_data must be >= 1"),):
         args = build_parser().parse_args(["--http_port", "0", *argv])
         t0 = time.monotonic()
         with pytest.raises(SystemExit, match=item):

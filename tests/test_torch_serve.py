@@ -195,14 +195,17 @@ def test_device_defaults_to_the_card(tiny_model, tiny_cfg):
 
 
 def test_unported_serving_modes_raise():
-    """The pod mesh is not ported; batched programs are (the scheduler,
-    tests/test_torch_scheduler.py), and a batch below one is refused."""
+    """Every serving mode is ported: batched programs (the scheduler,
+    tests/test_torch_scheduler.py) and the data mesh
+    (tests/test_torch_mesh_serve.py); a batch or a mesh below one is
+    refused."""
     SessionConfig(max_batch=2)
     with pytest.raises(ValueError, match="max_batch"):
         SessionConfig(max_batch=0)
-    with pytest.raises(NotImplementedError, match="mesh_data"):
-        SessionConfig(mesh_data=2)
+    SessionConfig(mesh_data=2)
     SessionConfig(mesh_data=1)
+    with pytest.raises(ValueError, match="mesh_data"):
+        SessionConfig(mesh_data=0)
 
 
 @pytest.mark.parametrize("segmented,half,canary,need", [

@@ -252,6 +252,25 @@ Phases, each fatal on failure:
    clients) in turns (``"phase": "mesh"``); the kernels line gives the
    encoder and default-loop rows their launches in each shard of each mesh
    program (``mesh_shard_launches``: ``"advance@b4": [8, 8]``).
+13. the analysis suites (``phase_analysis``): graftlint over the port
+   (``python -m raft_stereo_tpu_torch.analysis``, GL001-GL006: exit 0
+   required), then graftverify's headline registry recorded on the card
+   (``analysis/trace/registry.py``: the six serving programs, the eval
+   forward and the train step, the eight ladder programs, each the b=1
+   full frame and the b=2 advance from the armed base, and the base and
+   six flips of the knob probes), zero unsuppressed findings. One
+   ``"phase": "analysis"`` line: the programs recorded, each ladder
+   program's kernel launches by kernel and by variant (pairwise distinct),
+   each knob flip's verdict beside its cache-key change, the suppressions
+   with their reasons, the seconds.
+
+Phase 3 also checks reads past a kernel's inputs (``check_overreads``):
+one KITTI frame of 2 iterations on each of OVERRUN_ROUTES, each route in a
+child process (``--overread-route NAME``), every tensor a kernel wrapper
+takes placed with CUDA's virtual memory API so that its end, plus the
+kernel's declared slack (OVERREAD_SLACK: the lookup's 16-byte unit), meets
+a page that is never mapped; a read past it faults and fails the route by
+name.
 
 The seeded model's flow-head output conv is scaled by 1/50 (``seeded_model``): at
 random init it moves the coordinates ~35 px an iteration, which sends the
@@ -275,6 +294,7 @@ this file, it exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -1591,6 +1611,222 @@ def check_overruns(model, pair, iters: int = 2) -> dict:
     return result
 
 
+# Reads past a kernel's inputs (compute-sanitizer refuses this card): in a
+# child process a route, every tensor a kernel wrapper takes as input is
+# copied into memory placed with CUDA's virtual memory API so that its last
+# byte, plus the slack the kernel declares, meets a page that is reserved
+# and never mapped. A read past it faults; a fault kills the CUDA context,
+# so each route runs in a process of its own, and a fault names the route.
+# OVERREAD_SLACK: the bytes past an input a kernel may read by design. The
+# lookup loads its taps as aligned 16-byte units, and reads a unit that is
+# not wholly inside its level a byte at a time: its slack is one unit.
+OVERREAD_SLACK = {"corr_lookup": 16}
+OVERREAD_WAIT_S = 300
+# The wrappers that pass tensors to a kernel, by module, and the kernel each
+# one launches (the slack's key).
+OVERREAD_WRAPPERS = (
+    ("raft_stereo_tpu_torch.corr.reg_cuda", "lookup_launch", "corr_lookup"),
+    ("raft_stereo_tpu_torch.corr.alt_cuda", "lookup_launch", "corr_alt"),
+    ("raft_stereo_tpu_torch.ops.stream", "conv_gru_launch", "conv_gru"),
+    ("raft_stereo_tpu_torch.ops.stream", "motion_launch", "motion"),
+    ("raft_stereo_tpu_torch.ops.stream", "gru1632_launch", "gru1632"),
+    ("raft_stereo_tpu_torch.ops.resident", "fused_iter", "fused_iter"),
+    ("raft_stereo_tpu_torch.ops.encoder", "stem", "enc_stem"),
+    ("raft_stereo_tpu_torch.ops.encoder", "conv_pass", "enc_pass"),
+    ("raft_stereo_tpu_torch.ops.encoder", "_launch_point", "enc_point"),
+)
+
+
+class _CuLocation(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+
+class _CuAllocFlags(ctypes.Structure):
+    _fields_ = [("compressionType", ctypes.c_ubyte), ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                ("usage", ctypes.c_ushort), ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _CuAllocProp(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("requestedHandleTypes", ctypes.c_int),
+                ("location", _CuLocation), ("win32HandleMetaData", ctypes.c_void_p),
+                ("allocFlags", _CuAllocFlags)]
+
+
+class _CuAccessDesc(ctypes.Structure):
+    _fields_ = [("location", _CuLocation), ("flags", ctypes.c_int)]
+
+
+class _DeviceBytes:
+    """``nbytes`` bytes at ``ptr`` on the card, for torch.as_tensor."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
+                                         "data": (ptr, False), "version": 2}
+
+
+class guarded_reads:
+    """Places tensors so that each one's end, plus a slack, meets an
+    unmapped page (``place``); ``release`` unmaps everything after a
+    synchronize. libcuda calls through ctypes, in the context
+    torch made current."""
+
+    def __init__(self, device: int = 0):
+        self.cu = ctypes.CDLL("libcuda.so.1")
+        self.device = device
+        self.prop = _CuAllocProp(type=1, requestedHandleTypes=0,  # pinned, no export
+                                 location=_CuLocation(type=1, id=device))  # on the device
+        gran = ctypes.c_size_t()
+        self._call("cuMemGetAllocationGranularity", ctypes.byref(gran),
+                   ctypes.byref(self.prop), 0)
+        self.gran = gran.value
+        self.maps = []  # (va, reserved bytes, mapped bytes, handle)
+        self.placed = 0
+        self.max_gap = 0  # bytes between an input's end + slack and the page
+
+    def _call(self, name: str, *args) -> None:
+        err = getattr(self.cu, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed: CUresult {err}")
+
+    def place(self, t: torch.Tensor, slack: int) -> torch.Tensor:
+        if t.numel() == 0:
+            return t
+        span = (sum((s - 1) * st for s, st in zip(t.shape, t.stride())) + 1) * t.element_size()
+        mapped = -(-(span + slack) // self.gran) * self.gran
+        va = ctypes.c_uint64()
+        self._call("cuMemAddressReserve", ctypes.byref(va), ctypes.c_size_t(mapped + self.gran),
+                   ctypes.c_size_t(self.gran), ctypes.c_uint64(0), ctypes.c_ulonglong(0))
+        handle = ctypes.c_ulonglong()
+        self._call("cuMemCreate", ctypes.byref(handle), ctypes.c_size_t(mapped),
+                   ctypes.byref(self.prop), ctypes.c_ulonglong(0))
+        self._call("cuMemMap", va, ctypes.c_size_t(mapped), ctypes.c_size_t(0), handle,
+                   ctypes.c_ulonglong(0))
+        desc = _CuAccessDesc(location=_CuLocation(type=1, id=self.device), flags=3)  # RW
+        self._call("cuMemSetAccess", va, ctypes.c_size_t(mapped), ctypes.byref(desc),
+                   ctypes.c_size_t(1))
+        self.maps.append((va.value, mapped + self.gran, mapped, handle.value))
+        end = va.value + mapped - slack  # the page that is never mapped follows va + mapped
+        start = (end - span) // 16 * 16  # the kernels take 16-byte aligned tensors
+        self.max_gap = max(self.max_gap, end - (start + span))
+        raw = torch.as_tensor(_DeviceBytes(start, end - start), device=f"cuda:{self.device}")
+        out = raw[:span].view(t.dtype).as_strided(t.shape, t.stride())
+        out.copy_(t)
+        self.placed += 1
+        return out
+
+    def release(self) -> None:
+        torch.cuda.synchronize()
+        for va, reserved, mapped, handle in self.maps:
+            self._call("cuMemUnmap", ctypes.c_uint64(va), ctypes.c_size_t(mapped))
+            self._call("cuMemRelease", ctypes.c_ulonglong(handle))
+            self._call("cuMemAddressFree", ctypes.c_uint64(va), ctypes.c_size_t(reserved))
+        self.maps = []
+
+
+def _guarded_args(obj, guard: guarded_reads, slack: int):
+    """``obj`` with every CUDA tensor in it (in tuples, lists, dicts and
+    dataclasses) replaced by a placed copy; a dataclass field that is not an
+    init argument (a cache of what was built from the old tensors) goes
+    back to its default."""
+    import copy
+    import dataclasses
+    if isinstance(obj, torch.Tensor):
+        return guard.place(obj, slack) if obj.is_cuda else obj
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)._make(_guarded_args(v, guard, slack) for v in obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_guarded_args(v, guard, slack) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _guarded_args(v, guard, slack) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        new = copy.copy(obj)
+        for f in dataclasses.fields(obj):
+            value = (f.default if not f.init else
+                     _guarded_args(getattr(obj, f.name), guard, slack))
+            object.__setattr__(new, f.name, value)
+        return new
+    return obj
+
+
+def _overread_route(name: str) -> int:
+    """One route of ``check_overreads`` (``chip_smoke.py --overread-route
+    NAME``): a KITTI frame of 2 iterations with every kernel wrapper's
+    inputs placed by ``guarded_reads``; prints one JSON line."""
+    import dataclasses
+    import importlib
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.demo import infer_pair
+    from raft_stereo_tpu_torch.serve.session import _view
+    env, corr, want = OVERRUN_ROUTES[name]
+    for k, v in env.items():
+        os.environ[k] = v
+    model = seeded_model("cuda")
+    pair = random_pairs(1, KITTI, seed=7)[0]
+    view = _view(model, dataclasses.replace(model.cfg, corr_implementation=corr))
+    infer_pair(view, *pair, iters=2)  # builds and caches outside the guard
+    torch.cuda.synchronize()
+    guard = guarded_reads()
+    calls = {}
+    originals = []
+    for mod_name, fn_name, kernel in OVERREAD_WRAPPERS:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+        slack = OVERREAD_SLACK.get(kernel, 0)
+
+        def wrapper(*a, _fn=fn, _slack=slack, _kernel=kernel, **kw):
+            calls[_kernel] = calls.get(_kernel, 0) + 1
+            return _fn(*_guarded_args(a, guard, _slack), **_guarded_args(kw, guard, _slack))
+        # Every module that holds the wrapper under a name calls the guarded one.
+        for m in list(sys.modules.values()):
+            if getattr(m, "__name__", "").startswith("raft_stereo_tpu_torch"):
+                for attr, val in list(vars(m).items()):
+                    if val is fn:
+                        originals.append((m, attr, val))
+                        setattr(m, attr, wrapper)
+    before = dict(kernels.launches)
+    try:
+        infer_pair(view, *pair, iters=2)
+        torch.cuda.synchronize()
+    finally:
+        for m, attr, val in originals:
+            setattr(m, attr, val)
+    launched = {k: kernels.launches.get(k, 0) - before.get(k, 0) for k in want}
+    line = {"route": name, "placed": guard.placed, "calls": calls, "launches": launched,
+            "granularity": guard.gran, "max_gap_bytes": guard.max_gap,
+            "slack": {k: OVERREAD_SLACK.get(k, 0) for k in calls}}
+    guard.release()
+    line["ok"] = all(launched.values()) and guard.placed > 0
+    print(json.dumps(line))
+    return 0 if line["ok"] else 1
+
+
+def check_overreads() -> dict:
+    """Every kernel of the model paths through one KITTI frame of 2
+    iterations on each of OVERRUN_ROUTES, each route in a child process,
+    with every kernel input's end (plus its slack) on an unmapped page: a
+    read past an input faults and fails its route by name."""
+    routes = {}
+    for name in OVERRUN_ROUTES:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--overread-route", name], capture_output=True, text=True,
+                              timeout=OVERREAD_WAIT_S)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        routes[name] = json.loads(lines[-1]) if lines else {}
+        routes[name]["exit"] = proc.returncode
+        if proc.returncode != 0:
+            routes[name]["ok"] = False
+            routes[name]["log_tail"] = (proc.stdout + proc.stderr)[-1500:]
+    result = {"phase": "overread", "ok": all(r.get("ok") for r in routes.values()),
+              "input": "x".join(map(str, KITTI)), "iters": 2, "routes": routes}
+    print(json.dumps(result))
+    if not result["ok"]:
+        bad = [n for n, r in routes.items() if not r.get("ok")]
+        raise SystemExit(f"reads past a kernel's inputs, or a kernel not run, on route(s) "
+                         f"{bad}: {result}")
+    return result
+
+
 def phase_kernels() -> tuple:
     from raft_stereo_tpu_torch.corr import alt_cuda, reg_cuda
     from raft_stereo_tpu_torch.ops import stream
@@ -1649,6 +1885,7 @@ def phase_kernels() -> tuple:
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: {failed}")
     check_overruns(seeded_model("cuda"), random_pairs(1, KITTI, seed=7)[0])
+    check_overreads()
     return results, check_chains()
 
 
@@ -4398,6 +4635,64 @@ def phase_mesh(smi: str) -> dict:
     return line
 
 
+def phase_analysis(smi: str) -> dict:
+    """Phase 13: the analysis suites on the card. The AST stage over the port
+    (exit 0 required), then the headline trace registry: every entry, the
+    eight ladder programs and the six knob flips recorded on the card, with
+    zero unsuppressed findings. Prints one ``"phase": "analysis"`` line: the
+    entries recorded, each ladder program's kernel launches by kernel, each
+    knob flip's verdict, the suppressions and their reasons, the seconds."""
+    from raft_stereo_tpu_torch.analysis.cli import main as analysis_main
+    from raft_stereo_tpu_torch.analysis.trace import (TraceContext, default_registry,
+                                                      run_trace_analysis)
+    from raft_stereo_tpu_torch.analysis.trace.registry import GEOMETRIES
+    t0 = time.perf_counter()
+    rc = analysis_main([])
+    ast_s = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"analysis: the AST stage over the port exited {rc}")
+    t1 = time.perf_counter()
+    registry = default_registry("headline")
+    ctx = TraceContext(registry)
+    report = run_trace_analysis(registry, context=ctx)
+    trace_s = time.perf_counter() - t1
+    ladder = [{"rung": label, "program": e.name,
+               "launches": ctx.recording(e).launches() if ctx.recording(e) else None,
+               "by_variant": ctx.recording(e).launches(variants=True)
+               if ctx.recording(e) else None}
+              for label, e in registry.ladder_variants]
+    launch_sets = [tuple(sorted((r["by_variant"] or {}).items())) for r in ladder]
+    knobs = [{"knob": kf.knob, "flip": kf.flip_value,
+              "program_changed": ctx.text(kf.base) != ctx.text(kf.flipped),
+              "key_changed": kf.base_key != kf.flipped_key} for kf in registry.knob_flips]
+    for k in knobs:
+        k["verdict"] = "changed" if k["program_changed"] else "unchanged"
+    line = {"phase": "analysis", "nvidia_smi": smi, "geometry": registry.geometry,
+            "probe_iters": GEOMETRIES["headline"]["probe_iters"], "ast_exit": rc,
+            "ast_s": ast_s,
+            "entries": sorted(ctx.recorded()), "entries_recorded": ctx.entries_traced,
+            "entries_declared": len(registry.all_entries()),
+            "ladder": ladder, "ladder_pairwise_distinct_launches":
+                len(set(launch_sets)) == len(launch_sets),
+            "knobs": knobs,
+            "findings": [f.render() for f in report.findings],
+            "suppressed": [{"code": f.code, "context": f.path, "reason": f.suppress_reason}
+                           for f in report.suppressed],
+            "table": [{"code": c, "context": k, "reason": r}
+                      for (c, k), r in sorted(registry.suppressions.items())],
+            "trace_s": trace_s, "seconds": time.perf_counter() - t0}
+    print(json.dumps(line))
+    if report.findings or ctx.entries_traced != len(registry.all_entries()):
+        raise SystemExit(f"analysis: {len(report.findings)} unsuppressed finding(s) at "
+                         f"headline: {line['findings']}")
+    if len(ladder) != 8 or len(knobs) != 6:
+        raise SystemExit(f"analysis: {len(ladder)} ladder programs, {len(knobs)} knob flips")
+    del registry, ctx
+    torch.cuda.empty_cache()
+    return line
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4405,6 +4700,8 @@ def main() -> int:
     import raft_stereo_tpu_torch  # noqa: F401  (fails when run without the repo)
     if sys.argv[1:2] == ["--parallel-rank"]:
         return _parallel_rank(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--overread-route"]:
+        return _overread_route(sys.argv[2])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()["nvidia_smi"]
@@ -4419,6 +4716,7 @@ def main() -> int:
     phase_train(smi)
     parallel = phase_parallel(smi)
     mesh = phase_mesh(smi)
+    phase_analysis(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

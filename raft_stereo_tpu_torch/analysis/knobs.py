@@ -4,12 +4,15 @@ shape a program, and which steer only the host.
 The counterpart of the JAX package's ``analysis/knobs.py``, listing what the
 port reads. The serving session (``serve/session.py``) keys every cached
 program on the values of :data:`ENV_KNOBS`, and the breaker's ladder
-(``serve/guard.py``) turns them off one rung at a time. Stdlib only.
+(``serve/guard.py``) turns them off one rung at a time. The linter
+(``python -m raft_stereo_tpu_torch.analysis``, GL002 and GL006) holds the
+tree to these tables. Stdlib only.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Dict, Tuple
 
 # Switches whose values shape a program (``config.py``): part of every serving
 # cache key, so that a flipped switch (a breaker trip or an operator's export)
@@ -92,3 +95,51 @@ HOST_ENV_KNOBS: Tuple[str, ...] = (
     "RAFT_FLEET_PROBE_MS",  # health-probe period, ms (<= 0: no prober)
     "RAFT_FLEET_WARMUP_TIMEOUT_MS",  # readiness-handshake deadline, ms
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """Declared coverage of one module that launches hand-written kernels
+    (calls ``kernels.entry(...)``).
+
+    rungs: the ``serve/guard.py`` ``DEFAULT_LADDER`` rungs whose trip turns
+        this module's kernels off (or a variant of them: ``lane_pack8``
+        turns the int8 ones off).
+    gates: modules that consult a rung's switch for this module: the port
+        decides the route in the model (``models/``) and launches in the
+        ops, so a switch read in a declared gate covers the launch.
+    exempt_sites: ``(C entry name, reason)`` for a launch site in the module
+        that no rung turns off.
+    """
+
+    rungs: Tuple[str, ...] = ()
+    gates: Tuple[str, ...] = ()
+    exempt_sites: Tuple[Tuple[str, str], ...] = ()
+
+
+# Why the serial loop's ConvGRU and motion kernels have no rung: they are the
+# fallback of fuse_iter and fuse_gru1632, and they engage on every bf16
+# test-mode loop on CUDA tensors (config.RAFTStereoConfig.loop_kernels)
+# whatever the switches and the correlation choice say; only an fp32 config
+# leaves them, and precision is not a rung.
+_SERIAL_LOOP = ("the serial loop: fuse_iter's and fuse_gru1632's fallback; it "
+                "engages on every bf16 test-mode loop on the card "
+                "(RAFTStereoConfig.loop_kernels), and no rung turns it off")
+
+# Every module that launches a hand-written kernel, keyed by path suffix, with
+# the rungs that cover it: GL006 checks each rung exists in DEFAULT_LADDER,
+# that an env-var rung's switch is consulted in the module or one of its
+# gates, that a cfg-field rung names a RAFTStereoConfig field, and that no
+# entry outlives its launches.
+KERNEL_ENTRY_POINTS: Dict[str, KernelEntry] = {
+    "ops/encoder.py": KernelEntry(
+        rungs=("fused_encoders", "stream_tail", "lane_pack8")),
+    "ops/stream.py": KernelEntry(
+        rungs=("fuse_gru1632", "lane_pack8"), gates=("models/update.py",),
+        exempt_sites=(("conv_gru", _SERIAL_LOOP), ("motion", _SERIAL_LOOP))),
+    "ops/resident.py": KernelEntry(
+        rungs=("fuse_iter", "lane_pack8", "corr_kernel"),
+        gates=("models/raft_stereo.py",)),
+    "corr/reg_cuda.py": KernelEntry(rungs=("corr_kernel", "corr_pack8")),
+    "corr/alt_cuda.py": KernelEntry(rungs=("corr_kernel",)),
+}

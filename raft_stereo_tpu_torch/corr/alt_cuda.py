@@ -158,7 +158,7 @@ def lookup_launch(ops: AltOperands, coords_x: torch.Tensor) -> torch.Tensor:
         coords.data_ptr(), ops.f1.data_ptr(), rows, widths, nlev, ops.radius, npix, ops.w1,
         d, ops.scale, int(dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(coords.device).cuda_stream))
-    kernels.launches["corr_alt"] += 1
+    kernels.count_launch("corr_alt")
     return out
 
 

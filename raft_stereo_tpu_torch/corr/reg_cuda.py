@@ -292,9 +292,7 @@ def lookup_launch(ops: CorrOperands, coords_x: torch.Tensor) -> torch.Tensor:
         coords.data_ptr(), rows, widths, nlev, ops.radius, ops.b * ops.h * ops.w1, mode,
         scales, ops.h * ops.w1, out.data_ptr(),
         torch.cuda.current_stream(coords.device).cuda_stream))
-    kernels.launches["corr_lookup"] += 1
-    if ops.pack8:
-        kernels.variants["corr_lookup:pack8"] += 1
+    kernels.count_launch("corr_lookup", "pack8" if ops.pack8 else None)
     return out
 
 

@@ -22,7 +22,7 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "raft_stereo_tpu_torch"
@@ -100,11 +100,30 @@ launches: Counter = Counter()
 # same place.
 variants: Counter = Counter()
 
+# Callables ``(kernel, variant)`` told of every launch as it is counted: the
+# analysis recorder (``analysis/trace/graphs.py``) puts the launches into a
+# program's op stream this way, since the dispatcher never sees a kernel
+# launched through ctypes.
+_listeners: list = []
 
-def count_launch(kernel: str, variant: str) -> None:
-    """One launch of ``kernel`` in its ``variant``."""
+
+def count_launch(kernel: str, variant: Optional[str] = None) -> None:
+    """One launch of ``kernel``, in its ``variant`` where it has one (a
+    launch without one is counted in ``launches`` alone)."""
     launches[kernel] += 1
-    variants[f"{kernel}:{variant}"] += 1
+    if variant is not None:
+        variants[f"{kernel}:{variant}"] += 1
+    for listener in tuple(_listeners):
+        listener(kernel, variant)
+
+
+def add_launch_listener(fn) -> None:
+    _listeners.append(fn)
+
+
+def remove_launch_listener(fn) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
 
 
 def reset_launches() -> None:

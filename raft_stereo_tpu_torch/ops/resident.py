@@ -154,8 +154,5 @@ def fused_iter(motion_w: MotionWeights, gru_w: GruWeights, head_w: HeadWeights,
         f1.data_ptr(), h_out.data_ptr(), dx.data_ptr(), bar.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
     modes = "+".join(m for m, on in (("pack8", corr_ops.pack8), ("lane8", lane8)) if on)
-    if modes:
-        kernels.count_launch("fused_iter", modes)
-    else:
-        kernels.launches["fused_iter"] += 1
+    kernels.count_launch("fused_iter", modes or None)
     return h_out, dx

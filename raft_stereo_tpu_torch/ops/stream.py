@@ -171,10 +171,7 @@ def _czrq_args(name: str, czrq: Czrq, shape, device):
 
 
 def _count(kernel: str, lane8: int) -> None:
-    if lane8:
-        kernels.count_launch(kernel, "lane8")
-    else:
-        kernels.launches[kernel] += 1
+    kernels.count_launch(kernel, "lane8" if lane8 else None)
 
 
 # -- ConvGRU (+ FlowHead): kernel 2 ------------------------------------------
@@ -368,7 +365,7 @@ def motion_launch(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> t
         w.wf1.data_ptr(), w.b1.data_ptr(), w.n1, w.nf, w.w2_k.data_ptr(),
         w.b2.data_ptr(), w.wf_k.data_ptr(), w.bf.data_ptr(), w.cf, s1.data_ptr(),
         s2.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    kernels.launches["motion"] += 1
+    kernels.count_launch("motion")
     return out
 
 

@@ -1036,21 +1036,23 @@ class InferenceSession:
 
     def _regrow_extent(self) -> int:
         """Rebuild the mesh over the healthy chips at the largest divisor of
-        the base extent that fits them, under a new epoch. Called under the
-        mesh lock; returns the new extent."""
-        healthy = tuple(i for i in range(len(self._mesh_devices)) if i not in self._quarantined)
-        self._mesh_epoch += 1
-        if not healthy:
-            # Every chip gone: serving fails downstream, never on a
-            # quarantined chip by stealth.
-            self._mesh_live = None
-            self._mesh_n = 1
-            return 0
-        # The largest divisor of the base extent that fits: it divides every
-        # rounded batch bucket.
-        base = self._mesh_base_n
-        n = max(d for d in range(1, base + 1) if base % d == 0 and d <= len(healthy))
-        self._build_mesh(healthy[:n])
+        the base extent that fits them, under a new epoch. Returns the new
+        extent. Takes the mesh lock (re-entrant: its callers hold it)."""
+        with self._mesh_lock:
+            healthy = tuple(i for i in range(len(self._mesh_devices))
+                            if i not in self._quarantined)
+            self._mesh_epoch += 1
+            if not healthy:
+                # Every chip gone: serving fails downstream, never on a
+                # quarantined chip by stealth.
+                self._mesh_live = None
+                self._mesh_n = 1
+                return 0
+            # The largest divisor of the base extent that fits: it divides
+            # every rounded batch bucket.
+            base = self._mesh_base_n
+            n = max(d for d in range(1, base + 1) if base % d == 0 and d <= len(healthy))
+            self._build_mesh(healthy[:n])
         self.registry.gauge("raft_mesh_chips", "chips the live data mesh spans").set(n)
         return n
 

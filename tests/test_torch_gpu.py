@@ -1718,3 +1718,43 @@ def test_gpu_module_weights_in_grad_mode_train_the_encoder_convs(cuda):
     for m in (model.conv1, model.norm1, model.layer1[0].conv1, model.layer1[1].norm2):
         assert all(p.grad is not None and float(p.grad.abs().max()) > 0
                    for p in m.parameters())
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_read_nothing_past_their_inputs(cuda):
+    """Every kernel of the model paths (the default path, the serial loop,
+    alt_cuda), one KITTI frame a route in a child process, with every
+    kernel input's end (plus the kernel's declared slack: the lookup's
+    16-byte unit) on a page that is never mapped
+    (chip_smoke.check_overreads): no route faults, and every route
+    launches its kernels."""
+    import chip_smoke
+    result = chip_smoke.check_overreads()
+    assert result["ok"] and set(result["routes"]) == {"default", "serial", "alt_cuda"}
+    for name, route in result["routes"].items():
+        assert route["exit"] == 0 and route["placed"] > 0, (name, route)
+        assert all(route["launches"].values()), (name, route)
+
+
+@pytest.mark.gpu
+def test_gpu_headline_ladder_programs_differ_in_their_launches(cuda):
+    """The breaker ladder's eight headline programs (untripped from the
+    armed base, then each rung on top of the ones before), recorded on the
+    card: pairwise different in their kernel launches (by kernel and
+    variant: the int8 rungs change variants), so each rung changes what the
+    card runs. The fully tripped program still launches the serial loop's
+    ConvGRU and motion kernels: no rung covers them (their exemption in
+    analysis/knobs.py)."""
+    from raft_stereo_tpu_torch.analysis.trace import TraceContext, default_registry
+    registry = default_registry("headline")
+    ctx = TraceContext(registry)
+    launches = []
+    for label, entry in registry.ladder_variants:
+        rec = ctx.recording(entry)
+        assert rec is not None, (label, ctx.trace_errors())
+        launches.append(tuple(sorted(rec.launches(variants=True).items())))
+    assert len(launches) == 8
+    assert len(set(launches)) == 8, launches
+    last = dict(launches[-1])
+    assert last.get("motion") and last.get("conv_gru:gru08"), last
+    assert not any(k.startswith(("fused_iter", "gru1632", "corr_", "enc_")) for k in last)

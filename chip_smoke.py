@@ -256,13 +256,36 @@ Phases, each fatal on failure:
    (``python -m raft_stereo_tpu_torch.analysis``, GL001-GL006: exit 0
    required), then graftverify's headline registry recorded on the card
    (``analysis/trace/registry.py``: the six serving programs, the eval
-   forward and the train step, the eight ladder programs, each the b=1
+   forward and the train step, the nine ladder programs, each the b=1
    full frame and the b=2 advance from the armed base, and the base and
    six flips of the knob probes), zero unsuppressed findings. One
    ``"phase": "analysis"`` line: the programs recorded, each ladder
    program's kernel launches by kernel and by variant (pairwise distinct),
    each knob flip's verdict beside its cache-key change, the suppressions
-   with their reasons, the seconds.
+   with their reasons, the seconds. The concurrency stage runs first
+   beside the AST stage (``--concurrency``: GC201-GC206 against the
+   port's ``raft_stereo_tpu_torch/LOCK_ORDER.md``), and the ladder walks
+   nine programs, the last (``fused_update`` tripped too) launching no
+   hand-written kernel.
+14. the lock witness (``phase_lock_witness``): in a child process
+   (``--lock-witness DIR``), graftlock's runtime witness
+   (``analysis/concurrency/witness.py``) is armed before the serving
+   modules are imported and adopts the module-level locks; the child
+   builds the card's serving stack (a session on cuda:0 with CUDA-graph
+   programs, KITTI, bf16, reg_cuda, the default switches, under a fake
+   clock; the service with its scheduler, stream manager and response
+   cache; the HTTP frontend on localhost; a supervisor) and drives a storm
+   from WITNESS_CLIENTS client threads: ordinary pairs, a stream of warm
+   frames, an exact cache hit, malformed requests, requests over HTTP;
+   then an injected build failure that trips ``fuse_iter`` (the serial
+   loop kernels run after it), then an injected hang that the
+   supervisor's watchdog bounces. Every observed nested acquisition must
+   be an edge of the static lock-order graph (zero unexplained edges),
+   at least WITNESS_MIN_MAPPED of them mapped to declarations; the
+   parent serves the child's first request on a session built without
+   the witness, bit for bit the same disparity. One ``"phase":
+   "lock_witness"`` line: the requests, the trips, the edges observed,
+   mapped and unexplained, the locks adopted, the seconds.
 
 Phase 3 also checks reads past a kernel's inputs (``check_overreads``):
 one KITTI frame of 2 iterations on each of OVERRUN_ROUTES, each route in a
@@ -4636,21 +4659,26 @@ def phase_mesh(smi: str) -> dict:
 
 
 def phase_analysis(smi: str) -> dict:
-    """Phase 13: the analysis suites on the card. The AST stage over the port
-    (exit 0 required), then the headline trace registry: every entry, the
-    eight ladder programs and the six knob flips recorded on the card, with
-    zero unsuppressed findings. Prints one ``"phase": "analysis"`` line: the
-    entries recorded, each ladder program's kernel launches by kernel, each
-    knob flip's verdict, the suppressions and their reasons, the seconds."""
+    """Phase 13: the analysis suites on the card. The AST and concurrency
+    stages over the port (exit 0 required: no finding, the port's
+    LOCK_ORDER.md as the tree gives it), then the headline trace registry:
+    every entry, the nine ladder programs and the six knob flips recorded on
+    the card, with zero unsuppressed findings; the ladder's programs
+    pairwise distinct by kernel and variant, the last (every rung tripped,
+    fused_update too) launching no hand-written kernel. Prints one
+    ``"phase": "analysis"`` line: the entries recorded, each ladder
+    program's kernel launches by kernel, each knob flip's verdict, the
+    suppressions and their reasons, the seconds."""
     from raft_stereo_tpu_torch.analysis.cli import main as analysis_main
     from raft_stereo_tpu_torch.analysis.trace import (TraceContext, default_registry,
                                                       run_trace_analysis)
     from raft_stereo_tpu_torch.analysis.trace.registry import GEOMETRIES
     t0 = time.perf_counter()
-    rc = analysis_main([])
+    rc = analysis_main(["--concurrency"])
     ast_s = time.perf_counter() - t0
     if rc != 0:
-        raise SystemExit(f"analysis: the AST stage over the port exited {rc}")
+        raise SystemExit(f"analysis: the AST and concurrency stages over the port exited "
+                         f"{rc}")
     t1 = time.perf_counter()
     registry = default_registry("headline")
     ctx = TraceContext(registry)
@@ -4685,12 +4713,250 @@ def phase_analysis(smi: str) -> dict:
     if report.findings or ctx.entries_traced != len(registry.all_entries()):
         raise SystemExit(f"analysis: {len(report.findings)} unsuppressed finding(s) at "
                          f"headline: {line['findings']}")
-    if len(ladder) != 8 or len(knobs) != 6:
+    if len(ladder) != 9 or len(knobs) != 6:
         raise SystemExit(f"analysis: {len(ladder)} ladder programs, {len(knobs)} knob flips")
+    if len(set(launch_sets)) != len(launch_sets) or launch_sets[-1] != ():
+        raise SystemExit(f"analysis: the ladder's programs are not pairwise distinct, or the "
+                         f"fully tripped one launches kernels: {launch_sets}")
     del registry, ctx
     torch.cuda.empty_cache()
     return line
 
+
+
+# -- phase 14: the lock witness -----------------------------------------------
+
+WITNESS_DEVICE = "cuda:0"
+WITNESS_PAIRS = 16  # ordinary KITTI pairs, the first served alone
+WITNESS_CLIENTS = 4
+WITNESS_STREAM_FRAMES = 4
+WITNESS_HTTP = 3
+WITNESS_TRIP_SHAPE = (352, 1216)  # a second padded shape: its first build fails
+WITNESS_AFTER_TRIP = 2  # KITTI requests served on the serial loop kernels
+WITNESS_WAIT_S = 600
+#: The least number of distinct observed lock edges phase 14 must map to
+#: declarations, so that an empty witness cannot pass: its first reading on
+#: an H100 was 33 (PERF.md), less a margin for the interleavings.
+WITNESS_MIN_MAPPED = 28
+
+
+def _witness_stack(model, device):
+    """Phase 14's serving stack: a session (batch buckets 1 and 2, KITTI
+    warm-up, a fake clock, an empty fault plan the phase swaps), the
+    service above it with the response cache, no monitor thread (the phase
+    sweeps the supervisor itself)."""
+    from raft_stereo_tpu_torch.faults import ChaosPlan, FakeClock
+    from raft_stereo_tpu_torch.serve import (InferenceSession, ServiceConfig, SessionConfig,
+                                             StereoService)
+    sess = InferenceSession(model, model.cfg, SessionConfig(
+        valid_iters=ITERS, segments=SERVER_SEGMENTS, max_batch=2, warmup_shapes=(KITTI,)),
+        device=device, fault_plan=ChaosPlan(), clock=FakeClock())
+    svc = StereoService(sess, ServiceConfig(max_queue=64, supervise=False, retry_budget=2,
+                                            cache_bytes=256 << 20)).start()
+    return sess, svc
+
+
+def _ok(name: str, r: dict) -> dict:
+    if r.get("status") != "ok":
+        raise SystemExit(f"lock witness: {name} gave {r.get('status')} "
+                         f"{r.get('code')}: {r.get('message')}")
+    return r
+
+
+def _witness_storm(sess, svc, port: int) -> dict:
+    """The storm of phase 14 on a built stack (see the module docstring);
+    returns the first response, the requests made, the trips and the
+    serial loop's launches after the trip."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_stereo_tpu_torch import kernels
+    from raft_stereo_tpu_torch.faults import ChaosPlan, malformed_pairs
+    from raft_stereo_tpu_torch.serve import Supervisor, wire
+    pairs = _server_pairs(WITNESS_PAIRS, seed=41)
+    frames = _stream_frames(WITNESS_STREAM_FRAMES, seed=43)
+    first = _ok("first", svc.submit(_request("first", pairs[0])).result(timeout=600))
+    made = 1
+
+    def call(req):
+        return req["id"], svc.submit(req).result(timeout=600)
+
+    def stream():
+        out = []
+        for k, f in enumerate(frames):
+            left, right = _f32(f)
+            out.append(call({"id": f"stream-{k}", "left": left, "right": right,
+                             "stream": "S"}))
+        return out
+
+    def http(i):
+        ct, payload = _png_request(pairs[i], f"http-{i}")
+        status, body = _fleet_http(port, "/v1/stereo", payload, {"Content-Type": ct})
+        if status != 200:
+            return f"http-{i}", {"status": "http", "code": status, "message": body[:200]}
+        return f"http-{i}", wire.decode_response(body)
+
+    bad = malformed_pairs(h=KITTI[0], w=KITTI[1])
+    jobs = [lambda i=i: call(_request(f"pair-{i}", pairs[i])) for i in range(1, WITNESS_PAIRS)]
+    jobs += [lambda: call(_request("hit", pairs[0]))]
+    jobs += [lambda n=n: call({"id": f"bad-{n}", "left": bad[n][0], "right": bad[n][1]})
+             for n in ("nan_pixels", "five_channel", "zero_area", "mismatched_shapes")]
+    jobs += [lambda i=i: http(i) for i in range(1, 1 + WITNESS_HTTP)]
+    with ThreadPoolExecutor(max_workers=WITNESS_CLIENTS) as ex:
+        warm = ex.submit(stream)
+        resps = dict(ex.map(lambda job: job(), jobs))
+        resps.update(warm.result())
+    made += len(resps)
+    health = _fleet_http(port, "/healthz")[0]
+    for rid, r in resps.items():
+        if r.get("status") not in ("ok", "rejected", "error"):
+            raise SystemExit(f"lock witness: {rid} unstructured: {r}")
+        if not rid.startswith("bad-"):
+            _ok(rid, r)
+    if any(resps[f"bad-{n}"]["status"] != "rejected" for n in
+           ("nan_pixels", "five_channel", "zero_area", "mismatched_shapes")):
+        raise SystemExit(f"lock witness: a malformed request was served: "
+                         f"{ {k: v['status'] for k, v in resps.items() if k.startswith('bad-')} }")
+    if resps["hit"]["quality"] != "cache:exact" or \
+            resps["hit"]["disparity"].tobytes() != first["disparity"].tobytes():
+        raise SystemExit(f"lock witness: the repeat of the first pair: {resps['hit']['quality']}")
+    # An injected build failure at the next build (a new padded shape's
+    # first program) that the breaker attributes to fuse_iter.
+    sess.faults.plan = ChaosPlan(compile_errors={sess.faults.builds: "mosaic:fuse_iter"})
+    rng = np.random.default_rng(47)
+    trip_pair = tuple(rng.uniform(0, 255, (*WITNESS_TRIP_SHAPE, 3)).astype(np.float32)
+                      for _ in range(2))
+    kernels.reset_launches()
+    tripped = _ok("trip", svc.submit({"id": "trip", "left": trip_pair[0],
+                                      "right": trip_pair[1]}).result(timeout=600))
+    after = [_ok(f"after-{i}", svc.submit(_request(f"after-{i}", pairs[i])).result(timeout=600))
+             for i in range(WITNESS_AFTER_TRIP)]
+    serial = dict(kernels.launches)
+    made += 1 + len(after)
+    # An injected hang at the next invocation: the supervisor's sweep sees
+    # it overdue on the fake clock and bounces the generation; the request
+    # re-admits and is served.
+    sess.faults.plan = ChaosPlan(hang_invokes={sess.faults.invokes: 500.0}, hang_cap_s=120.0)
+    victim = svc.submit(_request("hang", pairs[-1]))
+    if not sess.faults.wait_hang_entered(1, timeout=300):
+        raise SystemExit("lock witness: the injected hang never parked")
+    bounced = [t.kind for t in Supervisor(svc, watchdog_s=5.0).check_now()]
+    hung = _ok("hang", victim.result(timeout=600))
+    made += 1
+    return {"first": first, "requests": made, "health": health,
+            "tripped": list(sess.breaker.tripped_names), "trip_quality": tripped["quality"],
+            "serial_launches": serial, "bounced": bounced, "hang_retries": hung.get("retries"),
+            "supervision": svc.supervision_status()}
+
+
+def _lock_witness_child(d: Path) -> int:
+    """Phase 14's child (``chip_smoke.py --lock-witness DIR``): the witness
+    armed before the serving modules load, the storm under it; writes
+    ``result.json`` and the first response's disparity (``first.npy``)."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.analysis.concurrency.witness import (LockWitness,
+                                                                    package_model,
+                                                                    unexplained_edges)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    static = package_model()
+    with LockWitness() as witness:
+        adopted = witness.adopt_module_locks(static)
+        from raft_stereo_tpu_torch.serve.http import HttpConfig, HttpFrontend
+        model = seeded_model(WITNESS_DEVICE)
+        sess, svc = _witness_stack(model, WITNESS_DEVICE)
+        front = HttpFrontend(svc, HttpConfig(port=0)).start()
+        build_s = time.perf_counter() - t0
+        try:
+            storm = _witness_storm(sess, svc, front.port)
+        finally:
+            front.stop()
+            svc.stop()
+        module_locks = witness.module_locks_seen(static)
+    mapped = sorted({(a.key, b.key) for a, b in ((static.decl_at(*s_), static.decl_at(*d_))
+                                                 for s_, d_ in witness.edges)
+                     if a is not None and b is not None and a.key != b.key})
+    np.save(d / "first.npy", storm.pop("first")["disparity"])
+    result = {**storm, "edges_observed": len(witness.edges), "edges_mapped": len(mapped),
+              "mapped": mapped, "unexplained": unexplained_edges(witness, static),
+              "adopted": adopted, "module_locks_seen": module_locks, "build_s": build_s,
+              "seconds": time.perf_counter() - t0}
+    (d / "result.json").write_text(json.dumps(result))
+    return 0
+
+
+def phase_lock_witness(smi: str) -> dict:
+    """Phase 14 (see the module docstring): the child's storm under the
+    witness, then its first request again on a session built without it."""
+    import gc
+    import shutil
+
+    import numpy as np
+    d = Path(__file__).resolve().parent / "build" / "phase_lock_witness"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for knob in SWITCHES + ENCODER_SWITCHES:
+        os.environ.pop(knob, None)
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lock-witness",
+                            str(d)], capture_output=True, text=True, timeout=WITNESS_WAIT_S)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise SystemExit(f"lock witness: the child exited {child.returncode}:\n"
+                         f"{child.stdout[-3000:]}\n{child.stderr[-6000:]}")
+    res = json.loads((d / "result.json").read_text())
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = seeded_model(WITNESS_DEVICE)
+    sess, svc = _witness_stack(model, WITNESS_DEVICE)
+    try:
+        plain = _ok("first", svc.submit(_request("first", _server_pairs(1, seed=41)[0]))
+                    .result(timeout=600))
+    finally:
+        svc.stop()
+    first = np.load(d / "first.npy")
+    line = {"phase": "lock_witness", "card": smi, "requests": res["requests"],
+            "clients": WITNESS_CLIENTS, "trips": res["tripped"],
+            "trip_quality": res["trip_quality"], "bounced": res["bounced"],
+            "hang_retries": res["hang_retries"],
+            "serial_launches": {k: v for k, v in res["serial_launches"].items()
+                                if k in ("corr_lookup", "motion", "fused_iter")
+                                or k.startswith("conv_gru")},
+            "edges_observed": res["edges_observed"], "edges_mapped": res["edges_mapped"],
+            "unexplained": res["unexplained"], "min_mapped": WITNESS_MIN_MAPPED,
+            "adopted": res["adopted"], "module_locks_seen": res["module_locks_seen"],
+            "mapped": res["mapped"],
+            "first_bitwise_without_witness": plain["disparity"].tobytes() == first.tobytes(),
+            "child_build_s": res["build_s"], "child_s": res["seconds"],
+            "child_wall_s": child_s, "seconds": time.perf_counter() - t0}
+    print(json.dumps(line))
+    if res["unexplained"]:
+        raise SystemExit(f"lock witness: edges outside the static graph: {res['unexplained']}")
+    if res["edges_mapped"] < WITNESS_MIN_MAPPED:
+        raise SystemExit(f"lock witness: {res['edges_mapped']} mapped edges, fewer than "
+                         f"{WITNESS_MIN_MAPPED}")
+    if not line["first_bitwise_without_witness"]:
+        raise SystemExit("lock witness: the first response differs from the same request "
+                         "served without the witness")
+    if res["tripped"] != ["fuse_iter"] or res["bounced"] != ["device_hang"] or \
+            res["supervision"]["restarts"] != {"device_hang": 1}:
+        raise SystemExit(f"lock witness: trips {res['tripped']}, bounces {res['bounced']}, "
+                         f"restarts {res['supervision']['restarts']}")
+    launched = res["serial_launches"]
+    if not (launched.get("corr_lookup") and launched.get("motion")
+            and launched.get("conv_gru:gru08")) or launched.get("fused_iter"):
+        raise SystemExit(f"lock witness: after the trip the serial loop kernels did not run "
+                         f"alone: {launched}")
+    if not all(res["module_locks_seen"].values()):
+        raise SystemExit(f"lock witness: module locks unseen: {res['module_locks_seen']}")
+    if res["health"] != 200:
+        raise SystemExit(f"lock witness: /healthz gave {res['health']}")
+    del sess, svc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def main() -> int:
@@ -4702,6 +4968,8 @@ def main() -> int:
         return _parallel_rank(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--overread-route"]:
         return _overread_route(sys.argv[2])
+    if sys.argv[1:2] == ["--lock-witness"]:
+        return _lock_witness_child(Path(sys.argv[2]))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()["nvidia_smi"]
@@ -4717,6 +4985,7 @@ def main() -> int:
     parallel = phase_parallel(smi)
     mesh = phase_mesh(smi)
     phase_analysis(smi)
+    phase_lock_witness(smi)
     line = []
     for r in results:
         if "on_path" in r and r["on_path"] is None:

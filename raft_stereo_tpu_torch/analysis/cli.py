@@ -1,13 +1,18 @@
 """``python -m raft_stereo_tpu_torch.analysis`` — the port's graftlint /
-graftverify CLI.
+graftverify / graftlock CLI.
 
 Default: the AST suite (GL001-GL006, stdlib only, a few seconds). With
 ``--trace``, ALSO runs graftverify (GV101-GV105): records the port's real
 entry points (the serving programs ``serve/session.py`` ``build_program``
 returns, the eval forward, the train step) op by op under a
 ``TorchDispatchMode``, with the hand-written kernels' launches in the same
-stream, and checks the recorded programs.  Both stages merge into one
-verdict / JSON artifact.
+stream, and checks the recorded programs.  With ``--concurrency``, ALSO
+runs graftlock (GC201-GC206, stdlib-only like the AST stage): the
+package-wide lock model, the port's own manifest
+``raft_stereo_tpu_torch/LOCK_ORDER.md`` (``LOCK_ORDER.md`` in the first
+analyzed root; ``--write-manifest`` regenerates it), Future-lifecycle,
+blocking/sink-under-lock, ``_*_locked`` and Thread-lifecycle contracts.
+All requested stages merge into one verdict / JSON artifact.
 
 The ladder and knob proofs run only at ``--trace-geometry headline`` and
 only on a CUDA device: on the CPU every kernel wrapper runs its plain
@@ -50,8 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m raft_stereo_tpu_torch.analysis",
         description="graftlint over the port: static analysis for the "
-                    "repo's recurring bug classes (GL001-GL006), and with "
-                    "--trace graftverify (GV101-GV105).")
+                    "repo's recurring bug classes (GL001-GL006), with "
+                    "--trace graftverify (GV101-GV105), with "
+                    "--concurrency graftlock (GC201-GC206).")
     p.add_argument("paths", nargs="*",
                    help="files/directories to analyze (default: the "
                         "raft_stereo_tpu_torch package)")
@@ -63,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="machine-readable JSON report on stdout")
     p.add_argument("--select", metavar="CODES",
                    help="comma-separated finding codes to report "
-                        "(e.g. GL001,GL004); GL000 and GV000 always report")
+                        "(e.g. GL001,GL004); GL000, GV000 and GC200 always "
+                        "report")
     p.add_argument("--show-suppressed", action="store_true",
                    help="also print suppressed findings (with reasons)")
     p.add_argument("--list-checkers", action="store_true",
@@ -84,6 +91,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "defining build_registry() instead of the "
                         "default — tests point this at poisoned fixture "
                         "registries to prove each GV checker fires")
+    p.add_argument("--concurrency", action="store_true",
+                   help="also run graftlock (GC201-GC206): lock-order "
+                        "graph vs the committed LOCK_ORDER.md of the first "
+                        "root (raft_stereo_tpu_torch/LOCK_ORDER.md by "
+                        "default), Future lifecycle, blocking/sink-under-"
+                        "lock, _*_locked and Thread lifecycle contracts "
+                        "(stdlib-only, fast)")
+    p.add_argument("--write-manifest", action="store_true",
+                   help="with --concurrency: regenerate LOCK_ORDER.md "
+                        "from the tree before checking (the reviewed-"
+                        "diff ceremony — commit the result)")
     return p
 
 
@@ -107,6 +125,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("graftlint: --trace-registry/--trace-geometry require "
               "--trace", file=sys.stderr)
         return 2
+    if args.write_manifest and not args.concurrency:
+        # Same principle: a manifest silently not regenerated must never
+        # read as "regenerated".
+        print("graftlint: --write-manifest requires --concurrency",
+              file=sys.stderr)
+        return 2
     if args.list_checkers:
         from raft_stereo_tpu_torch.analysis.checkers import ALL_CHECKERS
         for cls in ALL_CHECKERS:
@@ -116,6 +140,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         from raft_stereo_tpu_torch.analysis.trace.checkers import \
             ALL_TRACE_CHECKERS
         for cls in ALL_TRACE_CHECKERS:
+            print(f"{cls.code}  {cls.name:<24} {cls.description}")
+        from raft_stereo_tpu_torch.analysis.concurrency.checkers import \
+            ALL_CONCURRENCY_CHECKERS
+        for cls in ALL_CONCURRENCY_CHECKERS:
             print(f"{cls.code}  {cls.name:<24} {cls.description}")
         return 0
     geometry = args.trace_geometry or "headline"
@@ -170,6 +198,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                 run_trace_analysis(registry, select=select))
         except Exception as e:
             print(f"graftverify: internal error: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 2
+    if args.concurrency:
+        try:
+            from raft_stereo_tpu_torch.analysis.concurrency import (
+                run_concurrency_analysis, write_lock_order_manifest)
+            if args.write_manifest:
+                path = write_lock_order_manifest(roots, base=base)
+                print(f"graftlock: wrote {path}", file=sys.stderr)
+            gc_report = run_concurrency_analysis(
+                roots, base=base, select=select, only_paths=only_paths,
+                # The AST stage above already reported parse errors and
+                # reasonless suppressions for this same file set.
+                emit_file_meta=False)
+            gc_report.files_analyzed = 0
+            report = report.merged(gc_report)
+        except Exception as e:
+            print(f"graftlock: internal error: {type(e).__name__}: {e}",
                   file=sys.stderr)
             return 2
     print(report.render_json() if args.as_json

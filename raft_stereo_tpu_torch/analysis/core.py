@@ -33,10 +33,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 META_CODE = "GL000"
 
 #: Meta-code of the graftlock (concurrency) stage — same non-suppressible,
-#: non-filterable contract as GL000.  The port's graftlock stage is not
-#: written yet: GC-coded suppressions (``# graftlint: disable=GC2xx (...)``)
-#: are parsed, checked for a reason, and otherwise left alone — the AST
-#: stage neither applies them nor reports them stale.
+#: non-filterable contract as GL000, emitted by the GC stage
+#: (``analysis/concurrency/``) for stale GC-code suppressions and (when the
+#: stage runs standalone) parse errors.
 CONCURRENCY_META_CODE = "GC200"
 
 #: Codes that are never suppressible and always pass ``--select``.

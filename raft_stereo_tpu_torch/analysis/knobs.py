@@ -117,15 +117,6 @@ class KernelEntry:
     exempt_sites: Tuple[Tuple[str, str], ...] = ()
 
 
-# Why the serial loop's ConvGRU and motion kernels have no rung: they are the
-# fallback of fuse_iter and fuse_gru1632, and they engage on every bf16
-# test-mode loop on CUDA tensors (config.RAFTStereoConfig.loop_kernels)
-# whatever the switches and the correlation choice say; only an fp32 config
-# leaves them, and precision is not a rung.
-_SERIAL_LOOP = ("the serial loop: fuse_iter's and fuse_gru1632's fallback; it "
-                "engages on every bf16 test-mode loop on the card "
-                "(RAFTStereoConfig.loop_kernels), and no rung turns it off")
-
 # Every module that launches a hand-written kernel, keyed by path suffix, with
 # the rungs that cover it: GL006 checks each rung exists in DEFAULT_LADDER,
 # that an env-var rung's switch is consulted in the module or one of its
@@ -134,11 +125,14 @@ _SERIAL_LOOP = ("the serial loop: fuse_iter's and fuse_gru1632's fallback; it "
 KERNEL_ENTRY_POINTS: Dict[str, KernelEntry] = {
     "ops/encoder.py": KernelEntry(
         rungs=("fused_encoders", "stream_tail", "lane_pack8")),
+    # fused_update (RAFTStereoConfig.fused_update, read by loop_kernels in
+    # the model modules) turns the whole loop route off: the serial
+    # ConvGRU and motion kernels, gru16+32 and the resident kernel.
     "ops/stream.py": KernelEntry(
-        rungs=("fuse_gru1632", "lane_pack8"), gates=("models/update.py",),
-        exempt_sites=(("conv_gru", _SERIAL_LOOP), ("motion", _SERIAL_LOOP))),
+        rungs=("fuse_gru1632", "lane_pack8", "fused_update"),
+        gates=("models/update.py", "models/raft_stereo.py")),
     "ops/resident.py": KernelEntry(
-        rungs=("fuse_iter", "lane_pack8", "corr_kernel"),
+        rungs=("fuse_iter", "lane_pack8", "corr_kernel", "fused_update"),
         gates=("models/raft_stereo.py",)),
     "corr/reg_cuda.py": KernelEntry(rungs=("corr_kernel", "corr_pack8")),
     "corr/alt_cuda.py": KernelEntry(rungs=("corr_kernel",)),

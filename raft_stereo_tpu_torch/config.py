@@ -130,6 +130,11 @@ class RAFTStereoConfig:
     # in fp32 either way. In bf16 the refinement loop's GRU and motion
     # kernels engage; in fp32 the loop runs the plain torch modules.
     mixed_precision: bool = False
+    # The refinement loop's kernels (the serial ConvGRU and motion kernels,
+    # gru16+32, the resident iteration), the JAX package's field and
+    # default. False runs the loop as plain torch whatever the switches
+    # say: the breaker ladder's bottom rung (serve/guard.py).
+    fused_update: bool = True
     # Engage the loop kernels in training too (the JAX package's meaning):
     # their forward is the kernel, their backward plain torch recomputed
     # from the saved inputs. Off by default, as in the JAX package: a
@@ -178,9 +183,12 @@ class RAFTStereoConfig:
         return cls(**{k: v for k, v in vars(ns).items() if k in fields})
 
     def loop_kernels(self, test_mode: bool) -> bool:
-        """Whether the refinement loop runs the GRU and motion kernels: bf16,
-        and in training also ``fused_train``."""
-        return self.mixed_precision and (test_mode or self.fused_train)
+        """Whether the refinement loop runs the GRU and motion kernels:
+        ``fused_update``, bf16, and in training also ``fused_train`` (the
+        JAX package's ``fuse = cfg.fused_update and (test_mode or
+        cfg.fused_train)``, in bf16 only)."""
+        return self.fused_update and self.mixed_precision and (
+            test_mode or self.fused_train)
 
 
 @dataclasses.dataclass

@@ -15,15 +15,19 @@ The dataset readers and writers (the JAX package's ``data/frame_utils.py``,
 reference ``core/utils/frame_utils.py``): PFM, Middlebury ``.flo``, KITTI's
 16-bit disparity PNG, Sintel's RGB-packed disparity, FallingThings depth,
 TartanAir depth, Middlebury's ``disp0GT.pfm`` with its non-occlusion mask,
-and ``read_gen``. Without OpenCV: the KITTI PNG through Pillow (its 16-bit
-grey mode). KITTI's optical-flow PNGs (16-bit RGB, which Pillow does not
-decode) are not read: no stereo dataset needs them.
+and ``read_gen``. Without OpenCV: the KITTI disparity PNG through Pillow
+(its 16-bit grey mode); KITTI's optical-flow PNGs are 16-bit RGB, which
+Pillow neither decodes nor writes, so :func:`read_flow_kitti` and
+:func:`write_flow_kitti` carry their own PNG codec on numpy and ``zlib``
+(the five PNG row filters, no interlace).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
+import zlib
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -170,6 +174,121 @@ def write_disp_kitti(path, disp: np.ndarray) -> None:
     """The inverse of :func:`read_disp_kitti`: ``uint16(disp * 256)``."""
     from PIL import Image
     Image.fromarray((np.asarray(disp) * 256).astype(np.uint16)).save(path)
+
+
+# ---------------------------------------------------------------------------
+# KITTI 16-bit RGB PNG optical flow
+# ---------------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _unfilter_rows(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of ``raw`` (``h`` rows of a filter byte and
+    ``stride`` bytes) into an (h, stride) uint8 array."""
+    rows = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: a running sum along each byte lane of a pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:  # Up
+            cur = (line + prior) & 0xFF
+        elif kind in (3, 4):  # Average, Paeth: left to right, a pixel at a time
+            cur = line.copy()
+            left = np.zeros(bpp, np.int32)
+            up_left = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                if kind == 3:
+                    pred = (left + up) >> 1
+                else:
+                    p = left + up - up_left
+                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+                    pred = np.where((pa <= pb) & (pa <= pc), left,
+                                    np.where(pb <= pc, up, up_left))
+                cur[x:x + bpp] = (cur[x:x + bpp] + pred) & 0xFF
+                left, up_left = cur[x:x + bpp], up
+        else:
+            raise ValueError(f"PNG: unknown row filter {kind}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def _read_png16_rgb(path) -> np.ndarray:
+    """A 16-bit RGB (or RGBA, alpha dropped) PNG as (H, W, 3) uint16, its
+    header's size checked against the decode cap before inflating."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without an IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 16 or color not in (2, 6) or interlace != 0:
+        raise ValueError(f"{path}: a KITTI flow PNG is 16-bit RGB without interlace, got "
+                         f"bit depth {depth}, color type {color}, interlace {interlace}")
+    guard_decode_size((w, h), source=str(path))
+    channels = 3 if color == 2 else 4
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * channels * 2
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"{path}: PNG image data of {raw.size} bytes, expected "
+                         f"{h * (stride + 1)}")
+    pixels = _unfilter_rows(raw, h, stride, channels * 2)
+    return pixels.view(">u2").reshape(h, w, channels)[..., :3].astype(np.uint16)
+
+
+def _write_png16_rgb(path, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint16 as a 16-bit RGB PNG, every row unfiltered."""
+    h, w, _ = rgb.shape
+    rows = np.ascontiguousarray(rgb, ">u2").reshape(h, w * 3).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE)
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes())))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def read_flow_kitti(path) -> Tuple[np.ndarray, np.ndarray]:
+    """KITTI flow PNG: uint16 channels ``(u, v, valid)``, ``(x - 2^15)/64``;
+    returns the (H, W, 2) flow and the valid channel, float32."""
+    raw = _read_png16_rgb(path).astype(np.float32)
+    flow = (raw[:, :, :2] - 2 ** 15) / 64.0
+    return flow, raw[:, :, 2]
+
+
+def write_flow_kitti(path, flow: np.ndarray) -> None:
+    """The inverse of :func:`read_flow_kitti`, every pixel valid."""
+    enc = 64.0 * flow + 2 ** 15
+    valid = np.ones((*flow.shape[:2], 1), flow.dtype)
+    _write_png16_rgb(path, np.concatenate([enc, valid], axis=-1).astype(np.uint16))
+
+
+# The reference's names.
+readFlowKITTI = read_flow_kitti
+writeFlowKITTI = write_flow_kitti
 
 
 # ---------------------------------------------------------------------------

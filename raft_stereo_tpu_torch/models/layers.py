@@ -87,6 +87,39 @@ class ResidualBlock(nn.Module):
         return torch.relu(x + y)
 
 
+class BottleneckBlock(nn.Module):
+    """Reference ``BottleneckBlock`` (``core/extractor.py:64-120``): 1x1 down
+    to ``planes // 4``, a 3x3 at ``stride``, 1x1 back up, each normed and
+    ReLU'd; a strided block's shortcut norm is registered as ``norm4`` and as
+    ``downsample.1``, as there. Unused by the stereo model, in either
+    package (the JAX package's ``apply_bottleneck_block``)."""
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group",
+                 stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv2d(in_planes, planes // 4, 1)
+        self.conv2 = Conv2d(planes // 4, planes // 4, 3, padding=1, stride=stride)
+        self.conv3 = Conv2d(planes // 4, planes, 1)
+        groups = planes // 8
+        self.norm1 = make_norm(norm_fn, planes // 4, groups)
+        self.norm2 = make_norm(norm_fn, planes // 4, groups)
+        self.norm3 = make_norm(norm_fn, planes, groups)
+        if stride == 1:
+            self.downsample = None
+        else:
+            self.norm4 = make_norm(norm_fn, planes, groups)
+            self.downsample = nn.Sequential(
+                Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        y = torch.relu(self.norm3(self.conv3(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every conv with the JAX package's initialization and every norm
     with scale 1, shift 0, mean 0, var 1, drawing from ``generator``."""

@@ -88,6 +88,32 @@ class ConvGRU(nn.Module):
         return (1 - z) * h + z * q
 
 
+class SepConvGRU(nn.Module):
+    """Reference ``SepConvGRU`` (``core/update.py:34-62``): a GRU step with
+    1x5 convs (padding (0, 2)), then one with 5x1 convs (padding (2, 0)), on
+    ``[h; x]``. Unused by the stereo model, in either package (the JAX
+    package's ``apply_sep_conv_gru``)."""
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        for suffix, k, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in ("z", "r", "q"):
+                setattr(self, f"conv{gate}{suffix}",
+                        Conv2d(cin, hidden_dim, k, padding=pad))
+
+    def forward(self, h: torch.Tensor, *x_list: torch.Tensor) -> torch.Tensor:
+        x = torch.cat(x_list, dim=-1) if len(x_list) > 1 else x_list[0]
+        for convz, convr, convq in ((self.convz1, self.convr1, self.convq1),
+                                    (self.convz2, self.convr2, self.convq2)):
+            hx = torch.cat([h, x], dim=-1)
+            z = torch.sigmoid(convz(hx))
+            r = torch.sigmoid(convr(hx))
+            q = torch.tanh(convq(torch.cat([r * h, x], dim=-1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
 class BasicMotionEncoder(nn.Module):
     def __init__(self, cor_planes: int):
         super().__init__()

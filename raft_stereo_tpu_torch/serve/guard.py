@@ -11,24 +11,27 @@ logged, counted and listed in the session's status. The process degrades; it
 does not die.
 
 The port's ladder keeps the JAX ladder's rungs whose switch the port has, in
-the JAX order. It drops three:
+the JAX order. It drops two:
 
 - ``stream_batch``: the JAX rung sends B > 1 loop calls to XLA, a TPU
   policy (``RAFT_STREAM_BATCH``). The port's loop kernels engage at every
   batch (the encoder kernels at B=1, and a batched serving ``prepare``
   runs row by row, ``serve/session.py``), and the rung's fallback would be
   plain PyTorch, which the card's ``kernels_only`` breaker never serves;
-- ``packed_l2``: a TPU bit layout the port never had;
-- ``fused_update``: the port's config has no such field, so the bottom rung
-  still launches the serial loop kernels (``conv_gru.cu``, ``motion.cu``).
-  A kernel-free loop on the card would be a fallback that hides the kernels.
+- ``packed_l2``: a TPU bit layout the port never had.
+
+The bottom rung, ``fused_update`` (``RAFTStereoConfig.fused_update``), turns
+the refinement loop's kernels off: the serial ConvGRU and motion kernels
+(``conv_gru.cu``, ``motion.cu``), the fallback of ``fuse_iter`` and
+``fuse_gru1632``. With every rung tripped a program launches no hand-written
+kernel, as the JAX package's last ladder program does.
 
 ``corr_kernel`` maps ``reg_cuda`` to ``reg`` and ``alt_cuda`` to ``alt``,
 plain torch correlations, as the JAX package's XLA twins are.
 
-Three rungs fall back to plain PyTorch (``plain_route``): ``stream_tail`` and
+Four rungs fall back to plain PyTorch (``plain_route``): ``stream_tail`` and
 ``fused_encoders`` to cuDNN convolutions and torch norms, ``corr_kernel`` to
-torch correlation. The session on the card builds its breaker with
+torch correlation, ``fused_update`` to the torch loop. The session on the card builds its breaker with
 ``kernels_only``: it never trips those rungs, so a served frame never leaves
 the hand-written kernels. A failure whose rung is one of them (a launch or
 build failure attributed to it, or an OOM or canary mismatch that reaches it
@@ -149,6 +152,19 @@ DEFAULT_LADDER: Tuple[FastPath, ...] = (
                     "(csrc/enc_stem.cu, enc_pass.cu, enc_point.cu)",
         env_var="RAFT_FUSED_ENCODERS",
         matchers=("enc_stem", "enc_pass", "enc_point", "fused_encoders"),
+        plain_route=True,
+    ),
+    FastPath(
+        # Last: classify() reaches it only after every other rung. The
+        # serial kernels fail as "CUDA kernel conv_gru ..." / "CUDA kernel
+        # motion ...", which no earlier rung's matchers name.
+        name="fused_update",
+        description="the refinement loop's kernels: serial ConvGRU and "
+                    "motion encoder (csrc/conv_gru.cu, motion.cu) -> the "
+                    "torch loop (cfg.fused_update)",
+        cfg_field="fused_update",
+        cfg_fallback=False,
+        matchers=("kernel conv_gru", "kernel motion", "fused_update"),
         plain_route=True,
     ),
 )

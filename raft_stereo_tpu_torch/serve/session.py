@@ -472,7 +472,7 @@ _SESSION_COUNTERS = {
 
 # Config fields that leave the weights as they are: a session may serve a
 # model under values of these other than its own.
-_WEIGHT_FREE = ("corr_implementation", "mixed_precision", "slow_fast_gru")
+_WEIGHT_FREE = ("corr_implementation", "mixed_precision", "slow_fast_gru", "fused_update")
 
 # Every serving program kind, the JAX package's list.
 PROGRAM_KINDS = ("full", "prepare", "prepare_warm", "segment", "advance", "epilogue")
@@ -1371,6 +1371,7 @@ class InferenceSession:
         dev = prog.device
         stream = self._stream if dev == self.device else self._streams[str(dev)]
         with torch.cuda.device(dev):
+            # graftlint: disable=GC203 (capture precondition, once a program: the card idle)
             torch.cuda.synchronize(dev)
             start = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1380,6 +1381,7 @@ class InferenceSession:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 prog.fn(*prog.static_in)  # warm-up: kernels built, attributes set
+            # graftlint: disable=GC203 (capture precondition, once a program: warm-up done)
             torch.cuda.synchronize(dev)
             # torch.cuda.graph empties the allocator's cache as it opens;
             # done here first, the reserved bytes it adds are the graph's

@@ -8,6 +8,10 @@
   reference registers it twice. This is the inverse of the JAX package's
   checkpoint transplant, written against the reference layout so the port
   imports nothing from the JAX package.
+- :func:`sep_conv_gru_from_jax` and :func:`bottleneck_block_from_jax` do
+  the same for the two reference modules the stereo model does not use
+  (``SepConvGRU``, ``BottleneckBlock``), so both packages run them on the
+  same weights.
 - :func:`load_state_dict` loads a reference state dict strictly, after
   stripping the ``module.`` prefix the reference's DataParallel checkpoints
   carry; :func:`load_pth` reads a ``.pth`` file first.
@@ -97,6 +101,30 @@ def params_from_jax(np_params: Mapping, cfg: RAFTStereoConfig) -> StateDict:
         fnet = np_params["fnet"]
         _trunk(out, "fnet", fnet, "instance", ("layer1", "layer2", "layer3"))
         _conv(out, "fnet.conv2", fnet["conv2"])
+    return out
+
+
+def sep_conv_gru_from_jax(np_params: Mapping) -> StateDict:
+    """The JAX package's ``init_sep_conv_gru`` tree (numpy leaves) -> a
+    ``SepConvGRU`` state dict."""
+    out: StateDict = {}
+    for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2"):
+        _conv(out, name, np_params[name])
+    return out
+
+
+def bottleneck_block_from_jax(np_params: Mapping, norm_fn: str) -> StateDict:
+    """The JAX package's ``init_bottleneck_block`` tree (numpy leaves) -> a
+    ``BottleneckBlock`` state dict; a strided block's shortcut norm under
+    both ``downsample.1`` and ``norm4``, as the reference registers it."""
+    out: StateDict = {}
+    for i in (1, 2, 3):
+        _conv(out, f"conv{i}", np_params[f"conv{i}"])
+        _norm(out, f"norm{i}", np_params[f"norm{i}"], norm_fn)
+    if "downsample" in np_params:
+        _conv(out, "downsample.0", np_params["downsample"]["conv"])
+        _norm(out, "downsample.1", np_params["downsample"]["norm"], norm_fn)
+        _norm(out, "norm4", np_params["downsample"]["norm"], norm_fn)
     return out
 
 

@@ -2,7 +2,7 @@
 the JAX package's checkers on the same fixture sources, the torch forms of
 GL005 and GL006, the switch-helper resolution, the CLI's exit codes, and
 the port's own tree (zero unsuppressed findings; the graftlock comments
-left alone until that stage is ported).
+left to the concurrency stage, ``tests/test_torch_concurrency_analysis.py``).
 
 Stdlib AST only on these paths: no torch program runs here.
 """
@@ -186,11 +186,27 @@ def test_cli_usage_errors_exit_like_the_jax_cli(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--concurrency"], ["--concurrency", "--write-manifest"]])
-def test_cli_refuses_the_unported_concurrency_stage(argv, capsys):
-    # graftlock is a later slice: its flags are refused, never read as clean.
-    with pytest.raises(SystemExit) as e:
-        cli_main(argv)
-    assert e.value.code == 2
+def test_cli_refuses_the_unported_concurrency_stage(argv, capsys, tmp_path):
+    # The flags were refused while graftlock was unported; now they run the
+    # stage: over the port against its own manifest (exit 0), and with
+    # --write-manifest over a fixture tree, whose manifest it writes there.
+    if "--write-manifest" in argv:
+        write_tree(tmp_path, {"locks.py": """
+            import threading
+
+            LOCK_A = threading.Lock()
+            LOCK_B = threading.Lock()
+
+            def ab():
+                with LOCK_A:
+                    with LOCK_B:
+                        pass
+        """})
+        assert cli_main(argv + [str(tmp_path)]) == 0
+        assert "`locks.py::LOCK_A` -> `locks.py::LOCK_B`" in \
+            (tmp_path / "LOCK_ORDER.md").read_text()
+    else:
+        assert cli_main(argv) == 0
     capsys.readouterr()
 
 
@@ -423,7 +439,7 @@ def test_the_graftlock_comments_are_neither_findings_nor_applied(port_report):
     files = collect_files([str(PORT)], base=str(REPO))
     gc = [(sf.relpath, line) for sf in files for line, sup in sf.suppressions.items()
           if all(c.startswith("GC") for c in sup.codes)]
-    assert len(gc) == 8 and all(sup.reason for sf in files
+    assert len(gc) == 21 and all(sup.reason for sf in files
                                 for sup in sf.suppressions.values())
     assert not any(f.code.startswith("GC") for f in port_report.suppressed)
     assert not any(f.path == p and f.line == ln for f in port_report.findings
@@ -442,8 +458,10 @@ def test_every_kernel_launch_module_is_registered():
                n.func.value.id == "kernels" for n in ast.walk(tree)):
             launching.add(path.relative_to(PORT).as_posix())
     assert launching == set(knobs.KERNEL_ENTRY_POINTS)
-    stream = knobs.KERNEL_ENTRY_POINTS["ops/stream.py"]
-    assert dict(stream.exempt_sites).keys() == {"conv_gru", "motion"}
+    # No launch site is exempt: the fused_update rung covers the serial loop.
+    assert not any(e.exempt_sites for e in knobs.KERNEL_ENTRY_POINTS.values())
+    for mod in ("ops/stream.py", "ops/resident.py"):
+        assert "fused_update" in knobs.KERNEL_ENTRY_POINTS[mod].rungs
 
 
 def test_cli_over_the_port_exits_zero(capsys):

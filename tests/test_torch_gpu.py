@@ -1738,13 +1738,14 @@ def test_gpu_kernels_read_nothing_past_their_inputs(cuda):
 
 @pytest.mark.gpu
 def test_gpu_headline_ladder_programs_differ_in_their_launches(cuda):
-    """The breaker ladder's eight headline programs (untripped from the
+    """The breaker ladder's nine headline programs (untripped from the
     armed base, then each rung on top of the ones before), recorded on the
     card: pairwise different in their kernel launches (by kernel and
     variant: the int8 rungs change variants), so each rung changes what the
-    card runs. The fully tripped program still launches the serial loop's
-    ConvGRU and motion kernels: no rung covers them (their exemption in
-    analysis/knobs.py)."""
+    card runs. The program above the bottom still launches the serial
+    loop's ConvGRU and motion kernels; the fully tripped one (fused_update
+    too) launches no hand-written kernel, as the JAX package's last ladder
+    program runs none."""
     from raft_stereo_tpu_torch.analysis.trace import TraceContext, default_registry
     registry = default_registry("headline")
     ctx = TraceContext(registry)
@@ -1753,8 +1754,27 @@ def test_gpu_headline_ladder_programs_differ_in_their_launches(cuda):
         rec = ctx.recording(entry)
         assert rec is not None, (label, ctx.trace_errors())
         launches.append(tuple(sorted(rec.launches(variants=True).items())))
-    assert len(launches) == 8
-    assert len(set(launches)) == 8, launches
-    last = dict(launches[-1])
-    assert last.get("motion") and last.get("conv_gru:gru08"), last
-    assert not any(k.startswith(("fused_iter", "gru1632", "corr_", "enc_")) for k in last)
+    assert len(launches) == 9
+    assert len(set(launches)) == 9, launches
+    serial = dict(launches[-2])
+    assert serial.get("motion") and serial.get("conv_gru:gru08"), serial
+    assert not any(k.startswith(("fused_iter", "gru1632", "corr_", "enc_")) for k in serial)
+    assert launches[-1] == (), launches[-1]
+
+
+@pytest.mark.gpu
+def test_gpu_lock_witness_explains_every_lock_edge(cuda):
+    """chip_smoke.py phase 14: the card's serving stack (CUDA-graph
+    programs, the scheduler, streams, the cache, the HTTP frontend, a
+    build failure that trips fuse_iter, a hang the supervisor bounces)
+    driven in a child process under graftlock's runtime witness: no
+    observed lock edge outside the port's static graph, at least
+    WITNESS_MIN_MAPPED mapped, every module-level lock seen, and the first
+    response bit for bit the same request served without the witness."""
+    import chip_smoke
+    line = chip_smoke.phase_lock_witness("test")
+    assert line["unexplained"] == []
+    assert line["edges_mapped"] >= chip_smoke.WITNESS_MIN_MAPPED
+    assert line["first_bitwise_without_witness"]
+    assert all(line["module_locks_seen"].values())
+    assert line["trips"] == ["fuse_iter"] and line["bounced"] == ["device_hang"]

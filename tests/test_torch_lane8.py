@@ -448,12 +448,15 @@ def test_bf16_forward_lane8_matches_jax(rng, monkeypatch, lane8):
         assert torch.equal(a, b)
 
 
-def test_bf16_forward_matches_jax_at_8_iterations(rng, monkeypatch, tmp_path):
+@pytest.mark.parametrize("fused_update", [True, False], ids=["loop_kernels", "torch_loop"])
+def test_bf16_forward_matches_jax_at_8_iterations(rng, monkeypatch, tmp_path, fused_update):
     """reg_cuda in bf16 with the switch off, the default loop (gru16+32 and
     the resident iteration) and the serial loop, LONG_ITERS iterations,
     against JAX's forward with reg_tpu and its loop kernels (the encoder
     kernels off, as in the JAX_ITERS case) in a process of its own with
-    XLA's excess precision off: the canary band."""
+    XLA's excess precision off: the canary band. With ``fused_update``
+    off (the breaker ladder's bottom rung) both packages run the loop
+    plain, and the port stays in the same band."""
     import os
     import pickle
     import subprocess
@@ -461,8 +464,10 @@ def test_bf16_forward_matches_jax_at_8_iterations(rng, monkeypatch, tmp_path):
     for knob in ("RAFT_FUSE_GRU1632", "RAFT_FUSE_ITER", "RAFT_LANE_PACK8"):
         monkeypatch.delenv(knob, raising=False)
     model, params, jcfg = seeded_pair(dict(KW, corr_implementation="reg_cuda"), seed=4)
+    model.cfg.fused_update = fused_update
+    assert model.cfg.loop_kernels(test_mode=True) is fused_update
     i1, i2 = _images(rng)
-    jcfg = dataclasses.replace(jcfg, corr_implementation="reg_tpu", fused_update=True)
+    jcfg = dataclasses.replace(jcfg, corr_implementation="reg_tpu", fused_update=fused_update)
     path = tmp_path / "jax_case.pkl"
     with open(path, "wb") as f:
         pickle.dump((jax.tree_util.tree_map(np.asarray, params), jcfg, i1, i2, LONG_ITERS), f)

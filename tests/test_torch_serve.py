@@ -21,6 +21,7 @@ wrapper on its plain version. Every fault is injected through a
   ground rules, "Tolerances": summation order only).
 """
 
+import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -56,7 +57,7 @@ H, W = 40, 60  # not multiples of 32: bucketing must pad
 # The port's ladder: the JAX package's rungs whose switch the port has, in
 # its order; stream_batch, packed_l2 and fused_update have no counterpart.
 LADDER_NAMES = ("fuse_iter", "lane_pack8", "corr_pack8", "fuse_gru1632", "stream_tail",
-                "corr_kernel", "fused_encoders")
+                "corr_kernel", "fused_encoders", "fused_update")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -369,13 +370,17 @@ def test_capture_gate_runs_a_capture_alone():
 def test_port_ladder_is_pinned():
     """The port keeps the JAX rungs whose switch it has, in the JAX order,
     and drops stream_batch (a TPU batch policy: the port's loop kernels
-    engage at every batch, and its fallback would be plain PyTorch),
-    packed_l2 (a TPU layout) and fused_update (no such config field)."""
+    engage at every batch, and its fallback would be plain PyTorch) and
+    packed_l2 (a TPU layout). Its bottom rung is the JAX package's,
+    fused_update, a config field of both."""
     from raft_stereo_tpu.serve.guard import DEFAULT_LADDER as JAX_LADDER
     jax_names = [p.name for p in JAX_LADDER]
     assert tuple(p.name for p in DEFAULT_LADDER) == LADDER_NAMES
     assert [n for n in jax_names if n in LADDER_NAMES] == list(LADDER_NAMES)
-    assert set(jax_names) - set(LADDER_NAMES) == {"stream_batch", "packed_l2", "fused_update"}
+    assert set(jax_names) - set(LADDER_NAMES) == {"stream_batch", "packed_l2"}
+    assert jax_names[-1] == LADDER_NAMES[-1] == "fused_update"
+    bottom = DEFAULT_LADDER[-1]
+    assert (bottom.cfg_field, bottom.cfg_fallback) == ("fused_update", False)
     for p in DEFAULT_LADDER:
         assert p.env_var is None or p.env_var in ENV_KNOBS
 
@@ -391,6 +396,7 @@ def test_breaker_walks_ladder_to_bottom_rung(tiny_model, pair):
     assert res.quality == "full" and res.tripped == LADDER_NAMES
     assert sess.breaker.tripped_names == LADDER_NAMES and sess.breaker.exhausted
     assert sess._run_cfg.corr_implementation == "reg"
+    assert sess._run_cfg.fused_update is False
     assert sess._env == {k: "0" for k in ("RAFT_FUSE_ITER", "RAFT_LANE_PACK8",
                                           "RAFT_CORR_PACK8", "RAFT_FUSE_GRU1632",
                                           "RAFT_STREAM_TAIL", "RAFT_FUSED_ENCODERS")}
@@ -402,9 +408,10 @@ def test_breaker_walks_ladder_to_bottom_rung(tiny_model, pair):
 
 
 def test_bottom_rung_still_runs_the_serial_loop_kernels(tiny_model, pair, monkeypatch):
-    """A route difference from the JAX package (no fused_update rung): at
-    the bottom rung the bf16 loop still goes through the serial loop
-    kernels' wrappers (conv_gru.cu, motion.cu on the card)."""
+    """Down to the rung above the bottom the bf16 loop goes through the
+    serial loop kernels' wrappers (conv_gru.cu, motion.cu on the card);
+    the bottom rung, fused_update, runs the torch loop and calls neither,
+    as the JAX package's last ladder program runs no kernel."""
     calls = {"conv_gru": 0, "motion": 0}
     for name, fn in (("conv_gru", stream.fused_conv_gru), ("motion", stream.fused_motion)):
         def counting(*a, _fn=fn, _name=name, **k):
@@ -414,12 +421,35 @@ def test_bottom_rung_still_runs_the_serial_loop_kernels(tiny_model, pair, monkey
     cfg = RAFTStereoConfig(**{**TINY, "corr_implementation": "reg_cuda",
                               "mixed_precision": True})
     sess = make_session(tiny_model, cfg)
-    for name in LADDER_NAMES:
+    for name in LADDER_NAMES[:-1]:
         sess.breaker.trip(name, "manual")
     sess._rebuild("test")
     res = sess.infer(*pair)
     assert res.quality == "full" and np.isfinite(res.disparity).all()
     assert calls["conv_gru"] == 4 and calls["motion"] == 4
+    sess.breaker.trip("fused_update", "manual")
+    sess._rebuild("test")
+    res = sess.infer(*pair)
+    assert res.quality == "full" and np.isfinite(res.disparity).all()
+    assert calls["conv_gru"] == 4 and calls["motion"] == 4
+
+
+def test_fused_update_trip_turns_the_loop_kernels_off(tiny_model):
+    """The bottom rung rewrites the config's ``fused_update`` (the JAX
+    package's field and default), and a config without it takes the loop
+    off the kernels in test mode and in training alike."""
+    cfg = RAFTStereoConfig(**{**TINY, "mixed_precision": True, "fused_train": True})
+    assert cfg.fused_update and cfg.loop_kernels(test_mode=True)
+    assert cfg.loop_kernels(test_mode=False)
+    breaker = KernelCircuitBreaker()
+    breaker.trip("fused_update", "manual")
+    run_cfg, env = breaker.apply(cfg)
+    assert run_cfg.fused_update is False and env == {}
+    assert not run_cfg.loop_kernels(test_mode=True)
+    assert not run_cfg.loop_kernels(test_mode=False)
+    assert dataclasses.replace(run_cfg, fused_update=True) == cfg
+    # A session may serve a model under either value: the field moves no weight.
+    make_session(tiny_model, dataclasses.replace(tiny_model.cfg, fused_update=False))
 
 
 @pytest.mark.parametrize("msg,rung", [
@@ -433,9 +463,9 @@ def test_bottom_rung_still_runs_the_serial_loop_kernels(tiny_model, pair, monkey
     ("injected [lane_pack8]", "lane_pack8"),
     ("injected [corr_pack8]", "corr_pack8"),
     ("injected [stream_tail]", "stream_tail"),
-    # no rung of their own: the first untripped rung in ladder order
-    ("CUDA kernel conv_gru failed to launch: cudaError_t 1", "fuse_iter"),
-    ("CUDA kernel motion failed to launch: cudaError_t 1", "fuse_iter"),
+    # the serial loop kernels: the bottom rung, named by its matchers
+    ("CUDA kernel conv_gru failed to launch: cudaError_t 1", "fused_update"),
+    ("CUDA kernel motion failed to launch: cudaError_t 1", "fused_update"),
 ])
 def test_matcher_targets_rung_by_port_names(msg, rung):
     assert KernelCircuitBreaker().classify(RuntimeError(msg)).name == rung
@@ -468,7 +498,7 @@ def test_launch_failure_walks_to_its_rung(tiny_model, tiny_cfg, pair, monkeypatc
 
 def test_unclassified_kernel_failure_falls_to_next_in_order():
     breaker = KernelCircuitBreaker()
-    generic = RuntimeError("CUDA kernel motion failed to launch: cudaError_t 1")
+    generic = RuntimeError("kernel build failed: nvcc exit 1")
     walked = []
     for _ in LADDER_NAMES:
         path = breaker.classify(generic)
@@ -480,7 +510,7 @@ def test_unclassified_kernel_failure_falls_to_next_in_order():
 
 # The card's breaker (kernels_only): the rungs whose fallback is plain
 # PyTorch are never tripped there.
-PLAIN_RUNGS = ("stream_tail", "corr_kernel", "fused_encoders")
+PLAIN_RUNGS = ("stream_tail", "corr_kernel", "fused_encoders", "fused_update")
 KERNEL_RUNGS = tuple(n for n in LADDER_NAMES if n not in PLAIN_RUNGS)
 
 

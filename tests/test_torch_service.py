@@ -37,7 +37,7 @@ pytestmark = pytest.mark.serve
 TINY = dict(n_gru_layers=1, hidden_dims=(32, 32, 32), corr_levels=2, corr_radius=2)
 H, W = 40, 60  # not multiples of 32: every request really is padded
 LADDER_NAMES = ("fuse_iter", "lane_pack8", "corr_pack8", "fuse_gru1632", "stream_tail",
-                "corr_kernel", "fused_encoders")
+                "corr_kernel", "fused_encoders", "fused_update")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,5 @@
+"""``gru1632_roofline`` in the served cells, where it moves ``served_fps``."""
+
+from portbench.spec import metric_reader
+
+read = metric_reader("gru1632_roofline")

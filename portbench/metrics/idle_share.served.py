@@ -1,0 +1,5 @@
+"""``idle_share`` in the served cells, where it moves ``served_fps``."""
+
+from portbench.spec import metric_reader
+
+read = metric_reader("idle_share")

@@ -56,7 +56,6 @@ SERVE_ENV_KNOBS: Tuple[str, ...] = (
 HOST_ENV_KNOBS: Tuple[str, ...] = (
     "RAFT_TRACE",           # request-trace JSONL sink (obs/tracing.py)
     "RAFT_PROFILE_DIR",     # torch.profiler window output (obs/profiler.py)
-    "RAFT_TRAJECTORY",      # perf-trajectory file (obs/trajectory.py)
     "RAFT_FLIGHT_DIR",      # SLO flight records (obs/flight.py)
     "RAFT_LEDGER",          # program-ledger dump target (obs/ledger.py)
     "RAFT_DECK_TICKS",      # tick-deck ring depth (obs/deck.py)

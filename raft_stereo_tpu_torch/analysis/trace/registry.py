@@ -69,7 +69,7 @@ TRAIN_GEOMETRY = dict(h=64, w=96, batch=1, iters=2)
 
 #: Where the refinement loop is, for GV101: the function holding it and
 #: the fp32 accumulator it updates.
-LOOP = ("raft_stereo_tpu_torch.models.raft_stereo", "raft_stereo_segment_carry",
+LOOP = ("raft_stereo_tpu_torch.models.raft_stereo", "_segment_carry",
         "coords1")
 
 #: Modules whose ``*_plain`` functions stand where a hand-written kernel

@@ -239,7 +239,6 @@ def main(argv=None) -> None:
     from raft_stereo_tpu_torch import kernels
     from raft_stereo_tpu_torch.obs.ledger import ProgramLedger, analyze_program, chip_peaks
     from raft_stereo_tpu_torch.obs.profiler import profile_device_seconds
-    from raft_stereo_tpu_torch.obs.trajectory import emit
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -335,11 +334,6 @@ def main(argv=None) -> None:
         "lane_dma": lane_doc,
     }
     print(json.dumps(doc))
-    emit(doc["metric"], fps, "frames/s", backend=device.type,
-         source="raft_stereo_tpu_torch.bench",
-         extra={"mfu": doc["mfu"], "device_s": doc["device_s"], "flops": flops,
-                "bytes": row.bytes_accessed, "roofline": doc["roofline"],
-                "corr_dma": corr_doc, "lane_dma": lane_doc})
 
 
 if __name__ == "__main__":

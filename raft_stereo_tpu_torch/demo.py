@@ -28,6 +28,7 @@ from raft_stereo_tpu_torch.config import (
     RAFTStereoConfig, add_model_args, resolve_device, with_eval_precision)
 from raft_stereo_tpu_torch.data.frame_utils import read_image_rgb
 from raft_stereo_tpu_torch.models import RAFTStereo, raft_stereo_forward
+from raft_stereo_tpu_torch.obs.tracing import stage
 from raft_stereo_tpu_torch.ops.padder import InputPadder
 
 
@@ -74,14 +75,17 @@ def infer_pair(model: RAFTStereo, image1, image2, *, iters: int = 32,
                bucket: int = 32) -> torch.Tensor:
     """Positive disparity (H, W) fp32 for one pair of (1, H, W, 3) images
     in [0, 255], on the model's device. The pair is edge-padded to a
-    multiple of ``bucket`` and the result cropped back."""
+    multiple of ``bucket`` and the result cropped back (the profiler
+    ranges ``raft.pad`` and ``raft.unpad``, around the forward's own)."""
     dev = next(model.parameters()).device
     image1 = torch.as_tensor(image1, dtype=torch.float32, device=dev)
     image2 = torch.as_tensor(image2, dtype=torch.float32, device=dev)
     padder = InputPadder(image1.shape, divis_by=32, bucket=bucket)
-    image1, image2 = padder.pad(image1, image2)
+    with stage("pad"):
+        image1, image2 = padder.pad(image1, image2)
     _, flow_up = raft_stereo_forward(model, image1, image2, iters=iters)
-    return -padder.unpad(flow_up)[0, ..., 0]
+    with stage("unpad"):
+        return -padder.unpad(flow_up)[0, ..., 0]
 
 
 def disparities(args):

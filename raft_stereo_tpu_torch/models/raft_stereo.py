@@ -86,6 +86,7 @@ from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quan
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import Conv2d, ResidualBlock, init_weights
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.obs.tracing import stage
 from raft_stereo_tpu_torch.ops.coords import coords_grid
 from raft_stereo_tpu_torch.ops.encoder import head_conv_q8_streamable, stream_head_conv_q8
 from raft_stereo_tpu_torch.ops.upsample import convex_upsample
@@ -193,15 +194,17 @@ def raft_stereo_prepare(model: RAFTStereo, image1: torch.Tensor, image2: torch.T
     ``flow_init`` seeds ``coords1 = coords0 + flow_init``. Under
     ``RAFT_LANE_PACK8`` each ``inp`` level (all 3ch channels) and the two
     fmaps are int8 containers. With ``space`` the carry holds this rank's
-    rows (``flow_init`` too), never packed."""
-    pack = lane_pack8_on() and space is None
-    net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack, space)
-    b, h, w, _ = fmap1.shape
-    coords1 = coords_grid(b, h, w, device=fmap1.device).clone()
-    if flow_init is not None:
-        coords1 = coords1 + flow_init
-    if pack:
-        fmap1, fmap2 = quantize_feature8(fmap1), quantize_feature8(fmap2)
+    rows (``flow_init`` too), never packed. A ``raft.encode`` profiler
+    range."""
+    with stage("encode"):
+        pack = lane_pack8_on() and space is None
+        net, inp, fmap1, fmap2 = _context_and_features(model, image1, image2, pack, space)
+        b, h, w, _ = fmap1.shape
+        coords1 = coords_grid(b, h, w, device=fmap1.device).clone()
+        if flow_init is not None:
+            coords1 = coords1 + flow_init
+        if pack:
+            fmap1, fmap2 = quantize_feature8(fmap1), quantize_feature8(fmap2)
     return {"net": net, "inp": inp, "fmap1": fmap1, "fmap2": fmap2,
             "coords1": coords1}
 
@@ -213,7 +216,15 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
     dnorm)``, where ``dnorm`` (B,) fp32 is the mean per-iteration |delta x|
     over the segment (over the whole height under ``space``). ``warm_start``
     keeps the motion encoder off the kernels (the motion kernel and the
-    resident iteration), as a caller-supplied flow_init requires."""
+    resident iteration), as a caller-supplied flow_init requires. The
+    correlation volume and the iterations are a ``raft.loop`` profiler
+    range."""
+    with stage("loop"):
+        return _segment_carry(model, state, iters=iters, warm_start=warm_start, space=space)
+
+
+def _segment_carry(model: RAFTStereo, state: dict, *, iters: int, warm_start: bool,
+                   space):
     cfg = model.cfg
     dt = cfg.compute_dtype
     ub = model.update_block
@@ -270,13 +281,15 @@ def raft_stereo_segment_carry(model: RAFTStereo, state: dict, *, iters: int,
 @torch.no_grad()
 def raft_stereo_epilogue(model: RAFTStereo, state: dict, space=None):
     """Mask head and convex upsample of the x channel, in fp32, from a
-    carry. Returns ``(flow_low, flow_up)``."""
-    coords1 = state["coords1"]
-    b, h, w = coords1.shape[:3]
-    flow_low = coords1 - coords_grid(b, h, w, device=coords1.device)
-    up_mask = model.update_block.mask_head(state["net"][0], space)
-    flow_up = convex_upsample(flow_low[..., :1].float(), up_mask.float(),
-                              model.cfg.downsample_factor, space)
+    carry. Returns ``(flow_low, flow_up)``. A ``raft.epilogue`` profiler
+    range."""
+    with stage("epilogue"):
+        coords1 = state["coords1"]
+        b, h, w = coords1.shape[:3]
+        flow_low = coords1 - coords_grid(b, h, w, device=coords1.device)
+        up_mask = model.update_block.mask_head(state["net"][0], space)
+        flow_up = convex_upsample(flow_low[..., :1].float(), up_mask.float(),
+                                  model.cfg.downsample_factor, space)
     return flow_low, flow_up
 
 

@@ -7,8 +7,6 @@ and the serving session read:
   (``RAFT_PROFILE_DIR``) and the device seconds of a trace;
 - :mod:`~raft_stereo_tpu_torch.obs.ledger`: the per-program cost and memory
   ledger, the chip peak tables and the ``report`` CLI;
-- :mod:`~raft_stereo_tpu_torch.obs.trajectory`: the perf trajectory file and
-  its bands (``RAFT_TRAJECTORY``);
 - :mod:`~raft_stereo_tpu_torch.obs.tracing`: per-request span timelines
   (``RAFT_TRACE``);
 - :mod:`~raft_stereo_tpu_torch.obs.flight`: the SLO flight recorder
@@ -19,9 +17,9 @@ and the serving session read:
   :mod:`~raft_stereo_tpu_torch.obs.capacity`: per-tenant usage and the
   capacity and saturation model.
 
-``ledger``, ``trajectory`` and ``deck`` are ``python -m`` entry points, so
-they are not imported here (runpy warns about a module already in
-``sys.modules``): import them by module path.
+``ledger`` and ``deck`` are ``python -m`` entry points, so they are not
+imported here (runpy warns about a module already in ``sys.modules``):
+import them by module path.
 """
 
 from raft_stereo_tpu_torch.obs.flight import FlightRecorder

@@ -5,7 +5,10 @@
 from ``RAFT_PROFILE_DIR`` (read at construction, never at import) or an
 argument; with neither the window is disabled and ``start()`` is a counted
 no-op. Windows are serialized (``start`` while one is open is refused) and
-counted; each closed window writes a Chrome trace into the directory.
+counted; each closed window writes a Chrome trace into the directory. A
+window records every thread of the process (the serving session's worker,
+scheduler and uploader threads open their ``raft.*`` ranges,
+``obs/tracing.py``, outside the thread that opened the window).
 
 :func:`device_seconds` reads a profile's device activity (kernels, copies
 and fills on the card) as the union of their intervals: time in which the
@@ -47,12 +50,14 @@ class ProfilerWindow:
     def start(self) -> bool:
         """Open a capture window. Returns False (and counts the refusal)
         when disabled or already open; never raises at the operator."""
+        import torch
         from torch.profiler import profile
         with self._lock:
             if self.out_dir is None or self._prof is not None:
                 self._refused += 1
                 return False
-            self._prof = profile(activities=_activities())
+            every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+            self._prof = profile(activities=_activities(), experimental_config=every_thread)
             try:
                 self._prof.start()
             except Exception:

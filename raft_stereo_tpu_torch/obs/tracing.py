@@ -1,13 +1,16 @@
 """Structured request tracing: where did this request's deadline go?
 
 A copy of the JAX package's ``obs/tracing.py``, with ``RealClock`` from the
-port's :mod:`raft_stereo_tpu_torch.faults`.
+port's :mod:`raft_stereo_tpu_torch.faults`, the profiler ranges and the
+clock pair below.
 
 Every admitted request gets a trace id and a :class:`RequestTrace` — an
 ordered span timeline recorded host-side at **program boundaries only**
-(admission, queue wait, upload, prepare, each advance tick, epilogue,
-unpad, plus degrade/breaker decision events).  Spans never reach inside a
-compiled program: the trace reads the session clock around device calls,
+(validate, admission, queue wait, pad, upload, prepare, each advance tick,
+epilogue, unpad, plus degrade/breaker decision events; a program span
+carries its copy-in, replay and copy-out times as attributes).  Spans never
+reach inside a compiled program: the trace reads the session clock around
+device calls,
 so GV103 (no host callbacks in traced programs) stays clean by
 construction and the tracer costs nothing on the device.
 
@@ -23,15 +26,32 @@ Two recording targets, both bounded:
 
 Span accounting is split into **tiling** spans and **concurrent** spans.
 Tiling spans advance the trace cursor and partition the request's wall
-time (queue_wait → prepare → advance… → epilogue → unpad), so their
-summed durations reconcile with the reported end-to-end latency — exactly
-(FakeClock) or up to scheduler-loop slack (RealClock).  Concurrent spans
+time (validate → admission → queue_wait → pad → prepare → advance… →
+epilogue → unpad), so their summed durations reconcile with the reported
+end-to-end latency — exactly (FakeClock) or up to scheduler-loop slack
+(RealClock).  Concurrent spans
 (the background upload that overlaps a running segment) and zero-duration
 events (breaker trips, degrade decisions) are recorded in the timeline
 but excluded from the reconciliation sum.
 
 The clock is injected (``faults.RealClock``/``FakeClock``), so span
 arithmetic in tests is deterministic and instantaneous.
+
+**Profiler ranges.** :func:`stage` opens a ``raft.<name>`` range of
+``torch.profiler`` around a stage of the program while a profiler is
+collecting, and does nothing else when none is (one flag read). Each span
+opened with :meth:`RequestTrace.span` is such a stage, and the serving path
+wraps the stages inside its spans (``raft.validate``, ``raft.pad``,
+``raft.copy_in``, ``raft.replay``, ``raft.copy_out``, ``raft.upload``,
+``raft.tick``), as the model wraps its own (``raft.encode``,
+``raft.loop``, ``raft.epilogue``). A range's first recorded input is the
+request's trace number (``req-000017`` gives 17), or the scheduler tick's
+``seq`` for the work of a batched call; the profiler keeps it when it
+records shapes (``record_shapes=True``). A request's timeline ends with
+``clock``: the session clock and the epoch clock (``time.time_ns()``,
+which the profiler's events are on) read back to back when the trace
+finishes (:func:`_clock_pair`), so a span's ``t0`` lies at ``epoch_ns +
+(t0 - monotonic) * 1e9`` on the profiler's timeline.
 """
 
 from __future__ import annotations
@@ -40,7 +60,9 @@ import contextlib
 import json
 import logging
 import os
+import sys
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -51,6 +73,72 @@ logger = logging.getLogger(__name__)
 #: Default ring depth: enough recent timelines to debug a live incident,
 #: bounded regardless of traffic.
 DEFAULT_RING = 256
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` is collecting (in any thread): the
+    Python flag the profiler sets, read without importing torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _range_id(trace, tick: Optional[int]) -> Optional[int]:
+    if tick is not None:
+        return int(tick)
+    trace_id = getattr(trace, "trace_id", None)
+    if isinstance(trace_id, str) and trace_id.startswith("req-"):
+        return int(trace_id[4:])
+    return None
+
+
+def _clock_pair(clock) -> Dict:
+    """The session clock read between two reads of the epoch clock, the
+    tightest of three tries: a thread switch between the reads would
+    shift every span of the timeline on the profiler's clock."""
+    best = None
+    for _ in range(3):
+        e0 = time.time_ns()
+        m = clock.now()
+        e1 = time.time_ns()
+        if best is None or e1 - e0 < best[0]:
+            best = (e1 - e0, m, (e0 + e1) // 2)
+    return {"monotonic": best[1], "epoch_ns": best[2]}
+
+
+class stage:
+    """``torch.profiler`` range ``raft.<name>`` around a block while a
+    profiler is collecting; nothing but one flag read when none is. The
+    range's input is the trace number of ``trace`` (a
+    :class:`RequestTrace`), or ``tick`` (a scheduler tick's seq) when given.
+    No range is opened while the current CUDA stream is being captured into
+    a graph."""
+
+    __slots__ = ("name", "trace", "tick", "_handle")
+
+    def __init__(self, name: str, trace=None, tick: Optional[int] = None):
+        self.name = name
+        self.trace = trace
+        self.tick = tick
+        self._handle = None
+
+    def __enter__(self) -> "stage":
+        if not _profiling():
+            return self
+        import torch
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return self
+        ident = _range_id(self.trace, self.tick)
+        args = () if ident is None else (ident,)
+        self._handle = torch.autograd._record_function_with_args_enter(
+            f"raft.{self.name}", *args)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._handle is not None:
+            import torch
+            torch.autograd._record_function_with_args_exit(self._handle)
+            self._handle = None
+        return False
 
 
 class Span:
@@ -92,7 +180,7 @@ class RequestTrace:
     """
 
     __slots__ = ("trace_id", "request_id", "t_start", "t_end", "spans",
-                 "meta", "_clock", "_tracer", "_cursor", "_done")
+                 "meta", "clock_pair", "_clock", "_tracer", "_cursor", "_done")
 
     def __init__(self, tracer: "Tracer", trace_id: str,
                  request_id, t_start: float):
@@ -102,6 +190,7 @@ class RequestTrace:
         self.t_end: Optional[float] = None
         self.spans: List[Span] = []
         self.meta: Dict = {}
+        self.clock_pair: Optional[Dict] = None
         self._clock = tracer.clock
         self._tracer = tracer
         self._cursor = t_start
@@ -118,12 +207,14 @@ class RequestTrace:
 
     @contextlib.contextmanager
     def span(self, kind: str, **attrs):
-        """Tiling span around a code block (device call, unpad, ...)."""
-        t0 = self._clock.now()
-        try:
-            yield self
-        finally:
-            self.add_span(kind, t0, self._clock.now(), **attrs)
+        """Tiling span around a code block (pad, unpad, ...), and its
+        ``raft.<kind>`` profiler range (:func:`stage`)."""
+        with stage(kind, self):
+            t0 = self._clock.now()
+            try:
+                yield self
+            finally:
+                self.add_span(kind, t0, self._clock.now(), **attrs)
 
     def add_span(self, kind: str, t0: float, t1: float,
                  concurrent: bool = False, **attrs) -> None:
@@ -145,6 +236,7 @@ class RequestTrace:
             return
         self._done = True
         self.t_end = self._clock.now()
+        self.clock_pair = _clock_pair(self._clock)
         self.meta["status"] = status
         self.meta.update({k: v for k, v in meta.items() if v is not None})
         self._tracer._record(self)
@@ -174,7 +266,8 @@ class RequestTrace:
                              if self.t_end is not None else None),
                 "meta": dict(self.meta),
                 "spans": [s.to_dict() for s in self.spans],
-                "summary": self.summary()}
+                "summary": self.summary(),
+                "clock": self.clock_pair}
 
 
 class _NullTrace:
@@ -192,7 +285,8 @@ class _NullTrace:
 
     @contextlib.contextmanager
     def span(self, kind: str, **attrs):
-        yield self
+        with stage(kind):
+            yield self
 
     def add_span(self, kind: str, t0: float, t1: float,
                  concurrent: bool = False, **attrs) -> None:

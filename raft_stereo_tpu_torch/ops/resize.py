@@ -36,12 +36,16 @@ def _lerp_index(in_size: int, out_size: int, device: torch.device):
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _lerp_matrix(in_size: int, out_size: int, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     """(out, in) aligned-corners lerp matrix, rounded to ``dtype`` and held
     in fp32. Cached: it depends only on its arguments, the refinement loop
     asks for the same four every iteration, and building one takes some
-    forty small launches on a GPU. Callers only read it."""
+    forty small launches on a GPU. Callers only read it. The cached tensors
+    are built outside inference mode: one made under ``inference_mode`` (an
+    eager forward) could not be saved for a later backward in the same
+    process."""
     lo, hi, wt = _lerp_index(in_size, out_size, device)
     m = torch.zeros(out_size, in_size, dtype=torch.float32, device=device)
     rows = torch.arange(out_size, device=device)
@@ -51,6 +55,7 @@ def _lerp_matrix(in_size: int, out_size: int, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def lerp_taps(in_size: int, out_size: int, dtype: torch.dtype,
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two nonzeros of each row of :func:`_lerp_matrix`: ``(idx, wt)``,
@@ -83,6 +88,7 @@ def halo_rows(in_size: int, out_size: int, ns: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _shard_matrix(in_size: int, out_size: int, ns: int, s: int, k: int, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """Shard ``s``'s block of :func:`_lerp_matrix`: its output rows over

@@ -93,7 +93,8 @@ def _run_segmented(session, padder: InputPadder, left: np.ndarray,
     out of budget. The first segment always runs."""
     segments, m = _segment_plan(session)
     ph, pw = padder.padded_shape
-    lp, rp = padder.pad_np(left, right)
+    with trace.span("pad"):
+        lp, rp = padder.pad_np(left, right)
 
     prep = session.get_program("prepare", ph, pw, 0)
     (state,) = session.invoke(prep, lp, rp, trace=trace)

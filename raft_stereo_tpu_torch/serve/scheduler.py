@@ -72,7 +72,7 @@ import torch
 from raft_stereo_tpu_torch.models.raft_stereo import (carry_rows, stack_refinement_states,
                                                       take_refinement_rows)
 from raft_stereo_tpu_torch.obs.ledger import ledger_id
-from raft_stereo_tpu_torch.obs.tracing import NULL_TRACE
+from raft_stereo_tpu_torch.obs.tracing import NULL_TRACE, stage
 from raft_stereo_tpu_torch.obs.usage import sanitize_tenant
 from raft_stereo_tpu_torch.serve.degrade import SAFETY
 from raft_stereo_tpu_torch.serve.session import (InferenceFailed, InferenceSession,
@@ -195,10 +195,11 @@ class _Uploader:
     """Background host->device transfer: pads and uploads a joiner's image
     pair while the current segment executes on device, so a join costs the
     batch a carry concat, not a host round trip. On the card the copies run
-    on the uploader's own stream (:func:`_upload`). Each upload lands in
-    the row's trace as a CONCURRENT span — visible in the timeline,
-    excluded from the tiled latency partition (it overlaps a running
-    segment by design).
+    on the uploader's own stream (:func:`_upload`). The pad and the upload
+    land in the row's trace as CONCURRENT spans (``pad``, ``upload``) —
+    visible in the timeline, excluded from the tiled latency partition
+    (they overlap a running segment by design) — and as the profiler
+    ranges ``raft.pad`` and ``raft.upload``.
 
     Crash-proofing (graftguard, DESIGN.md r13): a per-row transfer
     failure was always surfaced on that row, but a crash in the loop
@@ -263,10 +264,13 @@ class _Uploader:
                 self.busy_since = self._clock.now()
                 if self._faults is not None:
                     self._faults.on_upload()
-                t0 = self._clock.now()
+                t0 = t_up = self._clock.now()
                 try:
-                    lp, rp = row.padder.pad_np(row.request["left"],
-                                               row.request["right"])
+                    with stage("pad", row.trace):
+                        lp, rp = row.padder.pad_np(row.request["left"],
+                                                   row.request["right"])
+                    t_up = self._clock.now()
+                    row.trace.add_span("pad", t0, t_up, concurrent=True)
                     session = self._session
                     if self._stream is None and session.device.type == "cuda":
                         with session.device_ops():
@@ -277,12 +281,13 @@ class _Uploader:
                         # bucket shape (only a matching field is handed
                         # out), copied beside the pair.
                         arrays += (np.asarray(row.flow_init, np.float32),)
-                    tensors, row.dev_event = _upload(session, self._stream, arrays)
+                    with stage("upload", row.trace):
+                        tensors, row.dev_event = _upload(session, self._stream, arrays)
                     row.dev_pair = tensors[:2]
                     row.dev_flow = tensors[2] if len(tensors) > 2 else None
                 except Exception as e:  # noqa: BLE001 — surfaced per-row
                     row.upload_error = e
-                row.trace.add_span("upload", t0, self._clock.now(),
+                row.trace.add_span("upload", t_up, self._clock.now(),
                                    concurrent=True)
                 row.uploaded.set()
                 self.busy_since = None
@@ -443,7 +448,8 @@ class BatchScheduler:
             tick.cache_hits = self.cache.hits_cumulative
         t0 = time.perf_counter()
         try:
-            self._tick_bucket(bucket, tick)
+            with stage("tick", tick=tick.seq):
+                self._tick_bucket(bucket, tick)
         except Exception as e:  # noqa: BLE001 — the crash-proof boundary
             logger.exception("tick failed for bucket %s", bucket.key)
             self._fail_bucket(bucket, e)
@@ -552,9 +558,11 @@ class BatchScheduler:
                 # Rider binding (obs/usage.py): the group's tenant labels
                 # ride this device call, and invoke splits its device
                 # seconds across them.
+                split = {}
                 with session.usage_riders([r.tenant_label for r in group]):
                     (state_g,) = self._device_call(
-                        kind, ph, pw, 0, bb, *args, traces=[r.trace for r in group])
+                        kind, ph, pw, 0, bb, *args, traces=[r.trace for r in group],
+                        stages=split)
                 if self.defunct:
                     return  # retired mid-prepare: harvest() took the
                     #         joining rows; this result is discarded.
@@ -564,7 +572,7 @@ class BatchScheduler:
                 prep_id = session.ledger_key_id(kind, ph, pw, 0, b=bb)
                 for r in group:  # one device interval, fanned per rider
                     r.trace.add_span(kind, p0, p1, batch=len(group),
-                                     program=prep_id, tick=tick.seq)
+                                     program=prep_id, tick=tick.seq, **split)
                 if pad:
                     with session.device_ops():
                         state_g = take_refinement_rows(state_g, range(len(group)))
@@ -616,10 +624,11 @@ class BatchScheduler:
                     bucket.carry, list(range(n)) + [0] * (bb - n))
         adv_key = session.cache_key("advance", ph, pw, m_iters, b=bb)
         a0 = clock.now()
+        split = {}
         with session.usage_riders([r.tenant_label for r in rows]):
             state, _rowsum, dnorm = self._device_call(
                 "advance", ph, pw, m_iters, bb, bucket.carry,
-                traces=[r.trace for r in rows])
+                traces=[r.trace for r in rows], stages=split)
         if self.defunct:
             return  # retired mid-advance: harvest() owns these rows
         a1 = clock.now()
@@ -634,7 +643,7 @@ class BatchScheduler:
             row.iters_done += m_iters
             row.trace.add_span("advance", a0, a1, iters=m_iters,
                                occupancy=n, batch=bb, program=adv_id,
-                               tick=tick.seq)
+                               tick=tick.seq, **split)
         self.registry.counter(
             "raft_sched_occupancy_total",
             "ticks by live-row occupancy", rows=str(n)).inc()
@@ -686,10 +695,11 @@ class BatchScheduler:
             ex_state = take_refinement_rows(
                 bucket.carry, exits + [exits[0]] * (eb - len(exits)))
         e0 = clock.now()
+        split = {}
         with session.usage_riders([rows[i].tenant_label for i in exits]):
             flow_up, flow_low = self._device_call(
                 "epilogue", ph, pw, 0, eb, ex_state,
-                traces=[rows[i].trace for i in exits])
+                traces=[rows[i].trace for i in exits], stages=split)
         if self.defunct:
             return  # retired mid-epilogue: harvest() owns these rows
         e1 = clock.now()
@@ -697,7 +707,7 @@ class BatchScheduler:
         for i in exits:
             rows[i].trace.add_span("epilogue", e0, e1,
                                    batch=len(exits),
-                                   program=epi_id, tick=tick.seq)
+                                   program=epi_id, tick=tick.seq, **split)
         now = clock.now()
         for j, i in enumerate(exits):
             request = rows[i].request
@@ -729,16 +739,17 @@ class BatchScheduler:
     # -- device calls with breaker retry ----------------------------------
 
     def _device_call(self, kind: str, ph: int, pw: int, iters: int,
-                     b: int, *args, traces=()):
+                     b: int, *args, traces=(), stages=None):
         """get_program + invoke, walking the breaker ladder on classified
         kernel failures exactly like the sequential path (the carry is
         plain data — it composes with a rebuilt rung's programs).
         ``traces``: timelines of every request riding this call — a trip
         becomes a decision event on each (the span itself is fanned out by
-        the caller, which knows the per-phase interval). The session's
-        one recovery step decides: a sticky CUDA error or a failed capture
-        ends the call in a structured error, and on the card a failure
-        whose rung would leave the hand-written kernels is
+        the caller, which knows the per-phase interval, with the call's
+        copy-in, replay and copy-out split that ``stages`` receives). The
+        session's one recovery step decides: a sticky CUDA error or a
+        failed capture ends the call in a structured error, and on the card
+        a failure whose rung would leave the hand-written kernels is
         ``kernel_failed``; :meth:`run_tick` then fails every row of the
         bucket with that code."""
         session = self.session
@@ -746,7 +757,7 @@ class BatchScheduler:
         for _ in range(len(session.breaker.ladder) + 1):
             try:
                 prog = session.get_program(kind, ph, pw, iters, b=b)
-                return session.invoke(prog, *args)
+                return session.invoke(prog, *args, stages=stages)
             except Exception as e:  # noqa: BLE001 — _handle_failure filters
                 last = e
                 session._handle_failure(e, traces=traces)

@@ -554,9 +554,10 @@ class StereoService:
             trace = self.tracer.start_request(request.get("id"))
             request["_trace"] = trace
         try:
-            request["left"], request["right"] = validate_pair(
-                request["left"], request["right"],
-                self.session.cfg.admission)
+            with trace.span("validate"):
+                request["left"], request["right"] = validate_pair(
+                    request["left"], request["right"],
+                    self.session.cfg.admission)
         except InputRejected as e:
             trace.mark("admission", rejected=e.code)
             return _reject(f"invalid_input:{e.code}", str(e))

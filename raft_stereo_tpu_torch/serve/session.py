@@ -116,7 +116,7 @@ from raft_stereo_tpu_torch.obs.ledger import (ProgramLedger, count_flops, hbm_ca
                                               ledger_id, program_twin)
 from raft_stereo_tpu_torch.obs.metrics import MetricsRegistry
 from raft_stereo_tpu_torch.obs.profiler import ProfilerWindow
-from raft_stereo_tpu_torch.obs.tracing import NULL_TRACE, Tracer
+from raft_stereo_tpu_torch.obs.tracing import NULL_TRACE, Tracer, stage
 from raft_stereo_tpu_torch.obs.usage import DEFAULT_TENANT, UsageAccountant
 from raft_stereo_tpu_torch.ops.padder import InputPadder
 from raft_stereo_tpu_torch.serve import degrade
@@ -1435,28 +1435,46 @@ class InferenceSession:
                 per_arg.append(shard_rows(a, devices, k))
         return [tuple(p[i] for p in per_arg) for i in range(len(devices))]
 
-    def _run(self, prog: _Program, args) -> Tuple[tuple, float]:
+    def _run(self, prog: _Program, args,
+             trace=NULL_TRACE) -> Tuple[tuple, float, Dict[str, float]]:
         """One call of ``prog``: (outputs, the session-clock time its inputs
-        were in and its work dispatched). A mesh program runs as its shards
-        (a program off the mesh as itself): every part's copy in and replay
-        (eager on the CPU) is issued before any part's outputs are fetched,
-        and the outputs are joined in part order. Each part holds its
-        device's gate only for its own copy in and replay and for its own
-        copy out, so a call that never comes back holds up one device."""
+        were in and its work dispatched, its split: the session-clock ms of
+        its stages ``copy_in_ms``, ``replay_ms``, ``copy_out_ms`` and the
+        bytes copied in ``copy_in_bytes``). A mesh program runs as its
+        shards (a program off the mesh as itself): every part's copy in and
+        replay (eager on the CPU: the inputs made tensors, then the call) is
+        issued before any part's outputs are fetched, and the outputs are
+        joined in part order. Each part holds its device's gate only for its own copy in
+        and replay and for its own copy out, so a call that never comes
+        back holds up one device. Each stage is a ``raft.*`` profiler range
+        (:func:`~raft_stereo_tpu_torch.obs.tracing.stage`) of ``trace``, or
+        of the scheduler tick open on this thread."""
         parts = prog.shards or (prog,)
         with self.device_ops():
             part_args = self._shard_args(prog, args)
         sharded = prog.shards is not None
+        clock = self.clock
+        tick = None if trace is not NULL_TRACE else getattr(self.deck.current(), "seq", None)
+        split = {"copy_in_ms": 0.0, "replay_ms": 0.0, "copy_out_ms": 0.0,
+                 "copy_in_bytes": float(sum(_nbytes(a) for pa in part_args for a in pa))}
         if not self._graphs:
             with prog.lock:
                 if not prog.warmed:
                     self._record(prog, {"flops": self._twin_flops(prog)})
                 with _ENV_LOCK, _env_overrides(prog.env):
-                    raws = [p.fn(*[_as_input(a) for a in pa])
-                            for p, pa in zip(parts, part_args)]
-                    t_disp = self.clock.now()
+                    t0 = clock.now()
+                    with stage("copy_in", trace, tick):
+                        inputs = [[_as_input(a) for a in pa] for pa in part_args]
+                    t1 = clock.now()
+                    with stage("replay", trace, tick):
+                        raws = [p.fn(*ins) for p, ins in zip(parts, inputs)]
+                    t_disp = clock.now()
                 prog.warmed = True
-            return _join_shards([_fetch(r, clone=False) for r in raws], sharded), t_disp
+            with stage("copy_out", trace, tick):
+                outs = [_fetch(r, clone=False) for r in raws]
+            split.update(copy_in_ms=(t1 - t0) * 1e3, replay_ms=(t_disp - t1) * 1e3,
+                         copy_out_ms=(clock.now() - t_disp) * 1e3)
+            return _join_shards(outs, sharded), t_disp, split
         with prog.lock:
             fresh = [i for i, p in enumerate(parts) if p.graph is None]
             if fresh:
@@ -1473,21 +1491,33 @@ class InferenceSession:
                                     **{k: sum(s[k] for s in stats) for k in stats[0]}})
             for i, (p, pa) in enumerate(zip(parts, part_args)):
                 with _gate(p.device).shared(), torch.cuda.device(p.device):
+                    t0 = clock.now()
                     if i not in fresh:
-                        p.copy_in(pa)  # a capture copied its first inputs in
-                    p.replay()
-            t_disp = self.clock.now()
+                        with stage("copy_in", trace, tick):
+                            p.copy_in(pa)  # a capture copied its first inputs in
+                    t1 = clock.now()
+                    with stage("replay", trace, tick):
+                        p.replay()
+                    split["copy_in_ms"] += (t1 - t0) * 1e3
+                    split["replay_ms"] += (clock.now() - t1) * 1e3
+            t_disp = clock.now()
             outs = []
-            for p in parts:
-                with _gate(p.device).shared(), torch.cuda.device(p.device):
-                    outs.append(p.copy_out())
+            with stage("copy_out", trace, tick):
+                for p in parts:
+                    with _gate(p.device).shared(), torch.cuda.device(p.device):
+                        outs.append(p.copy_out())
+            split["copy_out_ms"] = (clock.now() - t_disp) * 1e3
             prog.warmed = True
-        return _join_shards(outs, sharded), t_disp
+        return _join_shards(outs, sharded), t_disp, split
 
-    def invoke(self, prog: _Program, *args, trace=NULL_TRACE) -> tuple:
+    def invoke(self, prog: _Program, *args, trace=NULL_TRACE,
+               stages: Optional[Dict[str, float]] = None) -> tuple:
         """Run a cached program and fetch its results: arrays to the host,
         carries on the device. The first call builds it (a capture on the
-        card). ``trace`` gets one span per call, named by program kind."""
+        card). ``trace`` gets one span per call, named by program kind,
+        whose attributes ``copy_in_ms``, ``replay_ms``, ``copy_out_ms`` and
+        ``copy_in_bytes`` split the call (the same go into ``stages``, when
+        given, for a caller that fans the span out itself)."""
         if self._fatal is not None:
             raise InferenceFailed(*self._fatal)
         was_warm = prog.warmed
@@ -1497,7 +1527,7 @@ class InferenceSession:
                                  est=self.estimate(prog.key))
         try:
             self.faults.on_invoke()
-            out, t_disp = self._run(prog, args)
+            out, t_disp, split = self._run(prog, args, trace)
         except Exception as e:
             if not hasattr(e, "_raft_phase"):
                 setattr(e, "_raft_phase", "runtime_failure")
@@ -1510,6 +1540,8 @@ class InferenceSession:
         t_end = self.clock.now()  # includes any injected device time
         host_s = max(0.0, t_disp - t0)
         device_s = max(0.0, t_end - t_disp)
+        if stages is not None:
+            stages.update(split)
         _, b_key, h_key, w_key = prog.key[:4]
         # The chips this call spanned, from the program's own key (a
         # quarantine since it was built does not relabel it); its device
@@ -1539,7 +1571,7 @@ class InferenceSession:
             tick_seq = self.deck.note_invocation(
                 kind=prog.kind, program=prog.ledger_id, b=b_key, h=h_key, w=w_key, t0=t0,
                 t1=t_end, host_s=host_s, device_s=device_s, warming=False, chips=chips)
-            attrs = {"program": prog.ledger_id}
+            attrs = {"program": prog.ledger_id, **split}
             if tick_seq is not None:
                 attrs["tick"] = tick_seq
             trace.add_span(prog.kind, t0, t_end, **attrs)
@@ -1550,7 +1582,7 @@ class InferenceSession:
             self.deck.note_invocation(
                 kind=prog.kind, program=prog.ledger_id, b=b_key, h=h_key, w=w_key, t0=t0,
                 t1=t_end, host_s=host_s, device_s=device_s, warming=True, chips=chips)
-            trace.add_span(prog.kind, t0, t_end, warming=True, program=prog.ledger_id)
+            trace.add_span(prog.kind, t0, t_end, warming=True, program=prog.ledger_id, **split)
         if self.faults.poisoned(ordinal):
             flow_i = {"full": 0, "segment": 1, "epilogue": 0}.get(prog.kind)
             if flow_i is not None:
@@ -1659,7 +1691,8 @@ class InferenceSession:
         """Single-loop forward on the padded bucket; returns the padded
         flow (1, H, W, 1)."""
         iters = iters if iters is not None else self.cfg.valid_iters
-        lp, rp = padder.pad_np(left, right)
+        with trace.span("pad"):
+            lp, rp = padder.pad_np(left, right)
         ph, pw = padder.padded_shape
         prog = self.get_program("full", ph, pw, iters, cfg, env)
         flow_up, _checksum = self.invoke(prog, lp, rp, trace=trace)

@@ -460,7 +460,8 @@ def _attempt(session, padder, left, right, *, flow_init, converge_tol, deadline,
     segments = session.cfg.segments
     m = session.cfg.valid_iters // segments
     ph, pw = padder.padded_shape
-    lp, rp = padder.pad_np(left, right)
+    with trace.span("pad"):
+        lp, rp = padder.pad_np(left, right)
 
     warm = _flow_matches(flow_init, session, ph, pw)
     if warm:

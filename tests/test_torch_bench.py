@@ -6,8 +6,7 @@ on the CPU at a tiny size.
   ``unit == "frames/s"``, ``value > 0``, a ``cpu`` metric name (with the
   architecture in it when overridden), flops counted, and every device
   number absent (``device_s``, ``mfu``, ``roofline``, ``peak_hbm_bytes``:
-  never computed against a made-up peak); the trajectory entry is
-  ``cpu:``-namespaced.
+  never computed against a made-up peak).
 - The CLI in a subprocess: ``--device cpu`` prints exactly one JSON line;
   without it, on a host without CUDA, it exits non-zero.
 - Checksum pins: a bare run writes no pin file, ``RAFT_BENCH_AUTOPIN=1``
@@ -40,11 +39,10 @@ KEYS = {"metric", "value", "unit", "vs_baseline", "checksum", "sum_abs", "device
 
 @pytest.fixture(autouse=True)
 def _bench_env(monkeypatch, tmp_path):
-    """Tiny sizes, a scratch pin file, no pin or trajectory switches."""
+    """Tiny sizes, a scratch pin file, no pin switches."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
-    for knob in ("RAFT_BENCH_AUTOPIN", "RAFT_BENCH_REBASELINE", "RAFT_TRAJECTORY",
-                 "RAFT_BENCH_TRACE", *REALTIME):
+    for knob in ("RAFT_BENCH_AUTOPIN", "RAFT_BENCH_REBASELINE", "RAFT_BENCH_TRACE", *REALTIME):
         monkeypatch.delenv(knob, raising=False)
     for k, v in TINY.items():
         monkeypatch.setenv(k, v)
@@ -61,7 +59,6 @@ def _json_lines(text: str) -> list:
 def test_bench_main_on_cpu(capsys, monkeypatch, tmp_path, arch):
     for k, v in arch.items():
         monkeypatch.setenv(k, v)
-    monkeypatch.setenv("RAFT_TRAJECTORY", str(tmp_path / "TRAJECTORY.json"))
     bench.main(["--device", "cpu"])
     out = capsys.readouterr()
     lines = _json_lines(out.out)
@@ -78,9 +75,6 @@ def test_bench_main_on_cpu(capsys, monkeypatch, tmp_path, arch):
     assert not (tmp_path / "pins.json").exists()  # a bare run never writes
     assert "no pinned checksum for cpu:64x128_i2_reg_cuda_bf16_b1" + (suffix or "_sh0_d2_g3_sf0") \
         in out.err
-    entry, = json.loads((tmp_path / "TRAJECTORY.json").read_text())["entries"]
-    assert entry["metric"] == "cpu:" + doc["metric"]
-    assert entry["source"] == "raft_stereo_tpu_torch.bench" and entry["backend"] == "cpu"
 
 
 def _cli(*args, **env):

@@ -352,7 +352,7 @@ def test_port_imports_with_jax_blocked():
             "raft_stereo_tpu_torch.ops.stream, raft_stereo_tpu_torch.ops.resident, "
             "raft_stereo_tpu_torch.ops.encoder, raft_stereo_tpu_torch.kernels, "
             "raft_stereo_tpu_torch.bench, raft_stereo_tpu_torch.obs.ledger, "
-            "raft_stereo_tpu_torch.obs.trajectory, raft_stereo_tpu_torch.obs.profiler, "
+            "raft_stereo_tpu_torch.obs.profiler, "
             "raft_stereo_tpu_torch.faults, raft_stereo_tpu_torch.analysis.knobs, "
             "raft_stereo_tpu_torch.serve, raft_stereo_tpu_torch.serve.session, "
             "raft_stereo_tpu_torch.serve.degrade, raft_stereo_tpu_torch.serve.heal, "

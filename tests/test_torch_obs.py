@@ -1,5 +1,5 @@
-"""The port's ``obs/`` package on the CPU: the ledger, the profiler window
-and the trajectory file.
+"""The port's ``obs/`` package on the CPU: the ledger and the profiler
+window.
 
 - Ledger: the H100 peaks by device name (the PCIe card apart, the CPU off
   the table), rows' estimates and absent fields, the MFU join that never
@@ -11,8 +11,6 @@ and the trajectory file.
   XLA elementwise operations too).
 - Profiler: the window's guarded toggle, Chrome traces written, and the
   device seconds as the union of intervals.
-- Trajectory: the JAX package's trajectory cases of ``tests/test_obs.py``
-  that need no serving session, against the port's copy.
 """
 
 import json
@@ -33,7 +31,6 @@ from raft_stereo_tpu_torch import RAFTStereoConfig
 from raft_stereo_tpu_torch.bench import plain_twin
 from raft_stereo_tpu_torch.obs import ledger as lg
 from raft_stereo_tpu_torch.obs import profiler as pf
-from raft_stereo_tpu_torch.obs import trajectory as tj
 from raft_stereo_tpu_torch.obs.metrics import MetricsRegistry
 
 
@@ -191,110 +188,3 @@ def test_device_seconds_is_the_union_of_intervals():
     assert pf.busy_seconds([(30.0, 35.0), (0.0, 40.0)]) == pytest.approx(40e-6)
     assert pf.busy_seconds([]) == 0.0
     assert pf.profile_device_seconds(lambda: torch.ones(8) + 1) is None  # no device events
-
-
-# ---------------------------------------------------------------------------
-# Trajectory (the JAX package's cases, against the port's copy).
-
-
-def test_trajectory_emit_namespaces_and_appends(tmp_path):
-    path = str(tmp_path / "traj.json")
-    tj.emit("m1", 10.0, "requests/s", backend="cpu", path=path)
-    tj.emit("m2", 1.0, "frames/s", backend="tpu", path=path)
-    tj.emit("m3", 2.0, "frames/s", backend="cuda", path=path, source="s", extra={"mfu": 0.2})
-    doc = tj.load(path)
-    assert [e["metric"] for e in doc["entries"]] == ["cpu:m1", "m2", "cuda:m3"]
-    assert doc["entries"][2]["source"] == "s" and doc["entries"][2]["extra"] == {"mfu": 0.2}
-
-
-def test_trajectory_emit_noop_without_target(monkeypatch):
-    monkeypatch.delenv("RAFT_TRAJECTORY", raising=False)
-    assert tj.emit("m", 1.0, "u") is None
-
-
-def test_trajectory_check_bands():
-    doc = {"schema": 1, "entries": [
-        {"metric": "rps", "value": 8.0, "unit": "requests/s"},
-        {"metric": "unpinned", "value": 1.0, "unit": "x"}]}
-    bands = {"schema": 1, "bands": {"rps": {"value": 10.0, "rel_band": 0.2}}}
-    res = tj.check(doc, bands)
-    assert res.ok and res.checked == 1 and res.unpinned == ["unpinned"]
-    doc["entries"][0]["value"] = 7.9
-    res = tj.check(doc, bands)
-    assert not res.ok and "rps" in res.failures[0]
-    doc["entries"][0]["value"] = 13.0
-    res = tj.check(doc, bands)
-    assert res.ok and res.notes
-
-
-def test_trajectory_min_only_band_and_malformed_band():
-    doc = {"schema": 1, "entries": [{"metric": "m", "value": 5.0, "unit": "x"}]}
-    bands = {"schema": 1, "bands": {"m": {"min": 1.0}}}
-    res = tj.check(doc, bands)
-    assert res.ok and res.checked == 1 and not res.notes
-    doc["entries"][0]["value"] = 0.5
-    res = tj.check(doc, bands)
-    assert not res.ok and "explicit min" in res.failures[0]
-    with pytest.raises(tj.TrajectoryError):
-        tj.check(doc, {"schema": 1, "bands": {"m": {"rel_band": 0.2}}})
-
-
-def test_trajectory_autopin_never_overwrites_and_skips_namespaced():
-    doc = {"schema": 1, "entries": [
-        {"metric": "a", "value": 5.0, "unit": "x"},
-        {"metric": "b", "value": 2.0, "unit": "x"},
-        {"metric": "cpu:c", "value": 9.0, "unit": "x"},
-        {"metric": "cuda:d", "value": 3.0, "unit": "x"}]}
-    bands = {"schema": 1, "bands": {"a": {"value": 4.0, "rel_band": 0.2}}}
-    assert tj.autopin(doc, bands) == ["b"]
-    assert bands["bands"]["a"]["value"] == 4.0 and bands["bands"]["b"]["value"] == 2.0
-
-
-def test_trajectory_autopin_pins_diagnostic_extras():
-    doc = {"schema": 1, "entries": [
-        {"metric": "fps", "value": 5.0, "unit": "frames/s",
-         "extra": {"flops": 100.0, "mfu": 0.3, "note": "text"}}]}
-    bands = {"schema": 1, "bands": {}}
-    assert tj.autopin(doc, bands) == ["fps"]
-    assert bands["bands"]["fps"]["extra"] == {"flops": 100.0, "mfu": 0.3}
-
-
-def test_trajectory_failure_diagnosis_lines():
-    bands = {"schema": 1, "bands": {
-        "fps": {"value": 10.0, "rel_band": 0.2, "extra": {"flops": 100.0}}}}
-
-    def fail_with(extra):
-        entry = {"metric": "fps", "value": 5.0, "unit": "frames/s"}
-        if extra is not None:
-            entry["extra"] = extra
-        res = tj.check({"schema": 1, "entries": [entry]}, bands)
-        assert not res.ok
-        return res.failures[0]
-
-    assert "program flops changed" in fail_with({"flops": 150.0})
-    assert "machine/env drift" in fail_with({"flops": 100.0})
-    assert "machine/env drift" in fail_with({"flops": 101.0})
-    assert "no pinned flops extra" in fail_with(None)
-
-
-def test_trajectory_cli_gates_warns_and_refuses_malformed(tmp_path, capsys):
-    """The gate's exit codes in process, and once through ``python -m``."""
-    traj, bands = tmp_path / "TRAJECTORY.json", tmp_path / "bands.json"
-    traj.write_text(json.dumps({"schema": 1, "entries": [
-        {"metric": "serve_rps", "value": 3.0, "unit": "requests/s"}]}))
-    bands.write_text(json.dumps({"schema": 1, "bands": {
-        "serve_rps": {"value": 10.0, "rel_band": 0.2}}}))
-    res = subprocess.run([sys.executable, "-m", "raft_stereo_tpu_torch.obs.trajectory", "check",
-                          str(traj), "--bands", str(bands)],
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 1 and "below the pinned floor" in res.stdout, res.stdout
-    traj.write_text(json.dumps({"schema": 1, "entries": [
-        {"metric": "serve_rps", "value": 9.5, "unit": "requests/s"}]}))
-    assert tj.main(["check", str(traj), "--bands", str(bands)]) == 0
-    capsys.readouterr()
-    assert tj.main(["check", str(traj), "--bands", str(tmp_path / "missing.json")]) == 0
-    assert "0 bands pinned — gate is vacuous" in capsys.readouterr().out
-    assert tj.main(["show", str(traj)]) == 0
-    assert "serve_rps: 9.5" in capsys.readouterr().out
-    traj.write_text("{not json")
-    assert tj.main(["check", str(traj), "--bands", str(bands)]) == 2

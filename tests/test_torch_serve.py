@@ -606,7 +606,7 @@ def test_capture_failure_is_structured_without_retry(tiny_model, tiny_cfg, pair,
                                                      monkeypatch):
     sess = make_session(tiny_model, tiny_cfg)
 
-    def run(prog, args):
+    def run(prog, args, trace=None):
         exc = RuntimeError("operation not permitted when stream is capturing")
         exc._raft_phase = "capture_failure"
         raise exc

@@ -71,7 +71,10 @@ Phases, each fatal on failure:
    seed, through the demo's inference function at 32 iterations, with the
    launch counts set to 0 before each path and read after it:
    - the default path, three random 375x1242 pairs: 32 fused_iter and 32
-     gru1632 launches a frame, none of the serial kernels, and the context
+     gru1632 launches a frame, each gru1632 also building gru08's upsampled
+     input (32 ``gru1632:up08`` a frame, on every three-level path that
+     runs gru1632; 32 of 64 under slow-fast), none of the serial kernels,
+     and the context
      net's encoder kernels (1 stem, 14 passes, 1 point3, 4 point2; the
      feature net runs its two images as one batch here and stays plain);
    - the serial loop (RAFT_FUSE_ITER=0 RAFT_FUSE_GRU1632=0) on the first
@@ -144,7 +147,8 @@ Phases, each fatal on failure:
    four rows by hand at b=4 against each row beside replicas of itself, bit
    for bit; each batched program's captured launches (prepare at b: b
    stems, 14b passes, b point3, 4b point2; advance over one segment: a
-   fused_iter and a gru1632 an iteration, no serial kernel; epilogue none)
+   fused_iter and a gru1632 an iteration, each ``gru1632:up08``, no serial
+   kernel; epilogue none)
    and a profiled advance replay's kernels; each batched program's device
    ms by kernel, the carry's copy in and out of the advance graph at b=1
    and b=4, frames/s and p50/p95 request ms from 8 closed-loop clients (32
@@ -389,6 +393,11 @@ ENC_RT = _by_kernel(VAR_RT)  # 6 passes, 2 point2
 # net fuses there) and the realtime model (2 gru16 steps and 1 resident
 # iteration an iteration, no gru16+32).
 LOOP = {"fused_iter": ITERS, "gru1632": ITERS}
+# The gru16+32 launches that also build gru08's upsampled input (its sixth
+# stage), by variant: every one of a three-level frame's gru16+32 launches on
+# the default loop and on the plain step (alt_cuda, RAFT_FUSE_ITER=0), and
+# under slow-fast the 32 of 64 that precede gru08.
+UP08 = {"gru1632:up08": ITERS}
 MIDDLEBURY_LAUNCHES = {**LOOP, **ENC_MIDDLEBURY}
 RT_LAUNCHES = {"conv_gru:gru16": 2 * RT_ITERS, "fused_iter": RT_ITERS, **ENC_RT}
 # Encoder maps on the two main paths: (H, W) of the padded frame, of layer2
@@ -887,10 +896,15 @@ def check_gru1632(lane8: bool = False, headline: bool = False) -> dict:
     126x186, timed over 5 calls after 1). Tolerance as for the GRU kernel,
     2^-5 on both states; and bit for bit the serial CUDA chain (two GRU
     launches and the resize). With ``lane8`` on int8 czrq containers,
-    against the serial lane8 chain."""
+    against the serial lane8 chain. Beside it the launch that also builds
+    gru08's upsampled input (stage 6, the main path's launch): its device
+    ms (``up08_ms``), its map bit for bit interp_align_corners of its h16'
+    and its states the launch's without the stage (``up08_bitwise``), and
+    the device ms of the two einsums the stage replaces (``interp08_ms``)."""
     from raft_stereo_tpu_torch.models.layers import init_weights
     from raft_stereo_tpu_torch.models.update import ConvGRU
     from raft_stereo_tpu_torch.ops import stream
+    from raft_stereo_tpu_torch.ops.resize import interp_align_corners
     g = _gen(11)
     ch, bf = 128, torch.bfloat16
     fh, fw = ALT_HEADLINE_FEAT if headline else FEAT
@@ -914,10 +928,16 @@ def check_gru1632(lane8: bool = False, headline: bool = False) -> dict:
         got = stream.fused_gru1632(*args)
         ref = stream.gru1632_plain(*args)
         serial = _serial_gru1632(*args)
+        size08 = (2 * h16, 2 * w16)
+        got08 = stream.fused_gru1632(*args, size08=size08)
+        ref08 = interp_align_corners(got08[0], size08)
     torch.cuda.synchronize()
     tol = 2.0 ** -5
     err = max(_max_err(a, b) for a, b in zip(got, ref))
     bitwise = all(torch.equal(a, b) for a, b in zip(got, serial))
+    up08_bitwise = (torch.equal(got08[2], ref08)
+                    and all(torch.equal(a, b) for a, b in zip(got08[:2], got)))
+    del got08, ref08
     n16, n32 = h16 * w16, h32 * w32
     macs = n32 * _gru_macs(ch, ch) + n16 * _gru_macs(ch, 2 * ch)
     wbytes = 2 * (9 * (2 * ch) * 3 * ch + 9 * (3 * ch) * 3 * ch + 2 * 9 * ch * ch)
@@ -936,10 +956,22 @@ def check_gru1632(lane8: bool = False, headline: bool = False) -> dict:
         with torch.no_grad():
             _serial_gru1632(*args)
 
+    def kernel08():
+        with torch.no_grad():
+            stream.fused_gru1632(*args, size08=size08)
+
+    h16_new = got[0]
+
+    def interp08():
+        with torch.no_grad():
+            interp_align_corners(h16_new, size08)
+
     out = {"name": f"gru1632 {h16}x{w16}" if headline else "gru1632", "counter": "gru1632",
-           "tol": tol, "ok": err <= tol and bitwise,
+           "tol": tol, "ok": err <= tol and bitwise and up08_bitwise,
            "max_abs_err": err, "bitwise_equal_serial": bitwise,
            **_timings(kernel, plain, reps, warmup, own=OWN_KERNELS["gru1632"]),
+           "up08_ms": _device_ms(kernel08, reps, warmup), "up08_bitwise": up08_bitwise,
+           "interp08_ms": _device_ms(interp08, reps, warmup),
            "serial_ms": _device_ms(chain, reps, warmup), "bound_ms": bound_ms,
            "bound_by": bound_by,
            "shape": f"gru16 1x{h16}x{w16}, gru32 1x{h32}x{w32}, {ch} ch, bf16"
@@ -1936,8 +1968,8 @@ def _drive(model, pairs, want: dict, path: str, want_variants: dict,
            iters: int = ITERS) -> tuple:
     """The demo's inference over ``pairs`` at full width, ``iters``
     iterations, counts set to 0 just before and read just after; each frame
-    must launch exactly ``want``, the encoder kernels exactly
-    ``want_variants`` by variant."""
+    must launch exactly ``want``, and exactly ``want_variants`` by variant
+    (the encoder kernels', the int8 modes', gru16+32's stage 6)."""
     from raft_stereo_tpu_torch import kernels
     from raft_stereo_tpu_torch.demo import infer_pair
     torch.cuda.synchronize()
@@ -1964,7 +1996,7 @@ def _drive(model, pairs, want: dict, path: str, want_variants: dict,
         if counts != want:
             raise SystemExit(f"{path}: launches per frame {counts}, expected {want}")
         if by_variant != want_variants:
-            raise SystemExit(f"{path}: encoder launches per frame {by_variant}, "
+            raise SystemExit(f"{path}: launch variants per frame {by_variant}, "
                              f"expected {want_variants}")
         disps.append(disp)
     result = {"phase": "main_path", "path": path, "frames": len(pairs), "iters": iters,
@@ -2060,7 +2092,8 @@ def phase_main_path() -> dict:
               "conv_gru:gru16": ITERS, "conv_gru:gru32": ITERS}
     for knob in SWITCHES + ENCODER_SWITCHES:
         os.environ.pop(knob, None)
-    run_default, disp_default = _drive(model, pairs, {**loop, **ENC_KITTI}, "default", VAR_CNET)
+    run_default, disp_default = _drive(model, pairs, {**loop, **ENC_KITTI}, "default",
+                                       {**VAR_CNET, **UP08})
     run_serial, disp_serial = _with_env(
         dict.fromkeys(SWITCHES, "0"),
         lambda: _drive(model, pairs[:1], {**serial, **ENC_KITTI},
@@ -2069,19 +2102,20 @@ def phase_main_path() -> dict:
     _, disp_trunk = _with_env(
         {"RAFT_STREAM_TAIL": "0"},
         lambda: _drive(model, pairs[:1], {**loop, **ENC_TRUNK_ONLY},
-                       "trunk only (RAFT_STREAM_TAIL=0)", VAR_TRUNK_ONLY))
+                       "trunk only (RAFT_STREAM_TAIL=0)", {**VAR_TRUNK_ONLY, **UP08}))
     _disparity_band("trunk only vs default", "KITTI", disp_trunk[0], disp_default[0])
     run_plain, disp_plain = _with_env(
         {"RAFT_FUSED_ENCODERS": "0"},
-        lambda: _drive(model, pairs[:1], loop, "plain encoders (RAFT_FUSED_ENCODERS=0)", {}))
+        lambda: _drive(model, pairs[:1], loop, "plain encoders (RAFT_FUSED_ENCODERS=0)",
+                       UP08))
     _disparity_band("plain encoders vs default", "KITTI", disp_plain[0], disp_default[0])
     big = random_pairs(1, MIDDLEBURY_F, seed=12)
     headline, disp_big = _drive(model, big, MIDDLEBURY_LAUNCHES, "default, Middlebury-F",
-                                VAR_MIDDLEBURY)
+                                {**VAR_MIDDLEBURY, **UP08})
     headline_plain, disp_big_plain = _with_env(
         {"RAFT_FUSED_ENCODERS": "0"},
         lambda: _drive(model, big, loop,
-                       "plain encoders (RAFT_FUSED_ENCODERS=0), Middlebury-F", {}))
+                       "plain encoders (RAFT_FUSED_ENCODERS=0), Middlebury-F", UP08))
     _disparity_band("plain encoders vs default", "Middlebury-F", disp_big_plain[0], disp_big[0])
     del disp_big_plain
     runs = phase_corr_paths(model, pairs[0], big[0], disp_default[0], disp_big[0])
@@ -2129,7 +2163,7 @@ def phase_slow_fast(pair) -> dict:
     sf = {"conv_gru:gru32": ITERS, "gru1632": 2 * ITERS, "fused_iter": ITERS, **ENC_KITTI}
     sf_serial = {"corr_lookup": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS,
                  "conv_gru:gru16": 2 * ITERS, "conv_gru:gru32": 3 * ITERS, **ENC_KITTI}
-    run_sf, disp_sf = _drive(sf_model, [pair], sf, "slow-fast", VAR_CNET)
+    run_sf, disp_sf = _drive(sf_model, [pair], sf, "slow-fast", {**VAR_CNET, **UP08})
     run_sf_serial, disp_sf_serial = _with_env(
         dict.fromkeys(SWITCHES, "0"),
         lambda: _drive(sf_model, [pair], sf_serial,
@@ -2180,11 +2214,12 @@ def phase_corr_paths(model, pair, big, disp_reg, disp_reg_big) -> dict:
     loop = {"gru1632": ITERS}
     alt = {**loop, "corr_alt": ITERS, "motion": ITERS, "conv_gru:gru08": ITERS}
     alt_model = seeded_model("cuda", "alt_cuda")
-    run_alt, disp_alt = _drive(alt_model, [pair], {**alt, **ENC_KITTI}, "alt_cuda", VAR_CNET)
+    run_alt, disp_alt = _drive(alt_model, [pair], {**alt, **ENC_KITTI}, "alt_cuda",
+                               {**VAR_CNET, **UP08})
     _disparity_band("alt_cuda vs reg_cuda", "KITTI", disp_alt[0], disp_reg,
                     CORR_BANDS["alt_cuda", "KITTI"])
     run_alt_big, disp_alt_big = _drive(alt_model, [big], {**alt, **ENC_MIDDLEBURY},
-                                       "alt_cuda, Middlebury-F", VAR_MIDDLEBURY)
+                                       "alt_cuda, Middlebury-F", {**VAR_MIDDLEBURY, **UP08})
     _disparity_band("alt_cuda vs reg_cuda", "Middlebury-F", disp_alt_big[0], disp_reg_big,
                     CORR_BANDS["alt_cuda", "Middlebury-F"])
     del disp_alt_big
@@ -2197,13 +2232,13 @@ def phase_corr_paths(model, pair, big, disp_reg, disp_reg_big) -> dict:
         {"RAFT_CORR_PACK8": "1"},
         lambda: _drive(model, [pair], {**loop, "fused_iter": ITERS, **ENC_KITTI},
                        "pack8 (RAFT_CORR_PACK8=1)",
-                       {**VAR_CNET, "fused_iter:pack8": ITERS}))
+                       {**VAR_CNET, "fused_iter:pack8": ITERS, **UP08}))
     run_pack8_serial, disp_pack8_serial = _with_env(
         {"RAFT_CORR_PACK8": "1", "RAFT_FUSE_ITER": "0"},
         lambda: _drive(model, [pair], {**loop, "corr_lookup": ITERS, "motion": ITERS,
                                        "conv_gru:gru08": ITERS, **ENC_KITTI},
                        "pack8 serial (RAFT_CORR_PACK8=1 RAFT_FUSE_ITER=0)",
-                       {**VAR_CNET, "corr_lookup:pack8": ITERS}))
+                       {**VAR_CNET, "corr_lookup:pack8": ITERS, **UP08}))
     _same_bits("pack8_default_vs_serial", disp_pack8[0], disp_pack8_serial[0])
     _disparity_band("pack8 vs bf16", "KITTI", disp_pack8[0], disp_reg,
                     CORR_BANDS["pack8", "KITTI"])
@@ -2237,7 +2272,7 @@ def phase_lane_paths(model, pair, big, disp_reg, disp_reg_big, peak_reg_big) -> 
     enc_k = {**ENC_KITTI, "enc_pass": ENC_KITTI["enc_pass"] + q8[Q8_PASS]}
     enc_m = {**ENC_MIDDLEBURY, "enc_pass": ENC_MIDDLEBURY["enc_pass"] + q8[Q8_PASS]}
     loop = {"fused_iter": ITERS, "gru1632": ITERS}
-    loop_var = {"fused_iter:lane8": ITERS, "gru1632:lane8": ITERS}
+    loop_var = {"fused_iter:lane8": ITERS, "gru1632:lane8": ITERS, **UP08}
     levels = ("gru08", "gru16", "gru32")
     serial = {"corr_lookup": ITERS, "motion": ITERS, **{f"conv_gru:{lv}": ITERS for lv in levels}}
     serial_var = {f"conv_gru:{lv}:lane8": ITERS for lv in levels}
@@ -2733,8 +2768,9 @@ def _by_hand(sess, pairs, ph: int, pw: int) -> list:
 def _program_launches_checked(sess, ph: int, pw: int) -> dict:
     """Each batched program's captured launches, held to a frame's: prepare
     at b has b stems, 14b passes, b point3, 4b point2 (ENC_KITTI a row);
-    advance at b, one segment, a fused_iter and a gru1632 an iteration and
-    none of the serial kernels; epilogue none."""
+    advance at b, one segment, a fused_iter and a gru1632 an iteration, each
+    gru1632 building gru08's input (``gru1632:up08``), and none of the
+    serial kernels; epilogue none."""
     out = {}
     for b in SERVER_BUCKETS:
         got = {kind: sess.program_launches(kind, ph, pw, it, b=b)
@@ -2744,10 +2780,15 @@ def _program_launches_checked(sess, ph: int, pw: int) -> dict:
                 "advance": {"fused_iter": SERVER_ITERS_PER_TICK,
                             "gru1632": SERVER_ITERS_PER_TICK},
                 "epilogue": {}}
-        if got != want:
-            raise SystemExit(f"server: batched programs at b={b} captured {got}, "
-                             f"expected {want}")
-        out[str(b)] = got
+        adv_var: dict = {}
+        for row in sess.program_shards("advance", ph, pw, SERVER_ITERS_PER_TICK, b=b):
+            for k, n in row["variants"].items():
+                adv_var[k] = adv_var.get(k, 0) + n
+        if got != want or adv_var != {"gru1632:up08": SERVER_ITERS_PER_TICK}:
+            raise SystemExit(f"server: batched programs at b={b} captured {got}, advance "
+                             f"variants {adv_var}, expected {want} and "
+                             f"{SERVER_ITERS_PER_TICK} gru1632:up08")
+        out[str(b)] = {**got, "advance_variants": adv_var}
     return out
 
 

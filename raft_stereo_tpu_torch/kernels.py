@@ -55,7 +55,8 @@ _SIGNATURES = {
                [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                 _P, _P, _P, _P]),
     "gru1632": ("rst_gru1632",
-                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 19),
+                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_I] * 6 + [_P] * 8 + [_I] * 2
+                + [_P] * 16),
     # More symbols of csrc/gru1632.cu: the size of its counter buffer, and
     # its block.
     "gru1632_counters": ("rst_gru1632_counters", [_I, _I, _I], "gru1632"),
@@ -96,8 +97,10 @@ launches: Counter = Counter()
 # resident kernel's on int8 levels (RAFT_CORR_PACK8): "corr_lookup:pack8",
 # "fused_iter:pack8"; the GRU kernels' on int8 czrq (RAFT_LANE_PACK8):
 # "conv_gru:gru08:lane8", "gru1632:lane8", "fused_iter:lane8", and
-# "fused_iter:pack8+lane8" under both. Added to beside ``launches``, at the
-# same place.
+# "fused_iter:pack8+lane8" under both. A launch that ran an optional stage
+# is counted under the stage too, beside its variant's count: "gru1632:up08",
+# the gru16+32 launches that built gru08's upsampled input. Added to beside
+# ``launches``, at the same place.
 variants: Counter = Counter()
 
 # Callables ``(kernel, variant)`` told of every launch as it is counted: the
@@ -107,14 +110,18 @@ variants: Counter = Counter()
 _listeners: list = []
 
 
-def count_launch(kernel: str, variant: Optional[str] = None) -> None:
+def count_launch(kernel: str, variant: Optional[str] = None,
+                 stage: Optional[str] = None) -> None:
     """One launch of ``kernel``, in its ``variant`` where it has one (a
-    launch without one is counted in ``launches`` alone)."""
+    launch without one is counted in ``launches`` alone), and under the
+    optional ``stage`` it ran, if any. Listeners get the two joined by
+    ``+``."""
     launches[kernel] += 1
-    if variant is not None:
-        variants[f"{kernel}:{variant}"] += 1
+    tags = [t for t in (variant, stage) if t is not None]
+    for tag in tags:
+        variants[f"{kernel}:{tag}"] += 1
     for listener in tuple(_listeners):
-        listener(kernel, variant)
+        listener(kernel, "+".join(tags) or None)
 
 
 def add_launch_listener(fn) -> None:

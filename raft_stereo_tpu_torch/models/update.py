@@ -11,8 +11,9 @@ loop-invariant inputs those take are built once per frame by
 :meth:`BasicMultiUpdateBlock.prepare_fused` (under ``RAFT_LANE_PACK8`` the
 czrq context as int8 containers, which every step passes through as is).
 As in the JAX package, gru32 and gru16 then run as one kernel
-(``RAFT_FUSE_GRU1632``), and the caller
-may take the resident iteration (:meth:`BasicMultiUpdateBlock.
+(``RAFT_FUSE_GRU1632``), which also builds gru08's upsampled gru16 input
+where no gradient is taken (the JAX package resizes it outside), and the
+caller may take the resident iteration (:meth:`BasicMultiUpdateBlock.
 step_resident`, ``RAFT_FUSE_ITER``); both give the serial kernels' bits.
 
 Under a height shard (``space``, a ``parallel.ProcessGrid`` with a space
@@ -238,13 +239,26 @@ class BasicMultiUpdateBlock(nn.Module):
         package's update block with ``iter08=False, update=False``. With both
         flags set and the gru16+32 kernel engaged (:meth:`gru1632_engaged`),
         one launch does both; otherwise each runs its own step."""
+        return self._coarse(net, inp, fused, iter32=iter32, iter16=iter16, space=space)[0]
+
+    def _coarse(self, net: Sequence[torch.Tensor], inp: Sequence[Sequence[torch.Tensor]],
+                fused: Optional[FusedInputs], *, iter32: bool = True, iter16: bool = True,
+                space=None, x08: bool = False
+                ) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+        """:meth:`step_coarse`, and with ``x08`` gru08's x input from gru16's
+        new state (None with one level): the aligned-corners resize to
+        gru08's size, built by the gru16+32 launch where it runs (and no
+        gradient is taken, ``ops/stream.py:fused_gru1632``), else by
+        :func:`interp_align_corners`. Same bits either way."""
         net = list(net)
         n = self.n_gru_layers
+        size08 = _global_size(net[0], space)
         if iter32 and iter16 and self.gru1632_engaged(net, fused, space):
-            net[1], net[2] = stream.fused_gru1632(
+            out = stream.fused_gru1632(
                 fused.gru[1], fused.gru[2], net[1], net[2], fused.czrq[1], fused.czrq[2],
-                pool2x(net[0]), pool2x(net[1]))
-            return tuple(net)
+                pool2x(net[0]), pool2x(net[1]), size08=size08 if x08 else None)
+            net[1], net[2] = out[:2]
+            return tuple(net), out[2] if x08 else None
         if iter32 and n == 3:
             net[2] = self._gru(2, net[2], inp, fused, pool2x(net[1], space), space=space)
         if iter16 and n >= 2:
@@ -252,7 +266,8 @@ class BasicMultiUpdateBlock(nn.Module):
             if n == 3:
                 xs16 += (interp_align_corners(net[2], _global_size(net[1], space), space),)
             net[1] = self._gru(1, net[1], inp, fused, *xs16, space=space)
-        return tuple(net)
+        up = interp_align_corners(net[1], size08, space) if x08 and n > 1 else None
+        return tuple(net), up
 
     def _delta_flow(self, dx: torch.Tensor) -> torch.Tensor:
         # The kernels leave out conv2.b[0]; the y delta is zeroed by the
@@ -272,7 +287,8 @@ class BasicMultiUpdateBlock(nn.Module):
         off (a caller-supplied flow_init may carry a nonzero y, whose weights
         the kernel drops).
         """
-        net = list(self.step_coarse(net, inp, fused, space=space))
+        net, up08 = self._coarse(net, inp, fused, space=space, x08=True)
+        net = list(net)
         if space is not None:
             if (fused is not None and fuse_motion
                     and stream.spatial_motion_is_fusable(corr, space.n_space)):
@@ -283,9 +299,7 @@ class BasicMultiUpdateBlock(nn.Module):
             motion = stream.fused_motion(fused.motion, flow, corr)
         else:
             motion = self.encoder(flow, corr)
-        xs = (motion,)
-        if self.n_gru_layers > 1:
-            xs += (interp_align_corners(net[1], _global_size(net[0], space), space),)
+        xs = (motion,) if up08 is None else (motion, up08)
         if fused is None or fused.czrq[0] is None:
             net[0] = self._gru(0, net[0], inp, None, *xs, space=space)
             if space is not None:
@@ -305,11 +319,11 @@ class BasicMultiUpdateBlock(nn.Module):
         """:meth:`forward` with the lookup, the motion encoder and gru08 with
         the head in the resident iteration kernel, which gathers the
         correlation taps from ``corr_ops`` at ``coords_x`` itself. The
-        upsampled gru16 state stays outside, as in the JAX package. Same
-        return, same bits."""
-        net = list(self.step_coarse(net, inp, fused))
-        xs2 = ((interp_align_corners(net[1], net[0].shape[1:3]),)
-               if self.n_gru_layers > 1 else ())
+        upsampled gru16 state stays outside it: the gru16+32 launch builds it
+        where that runs. Same return, same bits."""
+        net, up08 = self._coarse(net, inp, fused, x08=True)
+        net = list(net)
+        xs2 = () if up08 is None else (up08,)
         net[0], dx = fused_iter(fused.motion, fused.gru[0], fused.head, corr_ops, net[0],
                                 fused.czrq[0], coords_x, flow, *xs2)
         return tuple(net), self._delta_flow(dx)

@@ -27,7 +27,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 
-def _needs_grad(leaves: Sequence[Optional[torch.Tensor]]) -> bool:
+def needs_grad(leaves: Sequence[Optional[torch.Tensor]]) -> bool:
+    """Whether autograd records a call on ``leaves``: grad mode on and a
+    leaf that requires grad."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)
 
@@ -41,7 +43,7 @@ def refuse_grad(kernel: str, *tensors) -> None:
             flat.extend(t)
         else:
             flat.append(t)
-    if _needs_grad(flat):
+    if needs_grad(flat):
         raise RuntimeError(
             f"kernel {kernel} has no backward: it was reached with grad enabled and an "
             "input that requires grad (run it under torch.no_grad(), or take the "
@@ -87,6 +89,6 @@ def recompute(run: Callable, plain: Callable, leaves: Sequence[Optional[torch.Te
     is enabled and a leaf requires grad; plain ``run`` otherwise. ``run``
     and ``plain`` return one tensor (``single``) or a tuple of tensors of
     the same structure."""
-    if not _needs_grad(leaves):
+    if not needs_grad(leaves):
         return run(*leaves)
     return _Recompute.apply(run, plain, single, *leaves)

@@ -53,10 +53,11 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch import kernels
 from raft_stereo_tpu_torch.config import lane_pack8_on
 from raft_stereo_tpu_torch.corr.reg_cuda import Lane8, dequantize_feature8, quantize_feature8
-from raft_stereo_tpu_torch.ops.grad import recompute, refuse_grad
+from raft_stereo_tpu_torch.ops.grad import needs_grad, recompute, refuse_grad
 from raft_stereo_tpu_torch.ops.resize import interp_align_corners, lerp_taps
 
 Czrq = Union[torch.Tensor, Lane8]  # the folded context, or its int8 container
+Size = Tuple[int, int]  # a map's (H, W)
 
 _BRANCH = 64  # csrc/stages.cuh motion_s2_loop: the block-diagonal stage's column tiles
 
@@ -170,8 +171,8 @@ def _czrq_args(name: str, czrq: Czrq, shape, device):
     return czrq.data_ptr(), 0, None
 
 
-def _count(kernel: str, lane8: int) -> None:
-    kernels.count_launch(kernel, "lane8" if lane8 else None)
+def _count(kernel: str, lane8: int, stage: Optional[str] = None) -> None:
+    kernels.count_launch(kernel, "lane8" if lane8 else None, stage)
 
 
 # -- ConvGRU (+ FlowHead): kernel 2 ------------------------------------------
@@ -374,47 +375,60 @@ def motion_launch(w: MotionWeights, flow: torch.Tensor, corr: torch.Tensor) -> t
 
 def gru1632_plain(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
                   h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
-                  x0p: torch.Tensor, x1p: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  x0p: torch.Tensor, x1p: torch.Tensor, *, size08: Optional[Size] = None
+                  ) -> Tuple[torch.Tensor, ...]:
     """Plain torch version of :func:`fused_gru1632`: the gru32 step, the
     aligned-corners resize of its new state to gru16's size, the gru16
-    step."""
+    step; with ``size08`` also the resize of gru16's new state to it."""
     h32n, _ = conv_gru_plain(w32, h32, czrq32, x1p)
     up = interp_align_corners(h32n, tuple(h16.shape[1:3]))
     h16n, _ = conv_gru_plain(w16, h16, czrq16, x0p, up)
-    return h16n, h32n
+    if size08 is None:
+        return h16n, h32n
+    return h16n, h32n, interp_align_corners(h16n, tuple(size08))
 
 
 def fused_gru1632(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
                   h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
-                  x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  x0p: torch.Tensor, x1p: torch.Tensor, *, size08: Optional[Size] = None
+                  ) -> Tuple[torch.Tensor, ...]:
     """:func:`gru1632_launch`, differentiable through :func:`gru1632_plain`
-    (the JAX package's ``fused_gru1632`` oracle)."""
+    (the JAX package's ``fused_gru1632`` oracle). Where a gradient is taken,
+    ``size08``'s resize is :func:`interp_align_corners` of h16' outside the
+    launch, as the JAX package's is."""
     if isinstance(czrq16, Lane8) or isinstance(czrq32, Lane8):
         refuse_grad("gru1632:lane8", h16, h32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
                     w32.w_gate_k, w32.w_q_k)
-        return gru1632_launch(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
+        return gru1632_launch(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p, size08=size08)
+    leaves = [h16, h32, czrq16, czrq32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
+              w32.w_gate_k, w32.w_q_k]
+    if size08 is not None and not needs_grad(leaves):
+        return gru1632_launch(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p, size08=size08)
 
     def args(lv):
         return (GruWeights(lv[6], lv[7], w16.ch, w16.level),
                 GruWeights(lv[8], lv[9], w32.ch, w32.level), *lv[:6])
 
-    return recompute(lambda *lv: gru1632_launch(*args(lv)),
-                     lambda *lv: gru1632_plain(*args(lv)),
-                     [h16, h32, czrq16, czrq32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
-                      w32.w_gate_k, w32.w_q_k])
+    h16n, h32n = recompute(lambda *lv: gru1632_launch(*args(lv)),
+                           lambda *lv: gru1632_plain(*args(lv)), leaves)
+    if size08 is None:
+        return h16n, h32n
+    return h16n, h32n, interp_align_corners(h16n, tuple(size08))
 
 
 def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
                    h32: torch.Tensor, czrq16: Czrq, czrq32: Czrq,
-                   x0p: torch.Tensor, x1p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   x0p: torch.Tensor, x1p: torch.Tensor, *, size08: Optional[Size] = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """The two coarse GRU steps in one launch (the JAX package's
     ``fused_gru1632``): ``(h16', h32')`` with
     ``h32' = gru32(h32, czrq32, x1p)`` and
     ``h16' = gru16(h16, czrq16, x0p, interp_align_corners(h32'))``, the
     resize built inside the kernel, each value once, into a scratch map.
-    Bit for bit the serial route's: :func:`fused_conv_gru` twice with the
-    resize between.
+    With ``size08`` (gru08's (H, W)) a third output,
+    ``interp_align_corners(h16', size08)``, gru08's x2 input, built by the
+    kernel's sixth stage (counted as ``gru1632:up08``). Bit for bit the
+    serial route's: :func:`fused_conv_gru` twice with the resizes between.
 
     h16: (B, H16, W16, ch); h32: (B, H32, W32, ch); x0p: (B, H16, W16, cx0),
     pool2x of the finer state; x1p: (B, H32, W32, ch), pool2x(h16). The two
@@ -423,7 +437,7 @@ def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
     refuse_grad("gru1632", h16, h32, czrq16, czrq32, x0p, x1p, w16.w_gate_k, w16.w_q_k,
                 w32.w_gate_k, w32.w_q_k)
     if h16.device.type == "cpu":
-        return gru1632_plain(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p)
+        return gru1632_plain(w16, w32, h16, h32, czrq16, czrq32, x0p, x1p, size08=size08)
     b, hh16, ww16, ch = h16.shape
     hh32, ww32 = h32.shape[1:3]
     cx0 = x0p.shape[-1]
@@ -444,6 +458,14 @@ def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
         _check_nhwc(name, t, shape, dt, dev)
     yi, yw = lerp_taps(hh32, hh16, dt, dev)
     xi, xw = lerp_taps(ww32, ww16, dt, dev)
+    hh08, ww08 = (0, 0) if size08 is None else (int(size08[0]), int(size08[1]))
+    up08, ptrs08 = None, [None] * 4
+    if size08 is not None:
+        if hh08 < 1 or ww08 < 1:
+            raise ValueError(f"gru1632 kernel: gru08 size {tuple(size08)}")
+        taps08 = (*lerp_taps(hh16, hh08, dt, dev), *lerp_taps(ww16, ww08, dt, dev))
+        ptrs08 = [t.data_ptr() for t in taps08]
+        up08 = torch.empty((b, hh08, ww08, ch), dtype=dt, device=dev)
     z16, rh16, up, h16_out = (torch.empty_like(h16) for _ in range(4))
     z32, rh32, h32_out = (torch.empty_like(h32) for _ in range(3))
     aqx16 = torch.empty(h16.shape, dtype=torch.float32, device=dev)
@@ -456,11 +478,12 @@ def gru1632_launch(w16: GruWeights, w32: GruWeights, h16: torch.Tensor,
         x1p.data_ptr(), b, hh16, ww16, hh32, ww32, ch,
         w16.w_gate_k.data_ptr(), w16.w_q_k.data_ptr(), w32.w_gate_k.data_ptr(),
         w32.w_q_k.data_ptr(), yi.data_ptr(), yw.data_ptr(), xi.data_ptr(), xw.data_ptr(),
-        z16.data_ptr(), rh16.data_ptr(), aqx16.data_ptr(), z32.data_ptr(),
-        rh32.data_ptr(), aqx32.data_ptr(), up.data_ptr(), h16_out.data_ptr(),
+        hh08, ww08, *ptrs08, z16.data_ptr(), rh16.data_ptr(), aqx16.data_ptr(),
+        z32.data_ptr(), rh32.data_ptr(), aqx32.data_ptr(), up.data_ptr(),
+        None if up08 is None else up08.data_ptr(), h16_out.data_ptr(),
         h32_out.data_ptr(), bar.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    _count("gru1632", lane8)
-    return h16_out, h32_out
+    _count("gru1632", lane8, None if up08 is None else "up08")
+    return (h16_out, h32_out) if up08 is None else (h16_out, h32_out, up08)
 
 
 # -- height-sharded entries (``space``) ---------------------------------------

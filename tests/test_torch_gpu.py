@@ -19,7 +19,10 @@ shapes a block of their persistent grid runs several tiles a stage. The
 loop engine's edge cases (maps under one 8 x 16 output patch and off its
 multiples, B = 2, no, one and two x2 parts with a 32-channel one) run all
 four resident modes against their serial chains, and the motion and gru08
-+ head launches against their plain versions.
++ head launches against their plain versions. gru16+32's sixth stage, gru08's
+upsampled input, must equal interp_align_corners of the launch's h16' bit
+for bit, and a 32-iteration segment with it the same segment without
+gru16+32 (RAFT_FUSE_GRU1632=0).
 With integer inputs they must also equal their plain versions wherever no
 sigmoid or tanh sits between (those are the card's and the library's own
 functions, which may round their last fp32 bit apart).
@@ -328,6 +331,77 @@ def test_gpu_gru1632_kernel_integer_inputs(cuda, b, h16, w16, ch, cx0):
         assert torch.equal(g_, s_)
         assert float((g_.float() - p_.float()).abs().max()) <= 2.0 ** -5
         assert float((g_ == p_).float().mean()) >= 0.99
+
+
+# gru08's upsampled input from gru16+32's sixth stage: (B, H16, W16, (H08,
+# W08)) at KITTI's and Middlebury-F's maps and at an odd gru08 width and
+# height (the last row's and column's taps).
+GRU1632_UP08 = [(b, 48, 156, (96, 312)) for b in (1, 2, 4)] + \
+    [(b, 252, 372, (504, 744)) for b in (1, 2, 4)] + [(2, 22, 34, (43, 67))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane8", [False, True], ids=["bf16", "lane8"])
+@pytest.mark.parametrize("b,h16,w16,size08", GRU1632_UP08)
+def test_gpu_gru1632_up08_equals_the_resize(cuda, b, h16, w16, size08, lane8):
+    """Stage 6's map is interp_align_corners of the launch's own h16' bit
+    for bit, and the two states are the launch's without the stage; the
+    launch counts once, under its variant and under ``up08``."""
+    from raft_stereo_tpu_torch import kernels
+    args = list(_gru1632_case(cuda, b, h16, w16, 128, 80))
+    if lane8:
+        args[4], args[5] = quantize_feature8(args[4]), quantize_feature8(args[5])
+    with torch.no_grad():
+        without = stream.fused_gru1632(*args)
+        kernels.reset_launches()
+        got = stream.fused_gru1632(*args, size08=size08)
+        ref = interp_align_corners(got[0], size08)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"gru1632": 1}
+    assert kernels.variants == {"gru1632:up08": 1, **({"gru1632:lane8": 1} if lane8 else {})}
+    assert got[2].shape == (b, *size08, 128) and got[2].dtype == torch.bfloat16
+    assert torch.equal(got[2], ref)
+    for g_, w_ in zip(got[:2], without):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("image", [(384, 1248), (2016, 2976)], ids=["96x312", "504x744"])
+def test_gpu_segment_with_the_up08_stage_equals_serial(cuda, monkeypatch, image):
+    """A 32-iteration segment of the default loop (the resident kernel
+    reading gru16+32's gru08 map) gives the coords1 and net of the same
+    segment with RAFT_FUSE_GRU1632=0 (gru16 and gru32 serial, the resizes
+    as einsums) bit for bit; the default counts one gru16+32 launch an
+    iteration, each building the map."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch import RAFTStereoConfig, init_raft_stereo, kernels
+    from raft_stereo_tpu_torch.models.raft_stereo import (
+        raft_stereo_prepare, raft_stereo_segment_carry)
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda", mixed_precision=True)
+    model = init_raft_stereo(cfg, seed=0, device=cuda)
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.02)
+        model.update_block.flow_head.conv2.bias.mul_(0.02)
+    rng = np.random.default_rng(21)
+    left, right = (torch.from_numpy(rng.uniform(0, 255, (1, *image, 3)).astype(np.float32))
+                   .to(cuda) for _ in range(2))
+    for knob in ("RAFT_FUSE_ITER", "RAFT_LANE_PACK8", "RAFT_CORR_PACK8"):
+        monkeypatch.delenv(knob, raising=False)
+    iters, out, counts = 32, {}, {}
+    with torch.no_grad():
+        state = raft_stereo_prepare(model, left, right)
+        for fuse in ("1", "0"):
+            monkeypatch.setenv("RAFT_FUSE_GRU1632", fuse)
+            kernels.reset_launches()
+            out[fuse], _ = raft_stereo_segment_carry(model, state, iters=iters)
+            torch.cuda.synchronize()
+            counts[fuse] = (dict(kernels.launches), dict(kernels.variants))
+    assert counts["1"] == ({"gru1632": iters, "fused_iter": iters}, {"gru1632:up08": iters})
+    assert "gru1632" not in counts["0"][0] and counts["0"][1] == {}
+    assert torch.equal(out["1"]["coords1"], out["0"]["coords1"])
+    for a, b in zip(out["1"]["net"], out["0"]["net"]):
+        assert torch.equal(a, b)
 
 
 def _resident_case(device, b, h, w, ch, seed, ints=False):

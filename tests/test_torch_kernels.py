@@ -64,3 +64,28 @@ def test_build_failure_raises_with_the_compiler_output(fake_toolkit):
     assert sorted(os.listdir(fake_toolkit)) == sorted(
         p.name for p in (kernels.library_path("motion"),
                          kernels.library_path("motion").with_suffix(".log")))
+
+
+def test_count_launch_counts_a_stage_beside_the_variant(monkeypatch):
+    """A launch that ran an optional stage counts once in ``launches`` and
+    under its variant and its stage each, so the variant's count is the
+    same with and without the stage; listeners get both tags."""
+    monkeypatch.setattr(kernels, "launches", type(kernels.launches)())
+    monkeypatch.setattr(kernels, "variants", type(kernels.variants)())
+    heard = []
+
+    def listener(kernel, variant):
+        heard.append((kernel, variant))
+
+    kernels.add_launch_listener(listener)
+    try:
+        kernels.count_launch("gru1632", "lane8", "up08")
+        kernels.count_launch("gru1632", "lane8")
+        kernels.count_launch("gru1632", None, "up08")
+        kernels.count_launch("gru1632")
+    finally:
+        kernels.remove_launch_listener(listener)
+    assert kernels.launches == {"gru1632": 4}
+    assert kernels.variants == {"gru1632:lane8": 2, "gru1632:up08": 2}
+    assert heard == [("gru1632", "lane8+up08"), ("gru1632", "lane8"), ("gru1632", "up08"),
+                     ("gru1632", None)]

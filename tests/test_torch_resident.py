@@ -323,3 +323,97 @@ def test_lerp_taps_rebuild_the_resize_matrix():
         assert torch.equal(rebuilt, m)
         assert idx[-1].tolist() == [n_in - 1, n_in - 1] and wt[-1, 1] == 0
 
+
+
+def _gru1632_args(b, h16, w16, ch, seed):
+    """gru16+32 arguments on the CPU, bf16, x0p of ``ch`` channels."""
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    g16, g32 = ConvGRU(ch, 2 * ch), ConvGRU(ch, ch)
+    for i, m in enumerate((g16, g32)):
+        init_weights(m, torch.Generator().manual_seed(seed + i))
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(bf)
+
+    h32, w32 = h16 // 2, w16 // 2
+    with torch.no_grad():
+        w16_, w32_ = stream.gru_weights(g16, bf, "gru16"), stream.gru_weights(g32, bf, "gru32")
+        czrq16 = stream.prepare_gru_context(g16, [rnd((b, h16, w16, ch), 0.3)] * 3, bf)
+        czrq32 = stream.prepare_gru_context(g32, [rnd((b, h32, w32, ch), 0.3)] * 3, bf)
+    return (w16_, w32_, rnd((b, h16, w16, ch), 0.5), rnd((b, h32, w32, ch), 0.5), czrq16,
+            czrq32, rnd((b, h16, w16, ch), 1.0), rnd((b, h32, w32, ch), 1.0))
+
+
+@pytest.mark.parametrize("b,h16,w16,size08", [(1, 16, 24, (32, 48)), (2, 8, 20, (16, 39)),
+                                              (1, 6, 10, (11, 20))])
+def test_gru1632_builds_gru08_input_as_the_resize(b, h16, w16, size08):
+    """With gru08's size, gru16+32's plain version (what the wrapper runs on
+    the CPU) gives the two states it gives without it and, third,
+    interp_align_corners of h16' bit for bit (odd sizes too: the last
+    tap). Under grad the resize stays outside the launch, and the gradient
+    through the third output is the plain version's."""
+    from raft_stereo_tpu_torch.ops.resize import interp_align_corners
+    args = _gru1632_args(b, h16, w16, 32, 70)
+    with torch.no_grad():
+        two = stream.gru1632_plain(*args)
+        three = stream.gru1632_plain(*args, size08=size08)
+        fused = stream.fused_gru1632(*args, size08=size08)
+    assert len(two) == 2 and len(three) == 3 and len(fused) == 3
+    for a, b_ in zip(two, three):
+        assert torch.equal(a, b_)
+    assert torch.equal(three[2], interp_align_corners(three[0], size08))
+    for a, b_ in zip(three, fused):
+        assert torch.equal(a, b_)
+    h16 = args[2].float().requires_grad_(True)
+    grads = []
+    for fn in (stream.fused_gru1632, stream.gru1632_plain):
+        out = fn(*args[:2], h16.to(torch.bfloat16), *args[3:], size08=size08)
+        assert torch.equal(out[2], three[2])
+        grads.append(torch.autograd.grad(out[2].float().square().sum(), h16)[0])
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("route", ["resident", "warm", "slow_fast"])
+def test_gru08_input_comes_from_gru1632_where_it_runs(rng, monkeypatch, route):
+    """Where gru16+32 runs, gru08's upsampled input is its third output: the
+    model step calls interp_align_corners itself nowhere (default loop),
+    in the plain step (a flow_init: the resident iteration off) and under
+    slow-fast (32 of the 64 gru16+32 calls give it, the pre-step's none).
+    With RAFT_FUSE_GRU1632=0 the step resizes every level itself. Both
+    routes give the same bits."""
+    iters = 2
+    cfg = RAFTStereoConfig(**SMALL, corr_implementation="reg_cuda", mixed_precision=True,
+                           slow_fast_gru=route == "slow_fast")
+    model = init_raft_stereo(cfg, seed=9, device="cpu")
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.02)
+    i1, i2 = (torch.from_numpy(a) for a in _images(rng, 64, 128))
+    init = torch.from_numpy(rng.standard_normal((1, 16, 32, 2)).astype(np.float32)) \
+        if route == "warm" else None
+    monkeypatch.delenv("RAFT_FUSE_ITER", raising=False)
+    outs, counts = {}, {}
+    for fuse in ("1", "0"):
+        monkeypatch.setenv("RAFT_FUSE_GRU1632", fuse)
+        calls = {"interp": 0, "gru1632": 0, "gru1632:size08": 0}
+        with monkeypatch.context() as m:
+            interp, fused = port_update.interp_align_corners, stream.fused_gru1632
+
+            def counted_interp(*a, **k):
+                calls["interp"] += 1
+                return interp(*a, **k)
+
+            def counted_fused(*a, **k):
+                calls["gru1632:size08" if k.get("size08") else "gru1632"] += 1
+                return fused(*a, **k)
+
+            m.setattr(port_update, "interp_align_corners", counted_interp)
+            m.setattr(stream, "fused_gru1632", counted_fused)
+            outs[fuse] = raft_stereo_forward(model, i1, i2, iters=iters, flow_init=init)
+        counts[fuse] = calls
+    pre = iters if route == "slow_fast" else 0
+    assert counts == {"1": {"interp": 0, "gru1632": pre, "gru1632:size08": iters},
+                      "0": {"interp": 2 * iters + pre, "gru1632": 0, "gru1632:size08": 0}}
+    for a, b in zip(outs["1"], outs["0"]):
+        assert torch.equal(a, b)
